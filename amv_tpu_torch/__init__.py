@@ -6,7 +6,12 @@ package's contracts and bytes; `amv_tpu` stays the reference it is
 tested against.  This package imports `torch` and never `jax`.
 
 Ported so far: the complete AMV->AMV transcode
-(`pipeline.transcode.transcode_bytes`, `python -m amv_tpu_torch`).
+(`pipeline.transcode.transcode_bytes`), the AMV decode to YUV420 frames
+and PCM (`pipeline.decode.decode_bytes`) and the AMV encode from them
+(`pipeline.encode.encode_to_bytes`), and their CLI routes
+(`python -m amv_tpu_torch`).  The port keeps its own copies of the host
+layer it needs (containers, tables, the C byte passes and oracles) and
+imports nothing of `amv_tpu`.
 """
 
 __version__ = "0.1.0"

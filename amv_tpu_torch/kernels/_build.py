@@ -2,7 +2,8 @@
 
 At first use, nvcc compiles every source into one shared library with a
 plain C interface under build/amv_tpu_torch/ at the repository root, and
-ctypes loads it.  Every pointer and the stream cross as c_void_p.  The
+ctypes loads it: one nvcc per source, all started together, then one
+link.  Every pointer and the stream cross as c_void_p.  The
 library is rebuilt when a source is newer than it; a failed build raises.
 Each C entry returns the cudaGetLastError() of its launch, and `check`
 raises on anything but 0.
@@ -23,7 +24,7 @@ _SRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "amv_tpu_torch")
 _SO = os.path.join(BUILD_DIR, "libamv_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -33,11 +34,14 @@ _SIGNATURES = {
     "amv_transcode_blocks": [_P, _P, _P, _P, _P, _P, _I64, _P],
     "amv_decode_scans": [_P, _I64, _P, _I32, _I32, _P, _P, _P, _P],
     "amv_encode_levels": [_P, _I32, _I32, _P, _I32, _P, _P, _P, _P],
+    "amv_idct_blocks": [_P, _P, _P, _P, _I64, _P],
+    "amv_fdct_quant": [_P, _P, _P, _I64, _I32, _P],
+    "amv_adpcm_decode": [_P, _I64, _P, _P, _I64, _I64, _P, _P],
+    "amv_adpcm_encode": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P, _I64, _I64,
+                         _P, _P, _P, _P, _P],
 }
 
 _lib = None
-
-
 
 
 def _nvcc() -> str:
@@ -49,20 +53,44 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _run(cmds):
+    """Run the commands in parallel; raise with the first failure's
+    output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> str:
     """Compile csrc/*.cu into the shared library if it is missing or
-    older than a source; return its path.  Raises on a failed build."""
+    older than a source or header; return its path.  Raises on a failed
+    build."""
     srcs = sorted(glob.glob(os.path.join(_SRC, "*.cu")))
+    deps = srcs + glob.glob(os.path.join(_SRC, "*.cuh"))
     if os.path.exists(_SO) and all(
-            os.path.getmtime(s) <= os.path.getmtime(_SO) for s in srcs):
+            os.path.getmtime(s) <= os.path.getmtime(_SO) for s in deps):
         return _SO
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
+            for s in srcs]
+    try:
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+              for s, o in zip(srcs, objs)])
+        tmp = f"{_SO}.{tag}"
+        _run([[nvcc, "-shared", "-o", tmp, *objs]])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, _SO)
     return _SO
 

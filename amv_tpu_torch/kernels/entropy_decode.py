@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from ..codecs.amv_video import device_table
+from ..codecs.jpeg_tables import device_table
 from . import _build
 
 LAUNCHES = 0

@@ -9,7 +9,9 @@ csrc/transcode.cu.  The layout here is frame-major blocks: levels int16
 n % 6 < 4.
 
 On a CUDA tensor the wrappers launch the kernel; on a CPU tensor they run
-`transcode_blocks_plain`, the same integer formulas vectorized in torch.
+`transcode_blocks_plain`, the plain versions of kernels I and F with the
+edge replication between them (the kernel shares csrc/dct.cuh with I and
+F the same way).
 """
 
 from __future__ import annotations
@@ -19,12 +21,12 @@ import struct
 import numpy as np
 import torch
 
-from ..codecs.amv_video import Q60_CHROMA, Q60_LUMA, ZIGZAG
+from ..codecs.jpeg_tables import Q60_CHROMA, Q60_LUMA, ZIGZAG
 from . import _build
+from .fdct import fdct_quantize_plain
+from .idct import dequantize, idct_put_plain
 
 LAUNCHES = 0
-
-W1, W2, W3, W4, W5, W6, W7 = 22725, 21407, 19266, 16383, 12873, 8867, 4520
 
 
 def transcode_blocks(levels: torch.Tensor, dc: torch.Tensor,
@@ -104,68 +106,7 @@ def _transcode(levels, dc, qmat, size, with_pix):
 
 
 # ---------------------------------------------------------------- plain
-# int32 two's-complement semantics in int64 tensors: + and * commute with
-# the wrap, so values are wrapped (_w32) only before a shift or compare.
-
-def _w32(x):
-    return ((x + 0x80000000) & 0xFFFFFFFF) - 0x80000000
-
-
-def _w16(x):
-    return ((x + 0x8000) & 0xFFFF) - 0x8000
-
-
-def _sra(x, n):
-    return _w32(x) >> n
-
-
-def _idct_1d(c, row: bool):
-    """simple_idct 1-D pass on 8 lists-of-tensors (row or column pass)."""
-    if row:
-        a0 = W4 * c[0] + (1 << 10)
-    else:
-        a0 = W4 * (c[0] + 32)
-    a1 = a0 + W6 * c[2] - W4 * c[4] - W2 * c[6]
-    a2 = a0 - W6 * c[2] - W4 * c[4] + W2 * c[6]
-    a3 = a0 - W2 * c[2] + W4 * c[4] - W6 * c[6]
-    a0 = a0 + W2 * c[2] + W4 * c[4] + W6 * c[6]
-    b0 = W1 * c[1] + W3 * c[3] + W5 * c[5] + W7 * c[7]
-    b1 = W3 * c[1] - W7 * c[3] - W1 * c[5] - W5 * c[7]
-    b2 = W5 * c[1] - W1 * c[3] + W7 * c[5] + W3 * c[7]
-    b3 = W7 * c[1] - W5 * c[3] + W3 * c[5] - W1 * c[7]
-    return [a0 + b0, a1 + b1, a2 + b2, a3 + b3,
-            a3 - b3, a2 - b2, a1 - b1, a0 - b0]
-
-
-def _fdct_1d(c, pass1: bool):
-    """jfdctint 1-D pass (fdct_pallas._fdct_1d) on 8 tensors."""
-    sh = 9 if pass1 else 17
-
-    def desc(x, n):
-        return _w16(_sra(x + (1 << (n - 1)), n))
-
-    t0, t7 = c[0] + c[7], c[0] - c[7]
-    t1, t6 = c[1] + c[6], c[1] - c[6]
-    t2, t5 = c[2] + c[5], c[2] - c[5]
-    t3, t4 = c[3] + c[4], c[3] - c[4]
-    t10, t13 = t0 + t3, t0 - t3
-    t11, t12 = t1 + t2, t1 - t2
-    if pass1:
-        o0, o4 = _w16((t10 + t11) << 4), _w16((t10 - t11) << 4)
-    else:
-        o0, o4 = desc(t10 + t11, 4), desc(t10 - t11, 4)
-    z1 = (t12 + t13) * 4433
-    o2 = desc(z1 + t13 * 6270, sh)
-    o6 = desc(z1 - t12 * 15137, sh)
-    za, zb, zc, zd = t4 + t7, t5 + t6, t4 + t6, t5 + t7
-    z5 = (zc + zd) * 9633
-    t4, t5, t6, t7 = t4 * 2446, t5 * 16819, t6 * 25172, t7 * 12299
-    za, zb = za * -7373, zb * -20995
-    zc = zc * -16069 + z5
-    zd = zd * -3196 + z5
-    return [o0, desc(t7 + za + zd, sh), o2, desc(t6 + zb + zc, sh),
-            o4, desc(t5 + zb + zd, sh), o6, desc(t4 + za + zc, sh)]
-
+# the plain halves of kernels I and F (dct.cuh on the card)
 
 def _edge_replicate(pix, geom):
     """Encoder edge replication of decoded blocks [N, 8, 8] for frames of
@@ -200,41 +141,8 @@ def transcode_blocks_plain(levels: torch.Tensor, dc: torch.Tensor,
                            with_pix: bool = True):
     """Plain torch version of kernel T on any device: (lv2 [N, 64] int16
     zigzag, pix [N, 64] uint8 raster or None); geom as `_geometry`."""
-    dev = levels.device
-    n = levels.shape[0]
-    zz = torch.as_tensor(ZIGZAG, device=dev)
-    luma = (torch.arange(n, device=dev) % 6 < 4)[:, None]
-    qm = torch.where(luma, torch.as_tensor(Q60_LUMA, device=dev).long(),
-                     torch.as_tensor(Q60_CHROMA, device=dev).long())
-    deq = torch.zeros((n, 64), dtype=torch.int64, device=dev)
-    deq[:, zz] = levels.long()
-    deq = _w16(deq * qm)
-    deq[:, 0] = _w16(dc.long())
-    blk = deq.view(n, 8, 8)
-
-    # row pass: c[k] = column k of every row, [n, 8]
-    c = [blk[:, :, k] for k in range(8)]
-    dc_only = (c[1] | c[2] | c[3] | c[4] | c[5] | c[6] | c[7]) == 0
-    short = _w16(c[0] << 3)
-    rows = [torch.where(dc_only, short, _w16(_sra(o, 11)))
-            for o in _idct_1d(c, row=True)]
-    mid = torch.stack(rows, dim=2)                      # [n, row, col]
-    cols = [mid[:, i, :] for i in range(8)]              # row i, all columns
-    pixr = [torch.clamp(_sra(o, 20), 0, 255) for o in _idct_1d(cols, row=False)]
-    decoded = torch.stack(pixr, dim=1)                   # [n, 8, 8] raster
-    pix = _edge_replicate(decoded, geom)
-
-    p1 = _fdct_1d([pix[:, :, k] for k in range(8)], pass1=True)
-    m1 = torch.stack(p1, dim=2)
-    p2 = _fdct_1d([m1[:, i, :] for i in range(8)], pass1=False)
-    coef = torch.stack(p2, dim=1).reshape(n, 64)         # raster
-
-    q = torch.as_tensor(qmat.astype(np.int64), device=dev)
-    level = _w32(coef * q)
-    neg = -(_w32(-level) >> 22)
-    quant = torch.clamp(torch.where(level >= 0, level >> 22, neg),
-                        -1023, 1023)
-    quant[:, 0] = (coef[:, 0] + 32) >> 6
-    lv2 = quant[:, zz].to(torch.int16)
-    return lv2, (decoded.reshape(n, 64).to(torch.uint8) if with_pix
-                 else None)
+    decoded = idct_put_plain(dequantize(levels, dc))
+    pix = _edge_replicate(decoded.view(-1, 8, 8), geom).reshape(-1, 64)
+    lv2 = fdct_quantize_plain(pix, qmat)[
+        :, torch.as_tensor(ZIGZAG, device=levels.device).long()]
+    return lv2, (decoded if with_pix else None)

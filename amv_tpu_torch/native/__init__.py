@@ -1,0 +1,157 @@
+"""ctypes bindings of the port's host C library (native/entropy.c).
+
+The same Python signatures as `amv_tpu.native.entropy_native` for what the
+port uses: the host byte passes of the video paths (`unescape_frames`,
+`escape_frames`) and the single-core C reference oracles
+(`ref_decode_frame`, `ref_encode_frame`, `ref_adpcm_decode`).
+
+At first use gcc compiles entropy.c into build/amv_tpu_torch/ at the
+repository root (beside the CUDA library); the library is rebuilt when
+the source is newer.  A failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+
+import numpy as np
+
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "entropy.c")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "build", "amv_tpu_torch")
+_SO = os.path.join(BUILD_DIR, "libamv_host.so")
+CFLAGS = ["-O3", "-fPIC", "-shared"]
+
+_P8 = ctypes.POINTER(ctypes.c_uint8)
+_P16 = ctypes.POINTER(ctypes.c_int16)
+_P32 = ctypes.POINTER(ctypes.c_int32)
+_P64 = ctypes.POINTER(ctypes.c_int64)
+_SIGNATURES = {   # name -> (restype, argtypes)
+    "amv_unescape_frames": (ctypes.c_int64, [
+        ctypes.c_char_p, _P64, _P64, ctypes.c_int, _P8, ctypes.c_int64,
+        _P64]),
+    "amv_escape_frames": (ctypes.c_int64, [
+        _P32, ctypes.c_int64, _P64, ctypes.c_int, _P8, ctypes.c_int64,
+        _P64]),
+    "amv_ref_decode_frame": (ctypes.c_int, [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P8,
+        _P8, _P8]),
+    "amv_ref_encode_frame": (ctypes.c_int64, [
+        _P8, _P8, _P8, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P8,
+        ctypes.c_int64]),
+    "adpcm_ref_decode": (ctypes.c_int64, [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P16]),
+}
+
+_lib = None
+
+
+def build() -> str:
+    """Compile entropy.c if the library is missing or older than it;
+    return the library's path.  Raises on a failed build."""
+    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
+        return _SO
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{_SO}.{os.getpid()}.tmp"
+    cmd = ["gcc", *CFLAGS, "-o", tmp, _SRC]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"gcc failed ({res.returncode}):\n{' '.join(cmd)}"
+                           f"\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, _SO)
+    return _SO
+
+
+def library() -> ctypes.CDLL:
+    """The loaded host library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        for name, (restype, argtypes) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = restype, argtypes
+        _lib = lib
+    return _lib
+
+
+def _blob(payloads):
+    blob = b"".join(payloads)
+    offsets = np.zeros(len(payloads), dtype=np.int64)
+    sizes = np.array([len(p) for p in payloads], dtype=np.int64)
+    np.cumsum(sizes[:-1], out=offsets[1:])
+    return blob, offsets, sizes
+
+
+def unescape_frames(payloads: list[bytes]):
+    """Batch SOI/EOI strip + 0xFF00 unescape into a zero-padded row
+    matrix (kernel D's input).
+
+    Returns (rows uint8 [F, stride], lens int64 [F]); stride is the max
+    unescaped length rounded up to a multiple of 4."""
+    blob, offsets, sizes = _blob(payloads)
+    stride = (int(sizes.max()) + 3) & ~3
+    rows = np.zeros((len(payloads), stride), np.uint8)
+    lens = np.zeros(len(payloads), np.int64)
+    rc = library().amv_unescape_frames(
+        blob, offsets.ctypes.data_as(_P64), sizes.ctypes.data_as(_P64),
+        len(payloads), rows.ctypes.data_as(_P8), stride,
+        lens.ctypes.data_as(_P64))
+    if rc < 0:
+        raise ValueError(f"native unescape failed (rc={rc})")
+    return rows[:, :(int(rc) + 3) & ~3], lens
+
+
+def escape_frames(words: np.ndarray, bits: np.ndarray) -> list[bytes]:
+    """(words int32 [F, w_out] big-endian scan words, bits [F]) -> framed
+    '00dc' payload bytes per frame (1-pad + 0xFF00 escape + SOI/EOI)."""
+    words = np.ascontiguousarray(words, np.int32)
+    bits64 = np.ascontiguousarray(bits, np.int64)
+    f, w_out = words.shape
+    stride = w_out * 4 * 2 + 8  # worst case: every byte escapes
+    dst = np.zeros((f, stride), np.uint8)
+    lens = np.zeros(f, np.int64)
+    rc = library().amv_escape_frames(
+        words.ctypes.data_as(_P32), w_out, bits64.ctypes.data_as(_P64), f,
+        dst.ctypes.data_as(_P8), stride, lens.ctypes.data_as(_P64))
+    if rc != 0:
+        raise ValueError(f"native escape failed (rc={rc})")
+    return [dst[i, :lens[i]].tobytes() for i in range(f)]
+
+
+def ref_decode_frame(payload: bytes, width: int, height: int):
+    """Full single-core C decode of one '00dc' payload -> (y, cb, cr)."""
+    y = np.zeros((height, width), dtype=np.uint8)
+    cb = np.zeros((height // 2, width // 2), dtype=np.uint8)
+    cr = np.zeros_like(cb)
+    rc = library().amv_ref_decode_frame(
+        payload, len(payload), width, height, y.ctypes.data_as(_P8),
+        cb.ctypes.data_as(_P8), cr.ctypes.data_as(_P8))
+    if rc != 0:
+        raise ValueError(f"native ref decode failed (rc={rc})")
+    return y, cb, cr
+
+
+def ref_encode_frame(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+                     qscale: int = 2) -> bytes:
+    """Full single-core C encode of one frame -> '00dc' payload."""
+    h, w = y.shape
+    cap = w * h * 4 + 65536
+    out = np.zeros(cap, dtype=np.uint8)
+    y, cb, cr = (np.ascontiguousarray(p, np.uint8) for p in (y, cb, cr))
+    n = library().amv_ref_encode_frame(
+        y.ctypes.data_as(_P8), cb.ctypes.data_as(_P8), cr.ctypes.data_as(_P8),
+        w, h, qscale, out.ctypes.data_as(_P8), cap)
+    if n < 0:
+        raise ValueError(f"native ref encode failed (rc={n})")
+    return out[:n].tobytes()
+
+
+def ref_adpcm_decode(data: bytes, predictor: int,
+                     step_index: int) -> np.ndarray:
+    """Scalar C IMA-ADPCM (AMV) decode of one chunk's nibble bytes."""
+    out = np.zeros(2 * len(data), dtype=np.int16)
+    n = library().adpcm_ref_decode(data, len(data), predictor, step_index,
+                                   out.ctypes.data_as(_P16))
+    return out[:n]

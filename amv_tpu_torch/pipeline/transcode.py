@@ -19,31 +19,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from amv_tpu.bitstream.entropy import huffman_decode_frames, huffman_encode_frame
-from amv_tpu.containers import riff
-from amv_tpu.native import entropy_native as native
-
-from ..codecs.amv_video import QDC_CHROMA, QDC_LUMA, encoder_qmat
+from .. import native
+from ..codecs.amv_video import (check_decoded, encoder_qmat, pack_levels,
+                                resolve_dc)
+from ..containers import riff
 from ..kernels.entropy_decode import decode_scans
-from ..kernels.entropy_encode import encode_levels
 from ..kernels.transcode import transcode_blocks, transcode_blocks_pix
-
-# transcodes that found a frame the device decoder rejected (ok False) and
-# took the host-entropy route, as the JAX package does for malformed streams
-HOST_FALLBACKS = 0
-
-
-def resolve_dc(levels: torch.Tensor) -> torch.Tensor:
-    """DC prediction: zigzag levels [F, M, 6, 64] with slot 0 = DC
-    difference -> resolved dequantized DC int32 [F, M, 6] (+1024 bias),
-    a per-component cumsum (Y over its 4 blocks per MCU, then Cb, Cr)."""
-    f, m = levels.shape[:2]
-    d = levels[..., 0].to(torch.int32)
-    dy = torch.cumsum(d[:, :, :4].reshape(f, m * 4) * QDC_LUMA, dim=1,
-                      dtype=torch.int32).reshape(f, m, 4) + 1024
-    dcb = torch.cumsum(d[:, :, 4] * QDC_CHROMA, dim=1, dtype=torch.int32) + 1024
-    dcr = torch.cumsum(d[:, :, 5] * QDC_CHROMA, dim=1, dtype=torch.int32) + 1024
-    return torch.cat([dy, dcb[..., None], dcr[..., None]], dim=2)
+from . import resolve_device
 
 
 def transcode_levels_fused(levels_zz: torch.Tensor, qscale=2, size=None):
@@ -65,8 +47,8 @@ def transcode_levels_fused(levels_zz: torch.Tensor, qscale=2, size=None):
 def word_budget(scans: torch.Tensor) -> int:
     """Output words per frame for the encoder: twice the longest input scan
     plus slack, which holds a same-qscale re-encode with room to spare.  A
-    guess, not a measured bound: `transcode_complete` re-packs on overflow
-    and trims the words to the longest re-encode."""
+    guess, not a measured bound: `pack_levels` re-packs on overflow and
+    trims the words to the longest re-encode."""
     return max(64, (2 * scans.shape[1] + 255) // 256 * 64)
 
 
@@ -78,41 +60,24 @@ def transcode_complete(scans: torch.Tensor, lens: torch.Tensor, n_mcu: int,
 
     `transcode_complete_async`'s contract at segs=1, with ok per frame;
     `qmat` is a qscale or a qmat_key, `size` as `transcode_levels_fused`.
-    ok False marks a frame the decoder rejected.  A frame whose re-encode
-    overflows the first word budget is packed again with a budget sized
-    from the exact bit counts, so the words never truncate; w_out is the
-    longest re-encode's word count, so no unused words reach the host."""
+    ok False marks a frame the decoder rejected.  The encoder's words never
+    truncate (`pack_levels`)."""
     levels, ok = decode_scans(scans, lens, n_mcu * 6)
     dc = resolve_dc(levels.reshape(-1, n_mcu, 6, 64)).reshape(-1)
     lv2 = transcode_blocks(levels.reshape(-1, 64), dc, encoder_qmat(qmat),
                            size)
-    lv2 = lv2.reshape(levels.shape)
-    words, bits, _ = encode_levels(lv2, word_budget(scans))
-    w_used = max(1, (int(bits.max()) + 31) // 32) if bits.numel() else 1
-    if w_used > words.shape[1]:
-        words, bits, _ = encode_levels(lv2, w_used)
-    return words[:, :w_used].contiguous(), bits, ok.bool()
-
-
-def _device(device) -> torch.device:
-    """torch.device for a user's `device` argument; a CUDA device without
-    a usable card raises instead of running elsewhere."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but no CUDA device is "
-                           "available to torch")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
+    words, bits = pack_levels(lv2.reshape(levels.shape), word_budget(scans))
+    return words, bits, ok.bool()
 
 
 def transcode_bytes(data: bytes, *, qscale: int = 2, quant: str = "ffmpeg",
                     device) -> bytes:
     """Re-encode a complete .amv file on `device` (video re-quantized at
     qscale; audio chunks pass through).  Byte-identical to
-    `amv_tpu.pipeline.transcode.transcode_bytes`."""
-    global HOST_FALLBACKS
-    dev = _device(device)
+    `amv_tpu.pipeline.transcode.transcode_bytes`.  A frame whose scan the
+    Huffman decoder rejects raises ValueError naming it, as the JAX
+    package's host route raises there."""
+    dev = resolve_device(device)
     s = riff.demux(data)
     w, h = s.info.width, s.info.height
     if quant != "ffmpeg":
@@ -134,17 +99,6 @@ def transcode_bytes(data: bytes, *, qscale: int = 2, quant: str = "ffmpeg",
     words, bits, ok = transcode_complete(
         torch.from_numpy(rows[order]).to(dev),
         torch.from_numpy(lens[order]).to(dev), n_mcu, qscale, (w, h))
-    if bool(ok.all()):
-        vchunks = native.escape_frames(words.cpu().numpy()[inv],
-                                       bits.cpu().numpy()[inv])
-        return mux(vchunks)
-    # host-entropy route (amv_tpu/pipeline/transcode.py:603-621), kept for
-    # the JAX package's contract.  Kernel D has no iteration budget, so ok
-    # is False only where the C decoder fails too: the host decode below
-    # then raises ValueError, as the JAX package's host route does.
-    HOST_FALLBACKS += 1
-    levels = huffman_decode_frames(s.video_chunks, n_mcu)
-    lv2, _ = transcode_levels_fused(torch.from_numpy(levels).to(dev), qscale,
-                                    (w, h))
-    lv2 = lv2.cpu().numpy()
-    return mux([huffman_encode_frame(lv2[f]) for f in range(len(lv2))])
+    check_decoded(ok, order)
+    return mux(native.escape_frames(words.cpu().numpy()[inv],
+                                    bits.cpu().numpy()[inv]))

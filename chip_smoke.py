@@ -1,26 +1,46 @@
 #!/usr/bin/env python3
 """Start the PyTorch/CUDA port (amv_tpu_torch) on one NVIDIA GPU and check
-its main path, the complete AMV->AMV transcode, end to end.
+its paths end to end: the complete AMV->AMV transcode, the AMV decode
+(video and audio) and the AMV encode.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; nothing is caught):
  1. the card: nvidia-smi name and power limit, torch.cuda required;
- 2. build the three CUDA kernels from amv_tpu_torch/csrc (nvcc, sm_90a);
+ 2. build the seven CUDA kernels from amv_tpu_torch/csrc (nvcc, sm_90a,
+    one nvcc per source, all started together);
  3. a 160x120 corpus at the reference's canonical shape (16 fps, 22,050 Hz
     ADPCM audio): 4,800 frames (5 minutes) of seeded videogen/rotozoom
-    pictures with noise, each C-encoded at qscale 2, muxed into an .amv;
+    pictures with noise, each C-encoded at qscale 2, muxed into an .amv
+    with one encoded second of audio repeated; and 300 s of audiogen PCM
+    for the encode path;
  4. each kernel against its plain torch version on the card, bit-exact,
-    at the main path's shapes (the whole corpus batch), with each one's
-    median time (CUDA events) beside the plain version's; then extra
-    cases on 512 corpus frames: malformed scans (decode), no edge
-    replication (transcode), an overflowing word budget (encode);
- 5. the main path through the user's entry point, amv_tpu_torch.cli.main:
+    at the main paths' shapes, with each one's median time (CUDA events)
+    beside the plain version's and its bound (the least time the card
+    could take: the bytes it must move over the memory rate, or its
+    integer operations over the peak rate, whichever is larger):
+    D, T, E on the corpus as the transcode hands it over; I on the
+    corpus blocks; F on the blocks of the raw corpus pictures; A on the
+    file's audio chunks; Q on the 300 s stream's chunk layout; and the
+    other entries over the same kernels: I's raw idct_put on the corpus's
+    dequantized blocks, F's raster fdct_quantize, A's wrap entry 64 times
+    over and Q's 8 times over.  Then extra cases: malformed scans (D), no
+    edge replication (T), an overflowing word budget (E), DC-only blocks
+    (I), qscale 1 (F), clamp-stress payloads (A), a stream with no reset
+    at sample 0 and one starting at step index 88 (Q);
+ 5. the transcode through the user's entry point, amv_tpu_torch.cli.main:
     video byte-identical to the C reference transcode, audio passed
-    through, every kernel launched, no host fallback; frames/s and the
-    split between the device chain and the host stages;
- 6. 256 frames at 320x240 through transcode_bytes, byte-identical to the
-    C reference.
+    through, D, T and E launched; frames/s and the split between the
+    device chain and the host stages;
+ 6. the decode through cli.main, to .yuv and to .wav: every frame
+    byte-identical to the C decoder, the PCM to the C ADPCM decoder chunk
+    by chunk, D, I and A launched; frames/s, Msamples/s and the split;
+ 7. the encode through cli.main from .yuv + .wav: every video chunk
+    byte-identical to the C encoder, every audio chunk to the Python
+    ADPCM oracle, F, E and Q launched; frames/s, Msamples/s and the split;
+ 8. 64 frames at 168x120 (width not whole MCUs) through the transcode,
+    the decode and the encode, byte-identical to C;
+ 9. 256 frames at 320x240 through transcode_bytes, byte-identical to C.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -34,48 +54,94 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
 N_FRAMES, W, H, FPS, RATE, QSCALE = 4800, 160, 120, 16, 22050, 2
 N_CHECK = 512
+N_PAD, W_PAD = 64, 168          # 168 = 10.5 MCUs: right-hand pad columns
+WRAP = 64                       # kernel A's wrap entry: the chunks 64 times
+
+# Peaks of one H100 SXM at 700 W, from its datasheet: device memory, and
+# float32 outside the tensor cores, the rate for the scalar units, against
+# which the bounds count each integer operation.
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
+# Integer operations per unit of work, counted from the CUDA sources
+# (multiplies, adds, shifts, compares, selects; loads and stores not):
+OPS_DEQUANT = 190    # dct.cuh callers: Q60 dequant and the DC slot
+OPS_IDCT = 1410      # dct.cuh: simple_idct row pass 600 + column pass 810
+OPS_FDCT = 1600      # dct.cuh: two jfdctint passes 1,200 + quantizer 400
+Q_WRAP = 8           # kernel Q's wrap entry: the stream 8 times
+OPS_TOKEN = 20       # a Huffman token: peek, table walk, extend, store
+OPS_EXPAND = 15      # an ADPCM decode sample (adpcm_decode.cu expand)
+OPS_COMPRESS = 25    # an ADPCM encode sample (adpcm_encode.cu compress)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def corpus(n, h, w, seed):
-    """C-encoded payloads of n seeded frames: videogen and rotozoom
-    pictures, interleaved in runs of 16, with +-3 luma noise."""
-    from amv_tpu.native import entropy_native as native
-    from amv_tpu.verify import fixtures
+def import_port() -> SimpleNamespace:
+    """The port's modules this script drives; nothing of JAX or amv_tpu."""
+    from amv_tpu_torch import cli, native
+    from amv_tpu_torch.codecs import amv_audio, amv_video, jpeg_tables
+    from amv_tpu_torch.containers import riff, wav
+    from amv_tpu_torch.kernels import _build, adpcm, fdct, idct
+    from amv_tpu_torch.kernels import entropy_decode as D
+    from amv_tpu_torch.kernels import entropy_encode as E
+    from amv_tpu_torch.kernels import transcode as T
+    from amv_tpu_torch.pipeline import decode, encode
+    from amv_tpu_torch.pipeline import transcode as P
+    from amv_tpu_torch.verify import fixtures, ref_adpcm
+    return SimpleNamespace(**locals())
+
+
+def pictures(m, n, h, w, seed):
+    """n seeded YUV420 pictures: videogen and rotozoom, interleaved in
+    runs of 16, with +-3 luma noise."""
     rng = np.random.default_rng(seed)
     half = n // 2
-    vg = fixtures.videogen(half, h, w, seed=seed)
-    rz = fixtures.rotozoom(n - half, h, w)
-    pays = []
+    vg = m.fixtures.videogen(half, h, w, seed=seed)
+    rz = m.fixtures.rotozoom(n - half, h, w)
+    y = np.empty((n, h, w), np.uint8)
+    cb = np.empty((n, h // 2, w // 2), np.uint8)
+    cr = np.empty_like(cb)
     for i in range(n):
-        src, k = (vg, i // 32 * 16 + i % 16) if (i // 16) % 2 == 0 else \
-            (rz, i // 32 * 16 + i % 16)
-        y = np.clip(src[0][k].astype(np.int16) +
-                    rng.integers(-3, 4, src[0][k].shape), 0, 255)
-        pays.append(native.ref_encode_frame(y.astype(np.uint8), src[1][k],
-                                            src[2][k], QSCALE))
-    return pays
+        src = vg if (i // 16) % 2 == 0 else rz
+        k = i // 32 * 16 + i % 16
+        y[i] = np.clip(src[0][k].astype(np.int16) +
+                       rng.integers(-3, 4, src[0][k].shape), 0, 255)
+        cb[i], cr[i] = src[1][k], src[2][k]
+    return y, cb, cr
 
 
-def c_reference(pays, w, h):
-    from amv_tpu.native import entropy_native as native
-    return [native.ref_encode_frame(*native.ref_decode_frame(p, w, h), QSCALE)
-            for p in pays]
+def c_encode(m, pics):
+    return [m.native.ref_encode_frame(pics[0][i], pics[1][i], pics[2][i],
+                                      QSCALE) for i in range(len(pics[0]))]
 
 
-def cuda_ms(fn, reps):
-    """(median milliseconds of fn() on the current stream (CUDA events)
-    after one warm-up call, the last call's result)."""
+def c_transcode(m, pays, w, h):
+    return [m.native.ref_encode_frame(*m.native.ref_decode_frame(p, w, h),
+                                      QSCALE) for p in pays]
+
+
+def c_decode_matches(m, pays, w, h, y, cb, cr) -> None:
+    for i, p in enumerate(pays):
+        ry, rcb, rcr = m.native.ref_decode_frame(p, w, h)
+        if not (np.array_equal(y[i], ry) and np.array_equal(cb[i], rcb)
+                and np.array_equal(cr[i], rcr)):
+            raise AssertionError(f"{w}x{h} frame {i} differs from the C "
+                                 "decoder")
+
+
+def cuda_ms(fn, reps, warmup=True):
+    """(median milliseconds of fn() on the current stream (CUDA events),
+    the last call's result); one warm-up call first unless warmup=False."""
     import torch
-    fn()
+    if warmup:
+        fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -101,6 +167,56 @@ def max_abs_err(pairs) -> int:
     return err
 
 
+def bound(nbytes: float, ops: float):
+    """(bound in ms, what bounds it) for a function that moves nbytes and
+    does ops integer operations."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def staged(split, name, fn):
+    """Run fn, synchronize, and add its host-clock seconds to split."""
+    import torch
+    t = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    split[name] = time.perf_counter() - t
+    return r
+
+
+def log_split(what, split, extra=""):
+    total = sum(split.values())
+    dev = sum(v for k, v in split.items() if k.startswith("device"))
+    log(f"{what} split (s): " + ", ".join(f"{k} {v:.4f}"
+                                          for k, v in split.items())
+        + f"; device {dev / total:.1%} of {total:.3f}{extra}")
+
+
+def timed_cli(m, argv, runs=3):
+    """Median wall seconds of cli.main(argv) over `runs` passes, and the
+    walls."""
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        rc = m.cli.main(argv)
+        walls.append(time.perf_counter() - t0)
+        assert rc == 0, argv
+    return statistics.median(walls), walls
+
+
+def reset_launches(m):
+    m.D.LAUNCHES = m.T.LAUNCHES = m.E.LAUNCHES = 0
+    m.idct.LAUNCHES = m.fdct.LAUNCHES = 0
+    m.adpcm.DECODE_LAUNCHES = m.adpcm.ENCODE_LAUNCHES = 0
+
+
+def launches(m):
+    return {"D": m.D.LAUNCHES, "T": m.T.LAUNCHES, "E": m.E.LAUNCHES,
+            "I": m.idct.LAUNCHES, "F": m.fdct.LAUNCHES,
+            "A": m.adpcm.DECODE_LAUNCHES, "Q": m.adpcm.ENCODE_LAUNCHES}
+
+
 def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -113,89 +229,173 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}; {torch.cuda.device_count()} "
         f"device(s), using {torch.cuda.get_device_name(0)}")
-
-    from amv_tpu.containers import riff
-    from amv_tpu.native import entropy_native as native
-    from amv_tpu.verify import fixtures, ref_adpcm
-    from amv_tpu_torch import cli
-    from amv_tpu_torch.codecs.amv_video import encoder_qmat
-    from amv_tpu_torch.kernels import _build
-    from amv_tpu_torch.kernels import entropy_decode as D
-    from amv_tpu_torch.kernels import entropy_encode as E
-    from amv_tpu_torch.kernels import transcode as T
-    from amv_tpu_torch.pipeline import transcode as P
-    assert "jax" not in sys.modules
+    m = import_port()
+    assert not [k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "amv_tpu")]
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     # ---- 2. build ---------------------------------------------------
     t0 = time.perf_counter()
-    _build.library()
-    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
+    m._build.library()
+    m.native.library()
+    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
+        f"{' '.join(m._build.NVCC_FLAGS)}; host C library with gcc)")
 
     # ---- 3. corpus --------------------------------------------------
     t0 = time.perf_counter()
-    pays = corpus(N_FRAMES, H, W, seed=0)
-    second = ref_adpcm.encode(fixtures.audiogen(1.0, RATE, seed=0),
-                              round(RATE / FPS), RATE)
+    pics = pictures(m, N_FRAMES, H, W, seed=0)
+    pays = c_encode(m, pics)
+    second = m.ref_adpcm.encode(m.fixtures.audiogen(1.0, RATE, seed=0),
+                                round(RATE / FPS), RATE)
     audio = second * (N_FRAMES // FPS)
-    data = riff.mux(pays, audio, width=W, height=H, fps=FPS,
-                    sample_rate=RATE)
+    data = m.riff.mux(pays, audio, width=W, height=H, fps=FPS,
+                      sample_rate=RATE)
+    pcm = m.fixtures.audiogen(N_FRAMES / FPS, RATE, seed=0)
     sizes = sorted(len(p) for p in pays)
     log(f"corpus: {N_FRAMES} frames {W}x{H} qscale {QSCALE}, payload bytes "
         f"min {sizes[0]} median {sizes[len(sizes) // 2]} max {sizes[-1]}; "
-        f"{len(audio)} audio chunks; {len(data)} bytes; "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{len(audio)} audio chunks; {len(data)} bytes; {len(pcm)} PCM "
+        f"samples for the encode; {time.perf_counter() - t0:.1f} s")
 
     # ---- 4. kernels against their plain versions ---------------------
-    # At the main path's shapes (the whole corpus, length-sorted, as
-    # transcode_bytes hands it to transcode_complete): the outputs of each
-    # kernel's last timed call are held against its plain version's.
+    # At the main paths' shapes; the outputs of each kernel's last timed
+    # call are held against its plain version's, which runs once without a
+    # warm-up (the plain decoder alone takes 15-20 s).
     n_mcu = ((W + 15) // 16) * ((H + 15) // 16)
     nb = n_mcu * 6
-    qmat = encoder_qmat(QSCALE)
-    rows_all, lens_all = native.unescape_frames(pays)
+    qmat = m.amv_video.encoder_qmat(QSCALE)
+    rows_all, lens_all = m.native.unescape_frames(pays)
     order = np.argsort([len(p) for p in pays], kind="stable")
     rows_a = torch.from_numpy(rows_all[order]).to(dev)
     lens_a = torch.from_numpy(lens_all[order]).to(dev)
-    times, errs = {}, {}
+    kern, errs = {}, {}
 
-    def check(key, kernel, plain, shape):
+    def tokens(levels):
+        """Huffman tokens of zigzag levels: nonzero ACs, DCs and EOBs."""
+        return int((levels[..., 1:] != 0).sum()) + 2 * levels[..., 0].numel()
+
+    def check(key, kernel, plain, shape, nbytes, ops):
+        """Time kernel and plain, hold their outputs equal, and record the
+        bound; nbytes and ops are numbers or functions of the output."""
         kt, got = cuda_ms(kernel, 10)
-        pt, want = cuda_ms(plain, 2)
-        times[key], errs[key] = (kt, pt), max_abs_err(zip(got, want))
+        pt, want = cuda_ms(plain, 1, warmup=False)
+        errs[key] = max_abs_err(zip(got, want))
         assert errs[key] == 0, f"{key}: kernel differs from plain by {errs[key]}"
+        nbytes, ops = (v(got) if callable(v) else v for v in (nbytes, ops))
+        bms, by = bound(nbytes, ops)
+        kern[key] = {"ms": kt, "plain_ms": pt, "bound_ms": bms,
+                     "bound_by": by}
         log(f"{key} at {shape}: bit-exact vs plain (max_abs_err 0); kernel "
-            f"{kt:.3f} ms, plain {pt:.3f} ms (median, CUDA events)")
+            f"{kt:.3f} ms, plain {pt:.3f} ms (median, CUDA events); bound "
+            f"{bms:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
+            f"{ops / 1e9:.2f} G int ops)")
         return got
 
+    def extra(key, pairs, what):
+        errs[key] = max_abs_err(pairs)
+        assert errs[key] == 0, f"{key}: kernel differs by {errs[key]}"
+        log(f"{key}: bit-exact vs plain on {what}")
+
     lv_a, ok_a = check(
-        "D", lambda: D.decode_scans(rows_a, lens_a, nb),
-        lambda: D.decode_scans_plain(rows_a, lens_a, nb),
-        f"rows {tuple(rows_a.shape)}")
+        "D", lambda: m.D.decode_scans(rows_a, lens_a, nb),
+        lambda: m.D.decode_scans_plain(rows_a, lens_a, nb),
+        f"rows {tuple(rows_a.shape)}",
+        int(lens_a.sum()) + 8 * N_FRAMES + N_FRAMES * nb * 128 + N_FRAMES,
+        lambda got: OPS_TOKEN * tokens(got[0]))
     assert ok_a.all()
-    dc_a = P.resolve_dc(lv_a.reshape(N_FRAMES, n_mcu, 6, 64)).reshape(-1)
+    dc_a = m.amv_video.resolve_dc(
+        lv_a.reshape(N_FRAMES, n_mcu, 6, 64)).reshape(-1)
     lvf = lv_a.reshape(-1, 64)
-    geom = T._geometry((W, H), lvf.shape[0])
-    check("T", lambda: (T.transcode_blocks(lvf, dc_a, qmat, (W, H)),),
-          lambda: T.transcode_blocks_plain(lvf, dc_a, qmat, geom, False)[:1],
-          f"{lvf.shape[0]} blocks")
+    n_blk = lvf.shape[0]
+    geom = m.T._geometry((W, H), n_blk)
+    check("T", lambda: (m.T.transcode_blocks(lvf, dc_a, qmat, (W, H)),),
+          lambda: m.T.transcode_blocks_plain(lvf, dc_a, qmat, geom, False)[:1],
+          f"{n_blk} blocks", n_blk * (128 + 4 + 128),
+          n_blk * (OPS_DEQUANT + OPS_IDCT + OPS_FDCT))
     lv2_a, _ = check(
-        "T pixel entry", lambda: T.transcode_blocks_pix(lvf, dc_a, qmat, (W, H)),
-        lambda: T.transcode_blocks_plain(lvf, dc_a, qmat, geom, True),
-        f"{lvf.shape[0]} blocks")
+        "T pixel entry",
+        lambda: m.T.transcode_blocks_pix(lvf, dc_a, qmat, (W, H)),
+        lambda: m.T.transcode_blocks_plain(lvf, dc_a, qmat, geom, True),
+        f"{n_blk} blocks", n_blk * (128 + 4 + 128 + 64),
+        n_blk * (OPS_DEQUANT + OPS_IDCT + OPS_FDCT))
     lv2_a = lv2_a.reshape(lv_a.shape)
-    wb = P.word_budget(rows_a)
-    _, _, ok_e = check("E", lambda: E.encode_levels(lv2_a, wb),
-                       lambda: E.encode_levels_plain(lv2_a, wb),
-                       f"levels {tuple(lv2_a.shape)}, w_out {wb}")
+    wb = m.P.word_budget(rows_a)
+    # E's words out: the longest frame's, as the path keeps them
+    words_e, bits_e, ok_e = check(
+        "E", lambda: m.E.encode_levels(lv2_a, wb),
+        lambda: m.E.encode_levels_plain(lv2_a, wb),
+        f"levels {tuple(lv2_a.shape)}, w_out {wb}",
+        lambda got: n_blk * 128 + N_FRAMES * (
+            4 * ((int(got[1].max()) + 31) // 32) + 5),
+        OPS_TOKEN * tokens(lv2_a))
     assert ok_e.all()
-    del lv_a, lv2_a, lvf, dc_a, ok_a, ok_e
-    torch.cuda.empty_cache()
+    (pix_i,) = check(
+        "I", lambda: (m.idct.idct_blocks(lvf, dc_a),),
+        lambda: (m.idct.idct_blocks_plain(lvf, dc_a),),
+        f"{n_blk} blocks", n_blk * (128 + 4 + 64),
+        n_blk * (OPS_DEQUANT + OPS_IDCT))
+    # I's raw entry (idct_put_soa's contract) on the corpus's own
+    # dequantized blocks
+    deq = m.idct.dequantize(lvf, dc_a).to(torch.int16)
+    check("I idct_put", lambda: (m.idct.idct_put(deq.view(-1, 8, 8)),),
+          lambda: (m.idct.idct_put_plain(deq).view(-1, 8, 8),),
+          f"{n_blk} dequantized blocks", n_blk * (128 + 64),
+          n_blk * OPS_IDCT)
+    del lv2_a, words_e, pix_i, deq
+    ysrc = [torch.from_numpy(p).to(dev) for p in pics]
+    blocks = m.amv_video.extract_blocks(*ysrc, (W + 15) // 16,
+                                        (H + 15) // 16).reshape(-1, 64)
+    check("F", lambda: (m.fdct.fdct_quant_blocks(blocks, qmat),),
+          lambda: (m.fdct.fdct_quantize_plain(blocks, qmat)[
+              :, torch.as_tensor(m.jpeg_tables.ZIGZAG,
+                                 device=dev).long()],),
+          f"{blocks.shape[0]} extracted blocks", blocks.shape[0] * (64 + 128),
+          blocks.shape[0] * OPS_FDCT)
+    check("F raster", lambda: (m.fdct.fdct_quantize(blocks.view(-1, 8, 8),
+                                                    qmat),),
+          lambda: (m.fdct.fdct_quantize_plain(blocks, qmat),),
+          f"{blocks.shape[0]} extracted blocks (fdct_quantize's contract)",
+          blocks.shape[0] * (64 + 128), blocks.shape[0] * OPS_FDCT)
+    pay_np, pred_np, sidx_np, alens = m.amv_audio.chunk_arrays(audio)
+    pay_t, pred_t, sidx_t = (torch.from_numpy(a).to(dev)
+                             for a in (pay_np, pred_np, sidx_np))
+    c_a, nby = pay_t.shape
+    check("A", lambda: (m.adpcm.decode_chunks(pay_t, pred_t, sidx_t),),
+          lambda: (m.adpcm.decode_chunks_plain(pay_t, pred_t, sidx_t),),
+          f"{c_a} chunks x {nby} bytes", c_a * (nby + 8 + 4 * nby),
+          c_a * 2 * nby * OPS_EXPAND)
+    wrap_samples = c_a * WRAP * 2 * nby
+    check("A wrap", lambda: (m.adpcm.decode_chunks(pay_t, pred_t, sidx_t,
+                                                   repeat=WRAP),),
+          lambda: (m.adpcm.decode_chunks_plain(pay_t, pred_t, sidx_t,
+                                               repeat=WRAP),),
+          f"repeat={WRAP}, {wrap_samples} samples",
+          c_a * (nby + 8) + 2 * wrap_samples, wrap_samples * OPS_EXPAND)
+    log(f"A wrap: {wrap_samples / kern['A wrap']['ms'] / 1e3:.1f} "
+        "Msamples/s (median, CUDA events)")
+    frame_size = m.encode.av_rescale_near(RATE, 1, FPS)
+    ns, starts, padded, reset = m.amv_audio.stream_layout(pcm, frame_size,
+                                                          RATE)
+    x_q = torch.from_numpy(padded[None]).to(dev)
+    r_q = torch.from_numpy(reset[None]).to(dev)
+    s_q = torch.zeros(1, dtype=torch.int32, device=dev)
+    n_q = padded.shape[0]
+    check("Q", lambda: m.adpcm.encode_streams(x_q, r_q, s_q),
+          lambda: m.adpcm.encode_streams_plain(x_q, r_q, s_q),
+          f"1 stream x {n_q} samples, {len(ns)} chunks",
+          2 * n_q + n_q + 4 + n_q, n_q * OPS_COMPRESS)
+    check("Q wrap", lambda: m.adpcm.encode_streams(x_q, r_q, s_q,
+                                                   repeat=Q_WRAP),
+          lambda: m.adpcm.encode_streams_plain(x_q, r_q, s_q, repeat=Q_WRAP),
+          f"repeat={Q_WRAP}, {Q_WRAP * n_q} samples",
+          2 * n_q + n_q + 4 + Q_WRAP * n_q, Q_WRAP * n_q * OPS_COMPRESS)
 
     # extra cases on N_CHECK corpus frames: malformed scans for D, T without
-    # edge replication, E with a word budget every frame overflows
+    # edge replication, E with a word budget every frame overflows, I on
+    # DC-only blocks, F at qscale 1
     rng = np.random.default_rng(1)
-    rows, lens = native.unescape_frames(pays[:N_CHECK])
+    rows, lens = m.native.unescape_frames(pays[:N_CHECK])
     bad = rows[:8].copy()
     bad_lens = lens[:8].copy()
     bad[0] = rng.integers(0, 256, bad.shape[1])            # random bytes
@@ -205,124 +405,289 @@ def main() -> int:
     bad[4, 7::97] = rng.integers(0, 256, len(bad[4, 7::97]))
     rows_t = torch.from_numpy(np.concatenate([rows, bad])).to(dev)
     lens_t = torch.from_numpy(np.concatenate([lens, bad_lens])).to(dev)
-    lv_k, ok_k = D.decode_scans(rows_t, lens_t, nb)
-    lv_p, ok_p = D.decode_scans_plain(rows_t, lens_t, nb)
-    torch.cuda.synchronize()
-    errs["D extra"] = max_abs_err([(lv_k, lv_p), (ok_k, ok_p)])
-    assert errs["D extra"] == 0, f"decode kernel differs by {errs['D extra']}"
+    lv_k, ok_k = m.D.decode_scans(rows_t, lens_t, nb)
+    lv_p, ok_p = m.D.decode_scans_plain(rows_t, lens_t, nb)
+    extra("D extra", [(lv_k, lv_p), (ok_k, ok_p)],
+          f"{N_CHECK} frames + 8 malformed (ok {ok_k[N_CHECK:].tolist()})")
     assert ok_k[:N_CHECK].all() and not ok_k[N_CHECK + 1], ok_k[N_CHECK:]
-    log(f"D extra: bit-exact vs plain on {N_CHECK} frames + 8 malformed "
-        f"(ok {ok_k[N_CHECK:].tolist()})")
 
     lv = lv_k[:N_CHECK].reshape(-1, 64)
-    dc = P.resolve_dc(lv_k[:N_CHECK].reshape(N_CHECK, n_mcu, 6, 64))
-    dc = dc.reshape(-1)
-    want_lv, want_pix = T.transcode_blocks_plain(lv, dc, qmat,
-                                                 T._geometry(None, lv.shape[0]))
-    got_lv, got_pix = T.transcode_blocks_pix(lv, dc, qmat, None)
-    got_lv2 = T.transcode_blocks(lv, dc, qmat, None)
-    torch.cuda.synchronize()
-    errs["T extra"] = max_abs_err([(got_lv, want_lv), (got_pix, want_pix),
-                                   (got_lv2, want_lv)])
-    assert errs["T extra"] == 0, f"transcode kernel differs by {errs['T extra']}"
-    log(f"T extra: bit-exact vs plain on {lv.shape[0]} blocks, both entries, "
-        "without edge replication (size=None)")
+    dc = m.amv_video.resolve_dc(
+        lv_k[:N_CHECK].reshape(N_CHECK, n_mcu, 6, 64)).reshape(-1)
+    want_lv, want_pix = m.T.transcode_blocks_plain(
+        lv, dc, qmat, m.T._geometry(None, lv.shape[0]))
+    got_lv, got_pix = m.T.transcode_blocks_pix(lv, dc, qmat, None)
+    got_lv2 = m.T.transcode_blocks(lv, dc, qmat, None)
+    extra("T extra", [(got_lv, want_lv), (got_pix, want_pix),
+                      (got_lv2, want_lv)],
+          f"{lv.shape[0]} blocks, both entries, without edge replication")
 
-    lv2 = T.transcode_blocks(lv, dc, qmat, (W, H)).reshape(N_CHECK, nb, 64)
-    got = E.encode_levels(lv2, 16)
-    want = E.encode_levels_plain(lv2, 16)
-    torch.cuda.synchronize()
-    errs["E extra"] = max_abs_err(zip(got, want))
-    assert errs["E extra"] == 0, f"encode kernel differs by {errs['E extra']}"
+    lv2 = m.T.transcode_blocks(lv, dc, qmat, (W, H)).reshape(N_CHECK, nb, 64)
+    got = m.E.encode_levels(lv2, 16)
+    extra("E extra", zip(got, m.E.encode_levels_plain(lv2, 16)),
+          f"{N_CHECK} frames at w_out 16 (every frame overflows, ok = 0)")
     assert not got[2].any(), "a 16-word budget must overflow"
-    log(f"E extra: bit-exact vs plain on {N_CHECK} frames at w_out 16 "
-        "(every frame overflows, ok = 0)")
 
-    # ---- 5. the main path through the CLI ----------------------------
-    want = c_reference(pays, W, H)
+    lv_dc = lv.clone()
+    lv_dc[:, 1:] = 0
+    extra("I extra", [(m.idct.idct_blocks(lv_dc, dc),
+                       m.idct.idct_blocks_plain(lv_dc, dc)),
+                      (m.idct.idct_put(lv.reshape(-1, 8, 8)),
+                       m.idct.idct_put_plain(lv).reshape(-1, 8, 8))],
+          f"{lv.shape[0]} DC-only blocks, and the raw idct_put entry")
+    q1 = m.amv_video.encoder_qmat(1)
+    fb = blocks[:N_CHECK * nb]
+    extra("F extra", [(m.fdct.fdct_quantize(fb.reshape(-1, 8, 8), q1),
+                       m.fdct.fdct_quantize_plain(fb, q1))],
+          f"{fb.shape[0]} blocks at qscale 1 (wrapping products), raster "
+          "entry")
+    del blocks, fb
+    stress = []
+    for byte, sidx in ((0x77, sidx_t), (0xFF, torch.full_like(sidx_t, 88))):
+        p_s = torch.full_like(pay_t, byte)
+        stress.append((m.adpcm.decode_chunks(p_s, pred_t, sidx),
+                       m.adpcm.decode_chunks_plain(p_s, pred_t, sidx)))
+    extra("A extra", stress, f"{c_a} chunks of all 0x77, and of all 0xFF at "
+          "step index 88 (clamp stress)")
+    n10 = 2 * sum(ns[:160])                    # the first 10 s of chunks
+    x10, r10 = x_q[:, :n10], r_q[:, :n10].clone()
+    r10[:, 0] = False
+    pairs = list(zip(m.adpcm.encode_streams(x10, r10, s_q),
+                     m.adpcm.encode_streams_plain(x10, r10, s_q)))
+    s88 = torch.full_like(s_q, 88)
+    pairs += list(zip(m.adpcm.encode_streams(x10, r_q[:, :n10], s88),
+                      m.adpcm.encode_streams_plain(x10, r_q[:, :n10], s88)))
+    extra("Q extra", pairs, f"{n10} samples with no reset at sample 0, and "
+          "from step index 88")
+    del lv_a, lvf, dc_a, ok_a, ysrc, x_q, r_q, stress, pairs
+    torch.cuda.empty_cache()
+    log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
+
+    paths = {}
     with tempfile.TemporaryDirectory() as tmp:
+        # ---- 5. the transcode through the CLI -------------------------
+        want = c_transcode(m, pays, W, H)
         src, dst = os.path.join(tmp, "in.amv"), os.path.join(tmp, "out.amv")
         with open(src, "wb") as f:
             f.write(data)
-        P.transcode_bytes(data, qscale=QSCALE, device="cuda")    # warm-up
+        m.P.transcode_bytes(data, qscale=QSCALE, device="cuda")   # warm-up
         torch.cuda.synchronize()
-        D.LAUNCHES = T.LAUNCHES = E.LAUNCHES = 0
-        P.HOST_FALLBACKS = 0
-        walls = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            rc = cli.main(["-i", src, "-f", "amv", dst, "--device", "cuda"])
-            walls.append(time.perf_counter() - t0)
-            assert rc == 0
-        launches = {"D": D.LAUNCHES, "T": T.LAUNCHES, "E": E.LAUNCHES}
-        fallbacks = P.HOST_FALLBACKS
+        reset_launches(m)
+        wall, walls = timed_cli(m, ["-i", src, "-f", "amv", dst,
+                                    "--device", "cuda"])
+        paths["transcode"] = launches(m)
         with open(dst, "rb") as f:
-            out = riff.demux(f.read())
-    assert out.video_chunks == want, "video differs from the C reference"
-    assert out.audio_chunks == audio, "audio did not pass through"
-    assert all(v > 0 for v in launches.values()), launches
-    assert fallbacks == 0, fallbacks
-    wall = statistics.median(walls)
-    log(f"main path: cli.main x3, {N_FRAMES} frames in "
-        f"{', '.join(f'{t:.3f}' for t in walls)} s, median {wall:.3f} s = "
-        f"{N_FRAMES / wall:.1f} frames/s; byte-identical to the C "
-        f"reference, audio passed through; launches {launches}, host "
-        f"fallbacks {fallbacks}")
+            out = m.riff.demux(f.read())
+        assert out.video_chunks == want, "video differs from the C reference"
+        assert out.audio_chunks == audio, "audio did not pass through"
+        assert all(paths["transcode"][k] > 0 for k in "DTE"), paths
+        log(f"transcode: cli.main x3, {N_FRAMES} frames in "
+            f"{', '.join(f'{t:.3f}' for t in walls)} s, median {wall:.3f} s"
+            f" = {N_FRAMES / wall:.1f} frames/s; byte-identical to the C "
+            f"reference, audio passed through; launches {paths['transcode']}")
+        split = {}
+        s = staged(split, "demux", lambda: m.riff.demux(data))
+        rows_s, lens_s = staged(split, "unescape", lambda: (
+            m.native.unescape_frames(s.video_chunks)))
+        order = staged(split, "sort", lambda: np.argsort(
+            np.array([len(p) for p in s.video_chunks]), kind="stable"))
+        r_t, l_t = staged(split, "to_device", lambda: (
+            torch.from_numpy(rows_s[order]).to(dev),
+            torch.from_numpy(lens_s[order]).to(dev)))
+        words, bits, ok = staged(split, "device_chain", lambda: (
+            m.P.transcode_complete(r_t, l_t, n_mcu, QSCALE, (W, H))))
+        inv = np.argsort(order)
+        w_np, b_np = staged(split, "to_host", lambda: (
+            words.cpu().numpy()[inv], bits.cpu().numpy()[inv]))
+        vch = staged(split, "escape", lambda: m.native.escape_frames(
+            w_np, b_np))
+        staged(split, "mux", lambda: m.riff.mux(
+            vch, s.audio_chunks, width=W, height=H, fps=FPS,
+            sample_rate=RATE))
+        assert vch == want
+        log_split("transcode", split,
+                  f"; words copied to the host {tuple(words.shape)}")
+        del want, words, r_t, l_t
 
-    # the same stages one by one: host C/Python stages vs the device chain
-    split = {}
-
-    def stage(name, fn):
-        t = time.perf_counter()
-        r = fn()
+        # ---- 6. the decode through the CLI ----------------------------
+        yuv, wavp = os.path.join(tmp, "out.yuv"), os.path.join(tmp, "out.wav")
+        m.decode.decode_bytes(data, device="cuda")                  # warm-up
         torch.cuda.synchronize()
-        split[name] = time.perf_counter() - t
-        return r
+        reset_launches(m)
+        wall_v, walls_v = timed_cli(m, ["-i", src, yuv, "--device", "cuda"])
+        paths["decode video"] = launches(m)
+        reset_launches(m)
+        wall_a, walls_a = timed_cli(m, ["-i", src, wavp, "--device", "cuda"])
+        paths["decode audio"] = launches(m)
+        assert paths["decode video"]["D"] > 0 and \
+            paths["decode video"]["I"] > 0, paths
+        assert paths["decode audio"]["A"] > 0, paths
+        fbytes = W * H * 3 // 2
+        raw = np.fromfile(yuv, np.uint8).reshape(N_FRAMES, fbytes)
+        c_decode_matches(m, pays, W, H,
+                         raw[:, :W * H].reshape(-1, H, W),
+                         raw[:, W * H:W * H * 5 // 4].reshape(-1, H // 2, W // 2),
+                         raw[:, W * H * 5 // 4:].reshape(-1, H // 2, W // 2))
+        got_pcm, rate = m.wav.read_pcm(wavp)
+        assert rate == RATE
+        pos = 0
+        for i in range(len(audio)):
+            ref = m.native.ref_adpcm_decode(bytes(pay_np[i, :alens[i]]),
+                                            int(pred_np[i]), int(sidx_np[i]))
+            assert np.array_equal(got_pcm[pos:pos + len(ref)], ref), i
+            pos += len(ref)
+        assert pos == len(got_pcm)
+        log(f"decode video: cli.main -> .yuv x3, {N_FRAMES} frames in "
+            f"{', '.join(f'{t:.3f}' for t in walls_v)} s, median "
+            f"{wall_v:.3f} s = {N_FRAMES / wall_v:.1f} frames/s; every frame "
+            f"byte-identical to the C decoder; launches "
+            f"{paths['decode video']}")
+        log(f"decode audio: cli.main -> .wav x3, {len(got_pcm)} samples in "
+            f"{', '.join(f'{t:.3f}' for t in walls_a)} s, median "
+            f"{wall_a:.3f} s = {len(got_pcm) / wall_a / 1e6:.2f} Msamples/s; "
+            f"identical to the C ADPCM decoder chunk by chunk; launches "
+            f"{paths['decode audio']}")
+        split = {}
+        s = staged(split, "demux", lambda: m.riff.demux(data))
+        rows_s, lens_s = staged(split, "unescape", lambda: (
+            m.native.unescape_frames(s.video_chunks)))
+        order = staged(split, "sort", lambda: np.argsort(
+            np.array([len(p) for p in s.video_chunks]), kind="stable"))
+        r_t, l_t = staged(split, "to_device", lambda: (
+            torch.from_numpy(rows_s[order]).to(dev),
+            torch.from_numpy(lens_s[order]).to(dev)))
 
-    s = stage("demux", lambda: riff.demux(data))
-    rows_s, lens_s = stage("unescape", lambda: native.unescape_frames(
-        s.video_chunks))
-    order = stage("sort", lambda: np.argsort(
-        np.array([len(p) for p in s.video_chunks]), kind="stable"))
-    r_t, l_t = stage("to_device", lambda: (
-        torch.from_numpy(rows_s[order]).to(dev),
-        torch.from_numpy(lens_s[order]).to(dev)))
-    words, bits, ok = stage("device_chain", lambda: P.transcode_complete(
-        r_t, l_t, n_mcu, QSCALE, (W, H)))
-    inv = np.argsort(order)
-    w_np, b_np = stage("to_host", lambda: (words.cpu().numpy()[inv],
-                                           bits.cpu().numpy()[inv]))
-    vch = stage("escape", lambda: native.escape_frames(w_np, b_np))
-    stage("mux", lambda: riff.mux(vch, s.audio_chunks, width=W, height=H,
-                                  fps=FPS, sample_rate=RATE))
-    assert vch == want
-    total = sum(split.values())
-    log("split (s): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
-        + f"; device chain {split['device_chain'] / total:.1%} of {total:.3f}"
-        f"; words copied to the host {tuple(words.shape)}")
+        def decode_chain():
+            lv, _ = m.D.decode_scans(r_t, l_t, nb)
+            dc = m.amv_video.resolve_dc(lv.reshape(N_FRAMES, n_mcu, 6, 64))
+            pix = m.idct.idct_blocks(lv.reshape(-1, 64), dc.reshape(-1))
+            inv = torch.from_numpy(np.argsort(order)).to(dev)
+            return m.amv_video.assemble_planes(
+                pix.reshape(N_FRAMES, n_mcu, 6, 8, 8)[inv], (W + 15) // 16,
+                (H + 15) // 16, W, H)
 
-    # ---- 6. big frames ----------------------------------------------
-    big = corpus(256, 240, 320, seed=2)
-    big_data = riff.mux(big, [], width=320, height=240, fps=FPS)
-    got = riff.demux(P.transcode_bytes(big_data, qscale=QSCALE,
-                                       device="cuda")).video_chunks
-    assert got == c_reference(big, 320, 240), "320x240 differs"
+        planes = staged(split, "device_chain", decode_chain)
+        staged(split, "to_host", lambda: [p.cpu().numpy() for p in planes])
+        arrs = staged(split, "audio_headers",
+                      lambda: m.amv_audio.chunk_arrays(s.audio_chunks))
+        ta = staged(split, "audio_to_device", lambda: [
+            torch.from_numpy(a).to(dev) for a in arrs[:3]])
+        pcm_t = staged(split, "device_A", lambda: m.adpcm.decode_chunks(*ta))
+        staged(split, "audio_to_host", lambda: pcm_t.cpu().numpy())
+        log_split("decode", split)
+        del planes, pcm_t, r_t, l_t, raw
+
+        # ---- 7. the encode through the CLI ----------------------------
+        yin, win = os.path.join(tmp, "in.yuv"), os.path.join(tmp, "in.wav")
+        np.concatenate([p.reshape(N_FRAMES, -1) for p in pics],
+                       axis=1).tofile(yin)
+        m.wav.write_pcm(win, pcm, RATE)
+        m.encode.encode_to_bytes(*(p[:16] for p in pics), pcm[:RATE],
+                                 device="cuda")                    # warm-up
+        torch.cuda.synchronize()
+        reset_launches(m)
+        wall_e, walls_e = timed_cli(m, [
+            "-i", yin, "-i", win, "-f", "amv", "-s", f"{W}x{H}", "-r",
+            str(FPS), "-ar", str(RATE), dst, "--device", "cuda"])
+        paths["encode"] = launches(m)
+        assert all(paths["encode"][k] > 0 for k in "FEQ"), paths
+        with open(dst, "rb") as f:
+            out = m.riff.demux(f.read())
+        assert out.video_chunks == pays, "video differs from the C encoder"
+        t0 = time.perf_counter()
+        want_audio = m.ref_adpcm.encode(pcm, frame_size, RATE)
+        t_oracle = time.perf_counter() - t0
+        assert out.audio_chunks == want_audio, "audio differs from the oracle"
+        log(f"encode: cli.main from .yuv + .wav x3, {N_FRAMES} frames + "
+            f"{len(pcm)} samples in {', '.join(f'{t:.3f}' for t in walls_e)}"
+            f" s, median {wall_e:.3f} s = {N_FRAMES / wall_e:.1f} frames/s; "
+            f"video byte-identical to the C encoder, {len(want_audio)} audio "
+            f"chunks to the Python ADPCM oracle (which took {t_oracle:.1f} "
+            f"s); launches {paths['encode']}")
+        split = {}
+        planes = staged(split, "to_device", lambda: [
+            torch.from_numpy(p).to(dev) for p in pics])
+
+        def encode_chain():
+            blk = m.amv_video.extract_blocks(*planes, (W + 15) // 16,
+                                             (H + 15) // 16)
+            lvq = m.fdct.fdct_quant_blocks(blk.reshape(-1, 64), qmat)
+            return m.amv_video.pack_levels(
+                lvq.reshape(N_FRAMES, nb, 64),
+                m.amv_video.first_word_budget(n_mcu))
+
+        words, bits = staged(split, "device_chain", encode_chain)
+        w_np, b_np = staged(split, "to_host", lambda: (
+            words.cpu().numpy(), bits.cpu().numpy()))
+        vch = staged(split, "escape", lambda: m.native.escape_frames(
+            w_np, b_np))
+        lay = staged(split, "audio_layout", lambda: (
+            m.amv_audio.stream_layout(pcm, frame_size, RATE)))
+        tq = staged(split, "audio_to_device", lambda: [
+            torch.from_numpy(a[None]).to(dev) for a in lay[2:]])
+        bq = staged(split, "device_Q", lambda: m.adpcm.encode_streams(
+            *tq, s_q))
+        staged(split, "audio_to_host", lambda: [t.cpu().numpy() for t in bq])
+        staged(split, "mux", lambda: m.riff.mux(
+            vch, want_audio, width=W, height=H, fps=FPS, sample_rate=RATE))
+        assert vch == pays
+        t_audio = sum(v for k, v in split.items() if "audio" in k or
+                      k == "device_Q")
+        log_split("encode", split,
+                  f"; words copied to the host {tuple(words.shape)}; audio "
+                  f"stages {len(pcm) / t_audio / 1e6:.2f} Msamples/s")
+        del planes, words, tq, bq
+    log(f"phases 5-7 done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 8. width padding -------------------------------------------
+    pics_p = pictures(m, N_PAD, H, W_PAD, seed=3)
+    pays_p = c_encode(m, pics_p)
+    data_p = m.riff.mux(pays_p, [], width=W_PAD, height=H, fps=FPS)
+    got = m.riff.demux(m.P.transcode_bytes(data_p, qscale=QSCALE,
+                                           device="cuda")).video_chunks
+    assert got == c_transcode(m, pays_p, W_PAD, H), f"{W_PAD}x{H} transcode"
+    dec = m.decode.decode_bytes(data_p, device="cuda")
+    c_decode_matches(m, pays_p, W_PAD, H, dec.y, dec.cb, dec.cr)
+    assert m.amv_video.encode_frames(*pics_p, QSCALE, device="cuda") == \
+        pays_p, f"{W_PAD}x{H} encode"
+    log(f"{W_PAD}x{H}: {N_PAD} frames through the transcode, the decode and "
+        "the encode, byte-identical to C")
+
+    # ---- 9. big frames ----------------------------------------------
+    big = c_encode(m, pictures(m, 256, 240, 320, seed=2))
+    big_data = m.riff.mux(big, [], width=320, height=240, fps=FPS)
+    got = m.riff.demux(m.P.transcode_bytes(big_data, qscale=QSCALE,
+                                           device="cuda")).video_chunks
+    assert got == c_transcode(m, big, 320, 240), "320x240 differs"
     log(f"320x240: 256 frames (payloads up to {max(len(p) for p in big)} "
         "bytes) byte-identical to the C reference")
+    log(f"total {time.perf_counter() - t_start:.1f} s after the imports")
 
     kernels = []
-    for key, name, src, replaces in (
-            ("D", "entropy_decode", "amv_tpu_torch/csrc/entropy_decode.cu",
-             "amv_tpu/kernels/entropy_async_pallas.py:829"),
-            ("T", "transcode", "amv_tpu_torch/csrc/transcode.cu",
-             "amv_tpu/kernels/transcode_layout_pallas.py:207"),
-            ("E", "entropy_encode", "amv_tpu_torch/csrc/entropy_encode.cu",
-             "amv_tpu/kernels/entropy_encode_async_pallas.py:940")):
+    for key, name, path, src, replaces in (
+            ("D", "entropy_decode", "transcode", "entropy_decode.cu",
+             "entropy_async_pallas.py:829"),
+            ("T", "transcode", "transcode", "transcode.cu",
+             "transcode_layout_pallas.py:207"),
+            ("E", "entropy_encode", "transcode", "entropy_encode.cu",
+             "entropy_encode_async_pallas.py:940"),
+            ("I", "idct", "decode video", "idct.cu",
+             "transcode_layout_pallas.py:136"),
+            ("F", "fdct_quant", "encode", "fdct.cu",
+             "transcode_layout_pallas.py:187"),
+            ("A", "adpcm_decode", "decode audio", "adpcm_decode.cu",
+             "adpcm_pallas.py:86"),
+            ("Q", "adpcm_encode", "encode", "adpcm_encode.cu",
+             "adpcm_encode_pallas.py:89")):
         err = max(v for k, v in errs.items() if k.split()[0] == key)
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[key],
-                        "max_abs_err": err, "ms": times[key][0],
-                        "plain_ms": times[key][1]})
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"amv_tpu_torch/csrc/{src}",
+            "replaces": f"amv_tpu/kernels/{replaces}",
+            "launches": paths[path][key], "max_abs_err": err,
+            "ms": kern[key]["ms"], "plain_ms": kern[key]["plain_ms"],
+            "bound_ms": kern[key]["bound_ms"],
+            "bound_by": kern[key]["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,9 @@ machine has no JAX, so run this file there without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Inputs are made from numpy seeds; the contract is bit-exact equality.
+Inputs are made from numpy seeds; the contract is bit-exact equality.  The
+file imports only the port (its own copies of the host layer and the
+oracles), so it runs where `amv_tpu` cannot be built.
 """
 
 import numpy as np
@@ -13,14 +15,21 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from amv_tpu.containers import riff  # noqa: E402
-from amv_tpu.native import entropy_native as native  # noqa: E402
-from amv_tpu.verify import fixtures  # noqa: E402
+from amv_tpu_torch import native  # noqa: E402
+from amv_tpu_torch.codecs import amv_audio  # noqa: E402
 from amv_tpu_torch.codecs.amv_video import encoder_qmat  # noqa: E402
+from amv_tpu_torch.codecs.jpeg_tables import ZIGZAG  # noqa: E402
+from amv_tpu_torch.containers import riff  # noqa: E402
+from amv_tpu_torch.kernels import adpcm as AQ  # noqa: E402
 from amv_tpu_torch.kernels import entropy_decode as D  # noqa: E402
 from amv_tpu_torch.kernels import entropy_encode as E  # noqa: E402
+from amv_tpu_torch.kernels import fdct as F  # noqa: E402
+from amv_tpu_torch.kernels import idct as I  # noqa: E402
 from amv_tpu_torch.kernels import transcode as T  # noqa: E402
+from amv_tpu_torch.pipeline import decode as PD  # noqa: E402
+from amv_tpu_torch.pipeline import encode as PE  # noqa: E402
 from amv_tpu_torch.pipeline import transcode as P  # noqa: E402
+from amv_tpu_torch.verify import fixtures, ref_adpcm  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -113,3 +122,113 @@ def test_transcode_bytes_cuda_matches_c_reference(dev, w, h):
     assert out.video_chunks == want
     assert all(a > b for a, b in zip((D.LAUNCHES, T.LAUNCHES, E.LAUNCHES),
                                      launches))
+
+
+@pytest.mark.parametrize("case", ["random", "dc_only", "raw"])
+def test_idct_kernel_matches_plain(dev, case):
+    rng = np.random.default_rng(7)
+    n = 6 * 997
+    lv = _random_levels(rng, n)
+    if case == "dc_only":
+        lv[:, 1:] = 0
+    dc = rng.integers(-40000, 40000, n).astype(np.int32)
+    lt, dt = torch.from_numpy(lv).to(dev), torch.from_numpy(dc).to(dev)
+    if case == "raw":
+        got = I.idct_put(lt.reshape(-1, 8, 8))
+        want = I.idct_put_plain(lt).reshape(-1, 8, 8)
+    else:
+        got = I.idct_blocks(lt, dt)
+        want = I.idct_blocks_plain(lt, dt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("qscale", [1, 2, 31])
+def test_fdct_kernel_matches_plain(dev, qscale):
+    rng = np.random.default_rng(qscale)
+    pix = rng.integers(0, 256, (6 * 1013, 64)).astype(np.uint8)
+    pix[:7] = np.array([0, 255] * 32, np.uint8)    # extreme checkerboards
+    pix[7:9] = 255
+    pt = torch.from_numpy(pix).to(dev)
+    q = encoder_qmat(qscale)
+    want = F.fdct_quantize_plain(pt, q)
+    got_raster = F.fdct_quantize(pt.reshape(-1, 8, 8), q)
+    got_zz = F.fdct_quant_blocks(pt, q)
+    torch.cuda.synchronize()
+    assert torch.equal(got_raster, want)
+    zz = torch.as_tensor(ZIGZAG, device=dev).long()
+    assert torch.equal(got_zz, want[:, zz])
+
+
+@pytest.mark.parametrize("case", ["random", "0x77", "0xff_sidx88"])
+def test_adpcm_decode_kernel_matches_plain(dev, case):
+    rng = np.random.default_rng(11)
+    c, nb = 300, 689
+    pay = rng.integers(0, 256, (c, nb)).astype(np.uint8)
+    pred = rng.integers(-32768, 32768, c).astype(np.int32)
+    sidx = rng.integers(-5, 95, c).astype(np.int32)
+    if case == "0x77":
+        pay[:] = 0x77
+    elif case == "0xff_sidx88":
+        pay[:] = 0xFF
+        sidx[:] = 88
+    args = [torch.from_numpy(a).to(dev) for a in (pay, pred, sidx)]
+    for repeat in (1, 3):
+        got = AQ.decode_chunks(*args, repeat=repeat)
+        want = AQ.decode_chunks_plain(*args, repeat=repeat)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["chunks", "no_reset_at_0", "sidx88",
+                                  "no_resets"])
+def test_adpcm_encode_kernel_matches_plain(dev, case):
+    rng = np.random.default_rng(13)
+    b, n = 3, 4000
+    x = np.cumsum(rng.integers(-900, 900, (b, n)), axis=1).clip(
+        -32768, 32767).astype(np.int16)
+    x[1, ::7] = rng.choice([-32768, 32767], len(x[1, ::7]))
+    reset = np.zeros((b, n), bool)
+    reset[:, ::1378] = True
+    reset[2, 1001] = True                       # an odd reset, in-segment
+    sidx0 = np.array([0, 40, 88], np.int32)
+    if case == "no_reset_at_0":
+        reset[:, 0] = False
+    elif case == "sidx88":
+        sidx0[:] = 88
+    elif case == "no_resets":
+        reset[:] = False
+    args = [torch.from_numpy(a).to(dev) for a in (x, reset, sidx0)]
+    for repeat in (1, 2):
+        got = AQ.encode_streams(*args, repeat=repeat)
+        want = AQ.encode_streams_plain(*args, repeat=repeat)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("w,h", [(160, 120), (40, 24)])
+def test_decode_encode_cuda_match_c_reference(dev, w, h):
+    rng = np.random.default_rng(2)
+    y, cb, cr = fixtures.videogen(5, h, w, seed=2)
+    y = np.clip(y.astype(np.int16) + rng.integers(-5, 6, y.shape), 0,
+                255).astype(np.uint8)
+    pcm = fixtures.audiogen(5 / 16, seed=2)
+    launches = (I.LAUNCHES, F.LAUNCHES, AQ.DECODE_LAUNCHES,
+                AQ.ENCODE_LAUNCHES)
+    data = PE.encode_to_bytes(y, cb, cr, pcm, device="cuda")
+    s = riff.demux(data)
+    assert s.video_chunks == [native.ref_encode_frame(y[i], cb[i], cr[i], 2)
+                              for i in range(5)]
+    assert s.audio_chunks == ref_adpcm.encode(pcm, 1378, 22050)
+    dec = PD.decode_bytes(data, device="cuda")
+    for i, p in enumerate(s.video_chunks):
+        ry, rcb, rcr = native.ref_decode_frame(p, w, h)
+        assert np.array_equal(dec.y[i], ry)
+        assert np.array_equal(dec.cb[i], rcb)
+        assert np.array_equal(dec.cr[i], rcr)
+    assert np.array_equal(dec.pcm, amv_audio.decode_chunks(
+        s.audio_chunks, device="cpu"))
+    assert all(a > b for a, b in zip(
+        (I.LAUNCHES, F.LAUNCHES, AQ.DECODE_LAUNCHES, AQ.ENCODE_LAUNCHES),
+        launches))

@@ -9,6 +9,7 @@ kernels D, T and E) against the JAX package and the C reference.
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -60,10 +61,8 @@ def test_matches_jax_transcode_bytes():
 def test_large_frames_match_c_reference(qscale):
     pays, data = _clip("rotozoom", 3, 120, 160, qscale=qscale, audio=False)
     assert max(len(p) for p in pays) > 4096
-    fallbacks = P.HOST_FALLBACKS
     got = riff.demux(P.transcode_bytes(data, qscale=qscale, device="cpu"))
     assert got.video_chunks == _c_reference(pays, 160, 120, qscale)
-    assert P.HOST_FALLBACKS == fallbacks
 
 
 @pytest.mark.parametrize("kind,w,h", [("rotozoom", 40, 24),
@@ -110,13 +109,18 @@ def test_reencode_outgrowing_the_first_word_budget():
 
 
 def test_malformed_frame_takes_host_route():
-    pays, data = _clip("videogen", 2, 32, 32, audio=False)
-    bad = pays[:1] + [b"\xff\xd8" + b"\xff\x00" * 40 + b"\xff\xd9"]
+    """A frame the Huffman decoder rejects raises ValueError naming it, as
+    the JAX package's host route raises there (the C decoder rejects it
+    too); the port keeps no host-entropy route."""
+    pays, data = _clip("videogen", 3, 32, 32, audio=False)
+    garbage = b"\xff\xd8" + b"\xff\x00" * 40 + b"\xff\xd9"
+    bad = pays[:1] + [garbage] + pays[1:]
     data = riff.mux(bad, [], width=32, height=32, fps=16)
-    fallbacks = P.HOST_FALLBACKS
-    with pytest.raises(ValueError):      # the host C decoder rejects it too
+    with pytest.raises(ValueError, match=r"frame\(s\) \[1\]"):
         P.transcode_bytes(data, qscale=2, device="cpu")
-    assert P.HOST_FALLBACKS == fallbacks + 1
+    with pytest.raises(ValueError):
+        native.ref_decode_frame(garbage, 32, 32)
+    assert not hasattr(P, "HOST_FALLBACKS")
 
 
 def test_cli_matches_library(tmp_path):
@@ -130,20 +134,45 @@ def test_cli_matches_library(tmp_path):
     assert res.returncode == 0, res.stderr
     assert dst.read_bytes() == P.transcode_bytes(data, qscale=3, device="cpu")
     res = subprocess.run(
-        [sys.executable, "-m", "amv_tpu_torch", "-i", str(src), "out.wav",
+        [sys.executable, "-m", "amv_tpu_torch", "-i", str(src), "out.bmp",
          "--device", "cpu"], cwd=ROOT, capture_output=True, text=True,
         timeout=120)
     assert res.returncode != 0 and "not yet ported" in res.stderr
 
 
+def _port_sources():
+    """The port's Python sources and chip_smoke.py."""
+    for d, _, files in os.walk(os.path.join(ROOT, "amv_tpu_torch")):
+        yield from (os.path.join(d, f) for f in sorted(files)
+                    if f.endswith(".py"))
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
 def test_port_never_imports_jax():
-    code = ("import sys; import amv_tpu_torch.pipeline.transcode, "
-            "amv_tpu_torch.cli, amv_tpu_torch.kernels._build; "
-            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-            "if m.startswith('jax'))")
+    """Every module of the port, and chip_smoke.py's imports, load without
+    JAX and without anything of amv_tpu; no source names amv_tpu in an
+    import."""
+    mods = []
+    for f in _port_sources():
+        rel = os.path.relpath(f, ROOT)[:-3].replace(os.sep, ".")
+        if rel.startswith("amv_tpu_torch.") and not rel.endswith("__main__"):
+            mods.append(rel.removesuffix(".__init__"))
+    code = "\n".join([
+        "import importlib, sys",
+        f"for m in {mods!r}: importlib.import_module(m)",
+        "import chip_smoke",
+        "chip_smoke.import_port()",
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'amv_tpu'))",
+        "assert not bad, bad"])
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+    assert len(mods) > 20
+    pat = re.compile(r"^\s*(import amv_tpu\b|from amv_tpu(\.|\s+import\b))",
+                     re.M)
+    hits = [f for f in _port_sources() if pat.search(open(f).read())]
+    assert not hits, hits
 
 
 def test_device_contract():
