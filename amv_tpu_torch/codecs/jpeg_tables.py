@@ -248,6 +248,19 @@ def _encode_tables():
 
 
 DEC_LUT, DEC_TABLES = _decode_tables()
+
+
+def _record_lut():
+    """DEC_LUT as the record decoder reads it (kernel R's plain version):
+    an invalid code is length 16 and the table's last symbol, where the
+    JAX package's threshold decode clips the length to 16 and the symbol
+    index to the table (entropy_async_pallas.py:_token_tables)."""
+    last = (11, 11, int(VALS_AC_LUMA[161]), int(VALS_AC_CHROMA[161]))
+    return np.stack([np.where(DEC_LUT[t] == 0, (sym << 5) | 16, DEC_LUT[t])
+                     for t, sym in enumerate(last)]).astype(np.int32)
+
+
+RECORD_LUT = _record_lut()
 ENC_TABLES = _encode_tables()
 
 _ON_DEVICE: dict = {}

@@ -24,8 +24,9 @@
 // chain of table lookups and shifts per coefficient; about 128 bytes of
 // levels in per block and a few hundred bytes of words out per frame keep
 // memory far from the limit.  Design: one thread per frame (frames are
-// independent), a 64-bit accumulator flushed a 32-bit word at a time, the
-// code/size tables in shared memory.  The TPU kernel's lockstep lanes,
+// independent), the bit writer of bitwriter.cuh (a 64-bit accumulator
+// flushed a 32-bit word at a time, shared with kernel P), the code/size
+// tables in shared memory.  The TPU kernel's lockstep lanes,
 // windows and budgets are gone.  A token-offset prefix sum across threads
 // is the known next step (ROADMAP); this first kernel is the direct
 // transcription of the C encoder.
@@ -33,36 +34,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bitwriter.cuh"
+
 namespace {
 
 constexpr int kTabInts = 2 * 4 * 256;   // [code|size][DC-L, DC-C, AC-L, AC-C][sym]
-
-struct BitWriter {
-    int32_t *row;
-    int w_out, w;
-    uint64_t acc;     // low `n` bits pending
-    int n;
-    long long total;
-
-    __device__ __forceinline__ void put(int size, uint32_t v) {
-        acc = (acc << size) | (uint64_t)(v & ((size >= 32) ? 0xFFFFFFFFu
-                                                           : ((1u << size) - 1u)));
-        n += size;
-        total += size;
-        if (n >= 32) {
-            n -= 32;
-            if (w < w_out) row[w] = (int32_t)(uint32_t)(acc >> n);
-            w++;
-            acc &= (n ? ((1ull << n) - 1ull) : 0ull);
-        }
-    }
-    __device__ __forceinline__ void flush() {
-        if (n > 0) {
-            if (w < w_out) row[w] = (int32_t)(uint32_t)(acc << (32 - n));
-            w++;
-        }
-    }
-};
 
 __device__ __forceinline__ int bitlen(uint32_t v) { return v ? 32 - __clz(v) : 0; }
 

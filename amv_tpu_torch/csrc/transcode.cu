@@ -5,8 +5,15 @@
 //     layout, the complete chain's transform), and
 //   amv_tpu/kernels/transcode_pallas.py:transcode_zz (coefficient-major,
 //     also emits the decoded pixels; the host-entropy route).
-// Both compute the same arithmetic; here one kernel serves both, the pixel
-// store enabled by a non-null `pix`.
+//   amv_tpu/kernels/transcode_pallas.py:transcode_zz_wrap (transcode_zz over
+//     a logically tiled input: output block s * nm_full + m reads base block
+//     s * nm_base + m % nm_base of the [64, 8, nm] view), and
+//   amv_tpu/kernels/transcode_pallas.py:transcode_soa and transcode_soa3
+//     (bit-identical to each other: raster blocks already dequantized, DC
+//     included, in; pixels and raster levels out).
+// All compute the same arithmetic; here one kernel serves all, the input
+// and output forms a template parameter (kMode) so that each instance keeps
+// its indices compile-time, and the pixel store enabled by a non-null `pix`.
 //
 // Per 8x8 block n (luma iff n % 6 < 4, the AMV MCU order 4Y + Cb + Cr):
 //   * Q60 dequant of zigzag levels, _wrap16(level * q), slot 0 replaced by
@@ -54,17 +61,25 @@ struct Tables {
 // Frame geometry for the encoder's edge replication: MCUs per row and per
 // frame, picture width and height.  width = 16 * mb_w and height = 16 *
 // n_mcu / mb_w (no pad pixels) keep every decoded pixel, as the JAX fused
-// transform does.
+// transform does.  nm_full and nm_base: the wrap mode's [64, 8, nm] views of
+// the output and of the base levels.
 struct Geom {
     long long mb_w, n_mcu;
     int width, height;
+    long long nm_full, nm_base;
 };
 
-// One CTA = kMcus whole MCUs (n % 6 == 0 is required), so the blocks of an
-// MCU can share their decoded pixels through shared memory.
+// kMode: zigzag levels + DC in, zigzag levels out (the layout and pixel
+// entries); the same over wrapped base levels; dequantized raster blocks
+// in, raster levels out, no edge replication (the dequantized entry).
+enum { kModeZigzag = 0, kModeWrap = 1, kModeDeq = 2 };
+
+// One CTA = kMcus whole MCUs (n % 6 == 0 is required but by kModeDeq), so
+// the blocks of an MCU can share their decoded pixels through shared memory.
 constexpr int kMcus = 32;
 constexpr int kThreads = 6 * kMcus;
 
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 transcode_blocks_kernel(const int16_t *__restrict__ lv,
                         const int32_t *__restrict__ dc,
@@ -79,18 +94,26 @@ transcode_blocks_kernel(const int16_t *__restrict__ lv,
     const int t = (int)(b % 6);
     const bool luma = t < 4;
 
+    long long src_b = live ? b : 0;
+    if (kMode == kModeWrap && live)
+        src_b = b / geo.nm_full * geo.nm_base + b % geo.nm_full % geo.nm_base;
     int16_t in[64];
-    const int4 *src = reinterpret_cast<const int4 *>(lv + (live ? b : 0) * 64);
+    const int4 *src = reinterpret_cast<const int4 *>(lv + src_b * 64);
 #pragma unroll
     for (int k = 0; k < 8; k++) reinterpret_cast<int4 *>(in)[k] = src[k];
 
     u32 blk[64];   // raster
-    blk[0] = wrap16((u32)dc[live ? b : 0]);
+    if (kMode == kModeDeq) {
 #pragma unroll
-    for (int i = 1; i < 64; i++) {
-        const int r = kZigzag[i];
-        const int32_t q = luma ? tab.qm_l[r] : tab.qm_c[r];
-        blk[r] = wrap16((u32)(int32_t)in[i] * (u32)q);
+        for (int i = 0; i < 64; i++) blk[i] = (u32)(int32_t)in[i];
+    } else {
+        blk[0] = wrap16((u32)dc[live ? b : 0]);
+#pragma unroll
+        for (int i = 1; i < 64; i++) {
+            const int r = kZigzag[i];
+            const int32_t q = luma ? tab.qm_l[r] : tab.qm_c[r];
+            blk[r] = wrap16((u32)(int32_t)in[i] * (u32)q);
+        }
     }
     idct_put(blk);
 
@@ -119,7 +142,7 @@ transcode_blocks_kernel(const int16_t *__restrict__ lv,
     const int hr = min(area, (luma ? geo.height : geo.height / 2) - area * my);
     const int wr = min(area, (luma ? geo.width : geo.width / 2) - area * mx);
     const int r0 = luma ? 8 * (t >> 1) : 0, c0 = luma ? 8 * (t & 1) : 0;
-    if (r0 + 8 > hr || c0 + 8 > wr) {
+    if (kMode != kModeDeq && (r0 + 8 > hr || c0 + 8 > wr)) {
         const int base = threadIdx.x - t;
 #pragma unroll
         for (int r = 0; r < 8; r++) {
@@ -139,7 +162,7 @@ transcode_blocks_kernel(const int16_t *__restrict__ lv,
     res[0] = quant_dc(blk[0]);
 #pragma unroll
     for (int i = 1; i < 64; i++) {
-        const int r = kZigzag[i];
+        const int r = kMode == kModeDeq ? i : kZigzag[i];
         res[i] = quant_ac(blk[r], tab.qmat[r]);
     }
     int4 *dst = reinterpret_cast<int4 *>(out + b * 64);
@@ -147,19 +170,32 @@ transcode_blocks_kernel(const int16_t *__restrict__ lv,
     for (int k = 0; k < 8; k++) dst[k] = reinterpret_cast<int4 *>(res)[k];
 }
 
+template <int kMode>
+void launch(const void *lv, const void *dc, const void *tables,
+            const void *geom, void *out, void *pix, long long n,
+            cudaStream_t stream) {
+    const long long grid = (n + kThreads - 1) / kThreads;
+    transcode_blocks_kernel<kMode><<<(unsigned)grid, kThreads, 0, stream>>>(
+        (const int16_t *)lv, (const int32_t *)dc, *(const Tables *)tables,
+        *(const Geom *)geom, (int16_t *)out, (uint8_t *)pix, n);
+}
+
 }  // namespace
 
+// mode: 0 zigzag levels + dc, 1 the same wrapped over base levels, 2
+// dequantized raster blocks (dc unused, raster levels out)
 extern "C" int amv_transcode_blocks(const void *lv, const void *dc,
                                     const void *tables, const void *geom,
                                     void *out, void *pix, long long n,
-                                    void *stream) {
+                                    int mode, void *stream) {
     if (n > 0) {
-        const long long grid = (n + kThreads - 1) / kThreads;
-        transcode_blocks_kernel<<<(unsigned)grid, kThreads, 0,
-                                  (cudaStream_t)stream>>>(
-            (const int16_t *)lv, (const int32_t *)dc,
-            *(const Tables *)tables, *(const Geom *)geom, (int16_t *)out,
-            (uint8_t *)pix, n);
+        cudaStream_t s = (cudaStream_t)stream;
+        if (mode == kModeWrap)
+            launch<kModeWrap>(lv, dc, tables, geom, out, pix, n, s);
+        else if (mode == kModeDeq)
+            launch<kModeDeq>(lv, dc, tables, geom, out, pix, n, s);
+        else
+            launch<kModeZigzag>(lv, dc, tables, geom, out, pix, n, s);
     }
     return (int)cudaGetLastError();
 }

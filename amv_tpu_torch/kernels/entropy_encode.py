@@ -52,7 +52,7 @@ def encode_levels(levels: torch.Tensor, w_out: int):
     return words, bits, ok
 
 
-def _bitlen(v):
+def bitlen(v):
     """bit length of non-negative int64 values below 2^32."""
     r = torch.zeros_like(v)
     for s in (16, 8, 4, 2, 1):
@@ -60,6 +60,20 @@ def _bitlen(v):
         r = r + torch.where(m, s, 0)
         v = torch.where(m, v >> s, v)
     return r + (v > 0).long()
+
+
+def dc_differences(lv: torch.Tensor) -> torch.Tensor:
+    """Levels [F, NB, 64] (slot 0 = absolute DC) -> int64 [F, NB] DC
+    differences against per-component predictors starting at 128 (Y over
+    blocks 0-3 of each MCU, Cb block 4, Cr block 5)."""
+    dc = lv[:, :, 0].long()
+    t6 = torch.arange(lv.shape[1], device=lv.device) % 6
+    diff = torch.zeros_like(dc)
+    for sel in (t6 < 4, t6 == 4, t6 == 5):
+        c = dc[:, sel]
+        prev = torch.cat([torch.full_like(c[:, :1], 128), c[:, :-1]], dim=1)
+        diff[:, sel] = c - prev
+    return diff
 
 
 def _append(val, ln, code, size):
@@ -85,14 +99,8 @@ def encode_levels_plain(levels: torch.Tensor, w_out: int):
     dct = torch.where(luma, 0, 256)[None, :]
     act = torch.where(luma, 512, 768)[None, :, None]
 
-    # DC differences against per-component predictors starting at 128
-    dc = lv[:, :, 0]
-    diff = torch.zeros_like(dc)
-    for sel in (luma, t6 == 4, t6 == 5):
-        c = dc[:, sel]
-        prev = torch.cat([torch.full_like(c[:, :1], 128), c[:, :-1]], dim=1)
-        diff[:, sel] = c - prev
-    n = _bitlen(diff.abs())
+    diff = dc_differences(lv)
+    n = bitlen(diff.abs())
     dv, dl = _append(code[dct + n], size[dct + n], torch.where(
         diff < 0, diff - 1, diff), n)
 
@@ -105,7 +113,7 @@ def encode_levels_plain(levels: torch.Tensor, w_out: int):
                            prev_nz[..., :-1]], dim=2)
     run = idx - prev_excl - 1
     mag = ac.abs()
-    n = _bitlen(mag)
+    n = bitlen(mag)
     sym = (((run & 15) << 4) | n) & 255
     cv, cl = _append(code[act + sym], size[act + sym],
                      torch.where(ac < 0, ac - 1, ac), n)

@@ -6,6 +6,12 @@ transcode_bytes`: host C unescape, a length sort, the device chain
 Huffman encode), the unsort, host C escape/framing and the RIFF mux.
 Audio chunks pass through untouched.
 
+`transcode_complete(enc=...)` picks the entropy encoder, as
+`transcode_complete_async` does: "async" is kernel E; "record" the
+tokenizer and kernel P, "rechunk" the block-local pack and kernel P,
+"parallel" the scatter-add packer (`kernels/entropy_records.py`,
+`kernels/entropy_parallel.py`).  All give the same bytes.
+
 The chain runs in frame-major layout ([F, n_blocks, 64]); the TPU's slab
 layout, lane tiles, segmentation (`segs`, `segs_dec`, `pick_segments`)
 and the serving hand-over existed for TPU VMEM and dispatch limits and
@@ -24,6 +30,10 @@ from ..codecs.amv_video import (check_decoded, encoder_qmat, pack_levels,
                                 resolve_dc)
 from ..containers import riff
 from ..kernels.entropy_decode import decode_scans
+from ..kernels.entropy_parallel import (FITTING_WINDOWS,
+                                        encode_layout_parallel,
+                                        encode_layout_rechunk)
+from ..kernels.entropy_records import encode_layout_async
 from ..kernels.transcode import transcode_blocks, transcode_blocks_pix
 from . import resolve_device
 
@@ -52,21 +62,56 @@ def word_budget(scans: torch.Tensor) -> int:
     return max(64, (2 * scans.shape[1] + 255) // 256 * 64)
 
 
+# The record routes' encoders: levels [F, NB, 64], w_out -> (words, bits,
+# ok).  Their record budget and windows are ones no input overflows (a
+# block owns at most 64 records; the batch's longest block; windows of
+# WL_MAX-word blocks), where JAX's defaults are sized for its corpus and
+# its callers fall back to the lockstep encoder on an overflow: on
+# chip_smoke.py's 160x120 corpus at qscale 2, 2,030 of 4,800 frames decode
+# to more than JAX's 8,192 records, and their re-encodes take about as
+# many.  So only the word budget can overflow here.
+ROUTES = {
+    "record": lambda lv2, w_out: encode_layout_async(lv2, w_out,
+                                                     64 * lv2.shape[1]),
+    "rechunk": lambda lv2, w_out: encode_layout_rechunk(lv2, w_out, None),
+    "parallel": lambda lv2, w_out: encode_layout_parallel(
+        lv2, w_out, **FITTING_WINDOWS),
+}
+ENCODERS = ("async",) + tuple(ROUTES)
+
+
+def encode_route(lv2: torch.Tensor, w_first: int, enc: str):
+    """Re-quantized levels int16 [F, NB, 64] -> (words int32 [F, w_used],
+    bits int32 [F]) by encoder `enc`, trimmed to the longest frame.  A
+    route that overflows w_first words packs again with the exact budget,
+    as `pack_levels` does for kernel E ("async")."""
+    if enc == "async":
+        return pack_levels(lv2, w_first)
+    words, bits, _ = ROUTES[enc](lv2, w_first)
+    w_used = max(1, (int(bits.max()) + 31) // 32) if bits.numel() else 1
+    if w_used > w_first:
+        words, bits, _ = ROUTES[enc](lv2, w_used)
+    return words[:, :w_used].contiguous(), bits
+
+
 def transcode_complete(scans: torch.Tensor, lens: torch.Tensor, n_mcu: int,
-                       qmat, size=None):
+                       qmat, size=None, enc: str = "async"):
     """Device chain: unescaped scans uint8 [F, stride] + lens int64 [F] ->
     (words int32 [F, w_out] big-endian scan words, bits int32 [F],
     ok bool [F]) for `native.escape_frames`.
 
     `transcode_complete_async`'s contract at segs=1, with ok per frame;
-    `qmat` is a qscale or a qmat_key, `size` as `transcode_levels_fused`.
-    ok False marks a frame the decoder rejected.  The encoder's words never
-    truncate (`pack_levels`)."""
+    `qmat` is a qscale or a qmat_key, `size` as `transcode_levels_fused`,
+    `enc` one of ENCODERS.  ok False marks a frame the decoder rejected.
+    The encoder's words never truncate (`encode_route`)."""
+    if enc not in ENCODERS:
+        raise ValueError(f"enc must be one of {ENCODERS}, got {enc!r}")
     levels, ok = decode_scans(scans, lens, n_mcu * 6)
     dc = resolve_dc(levels.reshape(-1, n_mcu, 6, 64)).reshape(-1)
     lv2 = transcode_blocks(levels.reshape(-1, 64), dc, encoder_qmat(qmat),
                            size)
-    words, bits = pack_levels(lv2.reshape(levels.shape), word_budget(scans))
+    words, bits = encode_route(lv2.reshape(levels.shape), word_budget(scans),
+                               enc)
     return words, bits, ok.bool()
 
 

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Start the PyTorch/CUDA port (amv_tpu_torch) on one NVIDIA GPU and check
-its paths end to end: the complete AMV->AMV transcode, the AMV decode
-(video and audio) and the AMV encode.
+its paths end to end: the complete AMV->AMV transcode (with each of its
+entropy encoders), the record-IR decode, the AMV decode (video and audio)
+and the AMV encode.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; nothing is caught):
  1. the card: nvidia-smi name and power limit, torch.cuda required;
- 2. build the seven CUDA kernels from amv_tpu_torch/csrc (nvcc, sm_90a,
+ 2. build the ten CUDA kernels from amv_tpu_torch/csrc (nvcc, sm_90a,
     one nvcc per source, all started together);
  3. a 160x120 corpus at the reference's canonical shape (16 fps, 22,050 Hz
     ADPCM audio): 4,800 frames (5 minutes) of seeded videogen/rotozoom
@@ -21,26 +22,39 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     integer operations over the peak rate, whichever is larger):
     D, T, E on the corpus as the transcode hands it over; I on the
     corpus blocks; F on the blocks of the raw corpus pictures; A on the
-    file's audio chunks; Q on the 300 s stream's chunk layout; and the
-    other entries over the same kernels: I's raw idct_put on the corpus's
-    dequantized blocks, F's raster fdct_quantize, A's wrap entry 64 times
-    over and Q's 8 times over.  Then extra cases: malformed scans (D), no
-    edge replication (T), an overflowing word budget (E), DC-only blocks
+    file's audio chunks; Q on the 300 s stream's chunk layout; R and X
+    (the record decode) on the transcode's scans, in a budget no frame
+    overflows; P on the record encoder's records of the re-encode levels;
+    and the other entries over the same kernels: T's dequantized entry on
+    the corpus's dequantized blocks and its wrap 64 times over the first
+    N_CHECK frames' blocks, I's raw idct_put on the corpus's dequantized
+    blocks, F's raster fdct_quantize, A's wrap entry 64 times over and Q's
+    8 times over.  Then extra cases: malformed scans (D, R), no edge
+    replication (T), an overflowing word budget (E, P), DC-only blocks
     (I), qscale 1 (F), clamp-stress payloads (A), a stream with no reset
-    at sample 0 and one starting at step index 88 (Q);
+    at sample 0 and one starting at step index 88 (Q); R + X against D's
+    levels, in the budget and in JAX's default one;
  5. the transcode through the user's entry point, amv_tpu_torch.cli.main:
     video byte-identical to the C reference transcode, audio passed
     through, D, T and E launched; frames/s and the split between the
-    device chain and the host stages;
+    device chain and the host stages; then the record decode path
+    (decode_scans_async: R and X launched, levels equal to D's) and the
+    transcode's device chain with each entropy encoder (transcode_complete
+    with enc = record, rechunk, parallel beside async): bytes equal to
+    the C reference, P launched by record and rechunk, E by none of them,
+    and each chain's time;
  6. the decode through cli.main, to .yuv and to .wav: every frame
     byte-identical to the C decoder, the PCM to the C ADPCM decoder chunk
     by chunk, D, I and A launched; frames/s, Msamples/s and the split;
  7. the encode through cli.main from .yuv + .wav: every video chunk
     byte-identical to the C encoder, every audio chunk to the Python
     ADPCM oracle, F, E and Q launched; frames/s, Msamples/s and the split;
- 8. 64 frames at 168x120 (width not whole MCUs) through the transcode,
-    the decode and the encode, byte-identical to C;
- 9. 256 frames at 320x240 through transcode_bytes, byte-identical to C.
+ 8. 64 frames at 168x120 (width not whole MCUs) through the transcode
+    (with each entropy encoder), the decode and the encode,
+    byte-identical to C;
+ 9. 256 frames at 320x240 through transcode_bytes and through the
+    transcode's device chain with each entropy encoder, byte-identical to
+    C.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -77,6 +91,8 @@ Q_WRAP = 8           # kernel Q's wrap entry: the stream 8 times
 OPS_TOKEN = 20       # a Huffman token: peek, table walk, extend, store
 OPS_EXPAND = 15      # an ADPCM decode sample (adpcm_decode.cu expand)
 OPS_COMPRESS = 25    # an ADPCM encode sample (adpcm_encode.cu compress)
+OPS_SCATTER = 8      # a record expanded (record_expand.cu)
+OPS_RECORD = 12      # a record packed (record_pack.cu, bitwriter.cuh put)
 
 
 def log(msg: str) -> None:
@@ -91,6 +107,9 @@ def import_port() -> SimpleNamespace:
     from amv_tpu_torch.kernels import _build, adpcm, fdct, idct
     from amv_tpu_torch.kernels import entropy_decode as D
     from amv_tpu_torch.kernels import entropy_encode as E
+    from amv_tpu_torch.kernels import entropy_parallel as EP
+    from amv_tpu_torch.kernels import entropy_records as R
+    from amv_tpu_torch.kernels import record_pack as RP
     from amv_tpu_torch.kernels import transcode as T
     from amv_tpu_torch.pipeline import decode, encode
     from amv_tpu_torch.pipeline import transcode as P
@@ -209,12 +228,40 @@ def reset_launches(m):
     m.D.LAUNCHES = m.T.LAUNCHES = m.E.LAUNCHES = 0
     m.idct.LAUNCHES = m.fdct.LAUNCHES = 0
     m.adpcm.DECODE_LAUNCHES = m.adpcm.ENCODE_LAUNCHES = 0
+    m.R.RECORD_LAUNCHES = m.R.EXPAND_LAUNCHES = m.RP.LAUNCHES = 0
 
 
 def launches(m):
     return {"D": m.D.LAUNCHES, "T": m.T.LAUNCHES, "E": m.E.LAUNCHES,
             "I": m.idct.LAUNCHES, "F": m.fdct.LAUNCHES,
-            "A": m.adpcm.DECODE_LAUNCHES, "Q": m.adpcm.ENCODE_LAUNCHES}
+            "A": m.adpcm.DECODE_LAUNCHES, "Q": m.adpcm.ENCODE_LAUNCHES,
+            "R": m.R.RECORD_LAUNCHES, "X": m.R.EXPAND_LAUNCHES,
+            "P": m.RP.LAUNCHES}
+
+
+def route_bytes(m, pays, w, h, enc):
+    """The video chunks of transcode_complete(enc=...) over payloads,
+    length-sorted as transcode_bytes sorts them."""
+    import torch
+    rows, lens = m.native.unescape_frames(pays)
+    order = np.argsort([len(p) for p in pays], kind="stable")
+    n_mcu = ((w + 15) // 16) * ((h + 15) // 16)
+    words, bits, ok = m.P.transcode_complete(
+        torch.from_numpy(rows[order]).cuda(),
+        torch.from_numpy(lens[order]).cuda(), n_mcu, QSCALE, (w, h), enc=enc)
+    assert ok.all()
+    inv = np.argsort(order)
+    return m.native.escape_frames(words.cpu().numpy()[inv],
+                                  bits.cpu().numpy()[inv])
+
+
+def check_routes(m, pays, w, h, want) -> None:
+    """Every entropy encoder's bytes equal the C reference's, and kernel E
+    runs in none but "async"."""
+    for enc in m.P.ENCODERS:
+        e0 = m.E.LAUNCHES
+        assert route_bytes(m, pays, w, h, enc) == want, (enc, w, h)
+        assert (m.E.LAUNCHES > e0) == (enc == "async"), (enc, "kernel E")
 
 
 def main() -> int:
@@ -342,7 +389,69 @@ def main() -> int:
           lambda: (m.idct.idct_put_plain(deq).view(-1, 8, 8),),
           f"{n_blk} dequantized blocks", n_blk * (128 + 64),
           n_blk * OPS_IDCT)
-    del lv2_a, words_e, pix_i, deq
+    # T's dequantized entry (transcode_soa's contract) on the same blocks
+    check("T deq entry", lambda: m.T.transcode_deq(deq, qmat),
+          lambda: m.T.transcode_deq_plain(deq, qmat),
+          f"{n_blk} dequantized blocks", n_blk * (128 + 64 + 128),
+          n_blk * (OPS_IDCT + OPS_FDCT))
+    # T's wrap (transcode_zz_wrap's contract): the first N_CHECK frames'
+    # blocks WRAP times over, each output block with its base block's DC;
+    # the plain version runs in slices of whole MCUs
+    base = lvf[:N_CHECK * nb]
+    n_wrap = base.shape[0] * WRAP
+    widx = m.T.wrap_index(base.shape[0], WRAP, dev)
+    dc_wrap = dc_a[:base.shape[0]][widx]
+    step = 6 << 18
+
+    def wrap_plain():
+        outs = [m.T.transcode_blocks_plain(base[widx[a:a + step]],
+                                           dc_wrap[a:a + step], qmat)
+                for a in range(0, n_wrap, step)]
+        return tuple(torch.cat(o) for o in zip(*outs))
+
+    check("T wrap", lambda: m.T.transcode_blocks_pix(base, dc_wrap, qmat,
+                                                     repeat=WRAP),
+          wrap_plain, f"repeat={WRAP} over {base.shape[0]} blocks, {n_wrap} "
+          "blocks out", base.shape[0] * 128 + n_wrap * (4 + 128 + 64),
+          n_wrap * (OPS_DEQUANT + OPS_IDCT + OPS_FDCT))
+    del widx, dc_wrap
+    # R and X: the record decode of the transcode's scans in a budget no
+    # frame overflows (a block owns at most 64 records), then R + X against
+    # kernel D's levels
+    t_rec = 64 * nb
+    recs_a, st_a = check(
+        "R", lambda: m.R.decode_records(rows_a, lens_a, nb, t_rec),
+        lambda: m.R.decode_records_plain(rows_a, lens_a, nb, t_rec),
+        f"rows {tuple(rows_a.shape)}, {m.R.record_rows(t_rec)} records a "
+        "frame", lambda got: int(lens_a.sum()) + 8 * N_FRAMES +
+        4 * got[0].numel() + 8 * N_FRAMES,
+        lambda got: OPS_TOKEN * int(got[1][:, 1].sum()))
+    assert (st_a[:, 0] == nb).all()
+    cnt_a = st_a[:, 1].contiguous()
+    n_dec = int(cnt_a.sum())
+    (lv_x,) = check(
+        "X", lambda: (m.R.expand_records(recs_a, cnt_a, nb),),
+        lambda: (m.R.expand_records_plain(recs_a, cnt_a, nb),),
+        f"records {tuple(recs_a.shape)}, {n_dec} used",
+        4 * n_dec + 4 * N_FRAMES + N_FRAMES * nb * 128, OPS_SCATTER * n_dec)
+    extra("R+X", [(lv_x, lv_a)], f"{N_FRAMES} frames: kernel D's levels "
+          f"({int(st_a[:, 1].sum())} records, at most "
+          f"{int(st_a[:, 1].max())} a frame)")
+    del recs_a, lv_x
+    # P on the record encoder's records of the re-encode levels, and its
+    # words against kernel E's
+    recs_p, tot_p, _, ok_p = m.R.tokenize_levels(lv2_a, t_rec)
+    assert ok_p.all()
+    n_rec = int(tot_p.sum())
+    words_p, bits_p = check(
+        "P", lambda: m.RP.pack_records(recs_p, tot_p, wb),
+        lambda: m.RP.pack_records_plain(recs_p, tot_p, wb),
+        f"records {tuple(recs_p.shape)}, w_out {wb}",
+        lambda got: 4 * n_rec + 4 * N_FRAMES + N_FRAMES * (
+            4 * ((int(got[1].max()) + 31) // 32) + 4), OPS_RECORD * n_rec)
+    extra("P vs E", [(words_p, words_e), (bits_p, bits_e)],
+          f"{N_FRAMES} frames ({n_rec} records): kernel E's words and bits")
+    del lv2_a, words_e, pix_i, deq, words_p
     ysrc = [torch.from_numpy(p).to(dev) for p in pics]
     blocks = m.amv_video.extract_blocks(*ysrc, (W + 15) // 16,
                                         (H + 15) // 16).reshape(-1, 64)
@@ -410,6 +519,23 @@ def main() -> int:
     extra("D extra", [(lv_k, lv_p), (ok_k, ok_p)],
           f"{N_CHECK} frames + 8 malformed (ok {ok_k[N_CHECK:].tolist()})")
     assert ok_k[:N_CHECK].all() and not ok_k[N_CHECK + 1], ok_k[N_CHECK:]
+    t_def = m.R.default_t_max(nb, rows_t.shape[1])
+    rec_k = m.R.decode_records(rows_t, lens_t, nb, t_def)
+    rec_p = m.R.decode_records_plain(rows_t, lens_t, nb, t_def)
+    extra("R extra", zip(rec_k, rec_p),
+          f"{N_CHECK} frames + 8 malformed in JAX's default budget of "
+          f"{t_def} records ({int((rec_k[1][:, 0] < nb).sum())} frames not "
+          "done)")
+    extra("X extra", [(m.R.expand_records(rec_k[0], rec_k[1][:, 1]
+                                          .contiguous(), nb),
+                       m.R.expand_records_plain(rec_p[0], rec_p[1][:, 1], nb))],
+          "those records")
+    extra("P extra", zip(m.RP.pack_records(recs_p[:N_CHECK],
+                                           tot_p[:N_CHECK], 16),
+                         m.RP.pack_records_plain(recs_p[:N_CHECK],
+                                                 tot_p[:N_CHECK], 16)),
+          f"{N_CHECK} frames at w_out 16 (every frame overflows)")
+    del rec_k, rec_p, recs_p
 
     lv = lv_k[:N_CHECK].reshape(-1, 64)
     dc = m.amv_video.resolve_dc(
@@ -507,6 +633,77 @@ def main() -> int:
         assert vch == want
         log_split("transcode", split,
                   f"; words copied to the host {tuple(words.shape)}")
+
+        # ---- 5b. the record decode, and the transcode's encoders -------
+        torch.cuda.synchronize()
+        reset_launches(m)
+        lv_r, ok_r = m.R.decode_scans_async(r_t, l_t, nb, t_rec)
+        torch.cuda.synchronize()
+        paths["record decode"] = launches(m)
+        lv_d, _ = m.D.decode_scans(r_t, l_t, nb)
+        assert ok_r.all() and torch.equal(lv_r, lv_d)
+        assert all(paths["record decode"][k] > 0 for k in "RX"), paths
+        lv_def, ok_def = m.R.decode_scans_async(r_t, l_t, nb)
+        good = ok_def.bool()
+        assert torch.equal(lv_def[good], lv_d[good])
+        log(f"record decode: decode_scans_async over {N_FRAMES} frames in a "
+            f"budget of {t_rec} records a frame: levels equal to kernel D's;"
+            f" in JAX's default budget ({m.R.default_t_max(nb, r_t.shape[1])}"
+            f") {int((~good).sum())} frames run out (ok 0) and the rest "
+            f"equal D's; launches {paths['record decode']}")
+        del lv_r, lv_d, lv_def
+        chain = {enc: [] for enc in m.P.ENCODERS}
+        for enc in m.P.ENCODERS:                 # counted, and the warm-up
+            reset_launches(m)
+            words, bits, ok = m.P.transcode_complete(r_t, l_t, n_mcu, QSCALE,
+                                                     (W, H), enc=enc)
+            torch.cuda.synchronize()
+            paths[f"transcode {enc}"] = launches(m)
+            assert ok.all()
+            assert m.native.escape_frames(words.cpu().numpy()[inv],
+                                          bits.cpu().numpy()[inv]) == want, \
+                f"enc={enc}: bytes differ from the C reference"
+        for _ in range(3):                   # interleaved passes
+            for enc in m.P.ENCODERS:
+                t0 = time.perf_counter()
+                m.P.transcode_complete(r_t, l_t, n_mcu, QSCALE, (W, H),
+                                       enc=enc)
+                torch.cuda.synchronize()
+                chain[enc].append(time.perf_counter() - t0)
+        for enc in m.P.ENCODERS[1:]:
+            got = paths[f"transcode {enc}"]
+            assert got["E"] == 0 and got["D"] > 0 and got["T"] > 0, (enc, got)
+            assert (got["P"] > 0) == (enc != "parallel"), (enc, got)
+        log("transcode device chain by entropy encoder (transcode_complete, "
+            f"{N_FRAMES} frames, median of 3 interleaved passes, host clock "
+            "after a synchronize): " + ", ".join(
+                f"{enc} {statistics.median(chain[enc]) * 1e3:.1f} ms" for enc
+                in m.P.ENCODERS) + "; every encoder's bytes equal the C "
+            "reference; launches " + "; ".join(
+                f"{enc} {paths[f'transcode {enc}']}" for enc in m.P.ENCODERS))
+        # the encoders alone on the chain's re-encode levels, and the torch
+        # stages of the record routes (median of 3, CUDA events)
+        lv_c, _ = m.D.decode_scans(r_t, l_t, nb)
+        dc_c = m.amv_video.resolve_dc(lv_c.reshape(-1, n_mcu, 6, 64))
+        lv2_c = m.T.transcode_blocks(lv_c.reshape(-1, 64), dc_c.reshape(-1),
+                                     qmat, (W, H)).reshape(lv_c.shape)
+        wb_c = m.P.word_budget(r_t)
+        stage = {f"encode_route {enc}": cuda_ms(
+            lambda: m.P.encode_route(lv2_c, wb_c, enc), 3)[0]
+            for enc in m.P.ENCODERS}
+        stage["tokenize_levels"] = cuda_ms(
+            lambda: m.R.tokenize_levels(lv2_c, t_rec), 3)[0]
+        stage["rechunk_records"] = cuda_ms(
+            lambda: m.EP.rechunk_records(lv2_c, None), 3)[0]
+        def slot_pass():
+            for a, b in m.EP.frame_chunks(N_FRAMES, nb):
+                m.EP.slot_records(lv2_c[a:b])
+
+        stage["slot_records"] = cuda_ms(slot_pass, 3)[0]
+        log("encoders alone on the re-encode levels (median of 3, CUDA "
+            "events): " + ", ".join(f"{k} {v:.2f} ms"
+                                    for k, v in stage.items()))
+        del lv_c, dc_c, lv2_c
         del want, words, r_t, l_t
 
         # ---- 6. the decode through the CLI ----------------------------
@@ -645,22 +842,27 @@ def main() -> int:
     data_p = m.riff.mux(pays_p, [], width=W_PAD, height=H, fps=FPS)
     got = m.riff.demux(m.P.transcode_bytes(data_p, qscale=QSCALE,
                                            device="cuda")).video_chunks
-    assert got == c_transcode(m, pays_p, W_PAD, H), f"{W_PAD}x{H} transcode"
+    want_p = c_transcode(m, pays_p, W_PAD, H)
+    assert got == want_p, f"{W_PAD}x{H} transcode"
+    check_routes(m, pays_p, W_PAD, H, want_p)
     dec = m.decode.decode_bytes(data_p, device="cuda")
     c_decode_matches(m, pays_p, W_PAD, H, dec.y, dec.cb, dec.cr)
     assert m.amv_video.encode_frames(*pics_p, QSCALE, device="cuda") == \
         pays_p, f"{W_PAD}x{H} encode"
-    log(f"{W_PAD}x{H}: {N_PAD} frames through the transcode, the decode and "
-        "the encode, byte-identical to C")
+    log(f"{W_PAD}x{H}: {N_PAD} frames through the transcode (each entropy "
+        "encoder), the decode and the encode, byte-identical to C")
 
     # ---- 9. big frames ----------------------------------------------
     big = c_encode(m, pictures(m, 256, 240, 320, seed=2))
     big_data = m.riff.mux(big, [], width=320, height=240, fps=FPS)
     got = m.riff.demux(m.P.transcode_bytes(big_data, qscale=QSCALE,
                                            device="cuda")).video_chunks
-    assert got == c_transcode(m, big, 320, 240), "320x240 differs"
+    want_big = c_transcode(m, big, 320, 240)
+    assert got == want_big, "320x240 differs"
+    check_routes(m, big, 320, 240, want_big)
     log(f"320x240: 256 frames (payloads up to {max(len(p) for p in big)} "
-        "bytes) byte-identical to the C reference")
+        "bytes) byte-identical to the C reference, with each entropy "
+        "encoder")
     log(f"total {time.perf_counter() - t_start:.1f} s after the imports")
 
     kernels = []
@@ -678,7 +880,13 @@ def main() -> int:
             ("A", "adpcm_decode", "decode audio", "adpcm_decode.cu",
              "adpcm_pallas.py:86"),
             ("Q", "adpcm_encode", "encode", "adpcm_encode.cu",
-             "adpcm_encode_pallas.py:89")):
+             "adpcm_encode_pallas.py:89"),
+            ("R", "decode_records", "record decode", "entropy_decode.cu",
+             "entropy_async_pallas.py:357"),
+            ("X", "expand_records", "record decode", "record_expand.cu",
+             "entropy_async_pallas.py:435"),
+            ("P", "pack_records", "transcode record", "record_pack.cu",
+             "entropy_encode_async_pallas.py:407")):
         err = max(v for k, v in errs.items() if k.split()[0] == key)
         kernels.append({
             "name": name, "route": "cuda",

@@ -23,8 +23,11 @@ from amv_tpu_torch.containers import riff  # noqa: E402
 from amv_tpu_torch.kernels import adpcm as AQ  # noqa: E402
 from amv_tpu_torch.kernels import entropy_decode as D  # noqa: E402
 from amv_tpu_torch.kernels import entropy_encode as E  # noqa: E402
+from amv_tpu_torch.kernels import entropy_parallel as EP  # noqa: E402
+from amv_tpu_torch.kernels import entropy_records as ER  # noqa: E402
 from amv_tpu_torch.kernels import fdct as F  # noqa: E402
 from amv_tpu_torch.kernels import idct as I  # noqa: E402
+from amv_tpu_torch.kernels import record_pack as RP  # noqa: E402
 from amv_tpu_torch.kernels import transcode as T  # noqa: E402
 from amv_tpu_torch.pipeline import decode as PD  # noqa: E402
 from amv_tpu_torch.pipeline import encode as PE  # noqa: E402
@@ -232,3 +235,88 @@ def test_decode_encode_cuda_match_c_reference(dev, w, h):
     assert all(a > b for a, b in zip(
         (I.LAUNCHES, F.LAUNCHES, AQ.DECODE_LAUNCHES, AQ.ENCODE_LAUNCHES),
         launches))
+
+
+@pytest.mark.parametrize("qscale", [1, 2])
+def test_transcode_kernel_other_entries_match_plain(dev, qscale):
+    """Kernel T's dequantized entry (transcode_soa's contract) and its
+    repeat= wrap (transcode_zz_wrap's), against their plain versions."""
+    rng = np.random.default_rng(20 + qscale)
+    q = encoder_qmat(qscale)
+    deq = torch.from_numpy(rng.integers(-2048, 2048, (4099, 64))
+                           .astype(np.int16)).to(dev)
+    got = T.transcode_deq(deq, q)
+    want = T.transcode_deq_plain(deq, q)
+    n_base, repeat = 8 * 96, 16                       # nm_base 96: pf 16
+    base = torch.from_numpy(_random_levels(rng, n_base)).to(dev)
+    dc = torch.from_numpy(rng.integers(-4000, 4000, n_base * repeat)
+                          .astype(np.int32)).to(dev)
+    got_w = T.transcode_blocks_pix(base, dc, q, repeat=repeat)
+    want_w = T.transcode_blocks_plain(
+        base[T.wrap_index(n_base, repeat, dev)], dc, q)
+    torch.cuda.synchronize()
+    for g, w in zip(got + got_w, want + want_w):
+        assert torch.equal(g, w)
+
+
+def test_record_decode_kernels_match_plain_and_d(dev):
+    """Kernels R and X against their plain versions (valid, malformed and
+    over-budget scans), and decode_scans_async against kernel D."""
+    pays = _payloads(12, 120, 160, seed=4)
+    rows, lens = native.unescape_frames(pays)
+    rng = np.random.default_rng(6)
+    rows[0, :] = rng.integers(0, 256, rows.shape[1])        # random bytes
+    rows[1, 40:48] = 0xFF                                   # invalid code
+    lens[2] //= 3                                           # truncated
+    rt, lt = torch.from_numpy(rows).to(dev), torch.from_numpy(lens).to(dev)
+    for t_max in (500, 480 * 64):
+        recs, status = ER.decode_records(rt, lt, 480, t_max)
+        want_r, want_s = ER.decode_records_plain(rt, lt, 480, t_max)
+        lv = ER.expand_records(recs, status[:, 1].contiguous(), 480)
+        want_lv = ER.expand_records_plain(want_r, want_s[:, 1], 480)
+        torch.cuda.synchronize()
+        assert torch.equal(recs, want_r) and torch.equal(status, want_s)
+        assert torch.equal(lv, want_lv)
+    assert (status[3:, 0] == 480).all()
+    levels, ok = ER.decode_scans_async(rt, lt, 480, 480 * 64)
+    want, ok_d = D.decode_scans(rt, lt, 480)
+    assert torch.equal(levels[3:], want[3:]) and ok[3:].all()
+
+
+def test_record_encoders_match_plain_and_e(dev):
+    """Kernel P against its plain version, and the record, rechunk and
+    parallel encoders against kernel E's words and bits."""
+    rng = np.random.default_rng(8)
+    lv = _random_levels(rng, 9 * 480, dense=0.08).reshape(9, 480, 64)
+    lv[:, :, 0] = rng.integers(0, 2048, (9, 480))
+    lt = torch.from_numpy(lv).to(dev)
+    recs, totals, _, ok = ER.tokenize_levels(lt, 64 * 480)
+    for w_out in (64, 8192):
+        got = RP.pack_records(recs, totals, w_out)
+        want = RP.pack_records_plain(recs, totals, w_out)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert ok.all()
+    ew, eb, _ = E.encode_levels(lt, 8192)
+    for words, bits, ok in (
+            ER.encode_layout_async(lt, 8192, 64 * 480),
+            EP.encode_layout_rechunk(lt, 8192, None),
+            EP.encode_layout_parallel(lt, 8192, **EP.FITTING_WINDOWS)):
+        assert ok.all()
+        assert torch.equal(words, ew) and torch.equal(bits, eb)
+
+
+@pytest.mark.parametrize("enc", ["record", "rechunk", "parallel"])
+def test_transcode_routes_cuda_match_c_reference(dev, enc):
+    pays = _payloads(6, 120, 160, seed=5)
+    rows, lens = native.unescape_frames(pays)
+    launches = (E.LAUNCHES, RP.LAUNCHES)
+    words, bits, ok = P.transcode_complete(
+        torch.from_numpy(rows).to(dev), torch.from_numpy(lens).to(dev), 80,
+        2, (160, 120), enc=enc)
+    assert ok.all()
+    assert native.escape_frames(words.cpu().numpy(), bits.cpu().numpy()) == \
+        [native.ref_encode_frame(*native.ref_decode_frame(p, 160, 120), 2)
+         for p in pays]
+    assert E.LAUNCHES == launches[0]
+    assert (RP.LAUNCHES > launches[1]) == (enc != "parallel")
