@@ -43,7 +43,10 @@ def main(argv=None) -> int:
     p.add_argument("-qscale", dest="qscale", type=int, default=2)
     p.add_argument("-amv_quant", dest="amv_quant", choices=["ffmpeg", "q60"],
                    default="ffmpeg",
-                   help="AMV encode quantizer (q60 is not yet ported)")
+                   help="AMV encode quantizer: ffmpeg = the reference "
+                        "encoder's (MPEG-1 matrix x qscale, bit-exact); q60 "
+                        "= the decoder's own sp5x Q60 tables (>=30 dB round "
+                        "trips)")
     p.add_argument("-acodec", dest="acodec", choices=["pcm", "copy"],
                    default="pcm", help="WAV output codec (copy is not yet "
                                        "ported)")
@@ -95,8 +98,8 @@ def main(argv=None) -> int:
 
 
 def _transcode(args) -> int:
-    """AMV -> AMV re-encode: the device chain D -> T -> E; audio passes
-    through."""
+    """AMV -> AMV re-encode: the device chain D -> T -> E, or D -> U -> V ->
+    E for -amv_quant q60 and odd sizes; audio passes through."""
     from .pipeline.transcode import transcode_bytes
     with open(args.inputs[0], "rb") as f:
         data = f.read()
@@ -104,13 +107,15 @@ def _transcode(args) -> int:
                           quant=args.amv_quant, device=args.device)
     with open(args.output, "wb") as f:
         f.write(out)
-    print(f"wrote {args.output}: {len(out)} bytes (requantized "
-          f"qscale={args.qscale or 2}, device {args.device})")
+    mode = ("quant=q60" if args.amv_quant == "q60"
+            else f"qscale={args.qscale or 2}")
+    print(f"wrote {args.output}: {len(out)} bytes (requantized {mode}, "
+          f"device {args.device})")
     return 0
 
 
 def _decode(args, ext: str) -> int:
-    """AMV -> PCM WAV (kernel A) or raw yuv420p frames (kernels D, I)."""
+    """AMV -> PCM WAV (kernel A) or raw yuv420p frames (kernels D, U)."""
     from .containers import wav
     from .pipeline.decode import decode_file
     if ext not in (".wav", ".yuv"):
@@ -148,7 +153,7 @@ def _read_yuv(path: str, w: int, h: int, max_frames):
 
 
 def _encode(args) -> int:
-    """Raw .yuv (+ .wav) -> AMV (kernels F, E and Q), or AMV -> AMV through
+    """Raw .yuv (+ .wav) -> AMV (kernels V, E and Q), or AMV -> AMV through
     the full decode and re-encode when -s is given."""
     from .containers import wav
     from .pipeline.encode import encode_to_file

@@ -3,15 +3,17 @@
 The counterpart of `amv_tpu/codecs/amv_video.py` on its device route:
 
 * decode: host C unescape, kernel D (Huffman decode), DC prediction
-  (`resolve_dc`), kernel I (Q60 dequant + IDCT), MCU assembly and the AMV
-  flip (`assemble_planes`);
-* encode: flip and edge padding (`extract_blocks`), kernel F (FDCT +
-  quantize), kernel E (Huffman pack, `pack_levels`), host C escape and
-  framing.
+  (`resolve_dc`), kernel U (Q60 dequant + IDCT + MCU assembly, with the
+  AMV flip, the crop and the un-sort in its store: `decode_planes`);
+* encode: kernel V (flip and edge padding in its load, FDCT, and the
+  "ffmpeg" or "q60" quantizer: `encode_planes`), kernel E (Huffman pack,
+  `pack_levels`), host C escape and framing.
 
-Frames are batched frame-major; the batch is length-sorted before kernel D
-(the longest frames' threads then share warps).  A frame kernel D rejects
-raises ValueError naming it, as the JAX package's host route does.
+`decode_transform` and `encode_transform` keep the JAX package's
+contracts over kernels U and V.  Frames are batched frame-major; the
+batch is length-sorted before kernel D (the longest frames' threads then
+share warps).  A frame kernel D rejects raises ValueError naming it, as
+the JAX package's host route does.
 
 Reference semantics: sp5xdec.c + mjpegdec.c (decode), mjpegenc.c +
 mpegvideo_enc.c (encode).
@@ -23,11 +25,13 @@ import numpy as np
 import torch
 
 from .. import native
+from ..kernels.decode_fused import (assemble_planes,  # noqa: F401
+                                    decode_planes)
+from ..kernels.encode_fused import (QUANTS, encode_planes,  # noqa: F401
+                                    extract_blocks)
 from ..kernels.entropy_decode import decode_scans
 from ..kernels.entropy_encode import encode_levels
-from ..kernels.fdct import fdct_quant_blocks
-from ..kernels.idct import idct_blocks
-from .jpeg_tables import QDC_CHROMA, QDC_LUMA, encoder_qmat
+from .jpeg_tables import QDC_CHROMA, QDC_LUMA, encoder_qmat  # noqa: F401
 
 
 def resolve_dc(levels: torch.Tensor) -> torch.Tensor:
@@ -67,21 +71,23 @@ def pack_levels(levels: torch.Tensor, w_first: int):
     return words[:, :w_used].contiguous(), bits
 
 
-def assemble_planes(pix: torch.Tensor, mb_w: int, mb_h: int, width: int,
-                    height: int):
-    """Decoded blocks uint8 [F, M, 6, 8, 8] -> YUV420 display planes
-    (MCU assembly + AMV flip, mjpeg_decode_scan:672-723)."""
-    f = pix.shape[0]
-    mcu = pix.reshape(f, mb_h, mb_w, 6, 8, 8)
-    yb = mcu[:, :, :, :4].reshape(f, mb_h, mb_w, 2, 2, 8, 8)
-    ycoded = yb.permute(0, 1, 3, 5, 2, 4, 6).reshape(f, 16 * mb_h, 16 * mb_w)
-    cbc = mcu[:, :, :, 4].permute(0, 1, 3, 2, 4).reshape(f, 8 * mb_h, 8 * mb_w)
-    crc = mcu[:, :, :, 5].permute(0, 1, 3, 2, 4).reshape(f, 8 * mb_h, 8 * mb_w)
-    ch, cw = height // 2, width // 2
-    y = ycoded[:, :height, :width].flip(1)
-    cb = cbc[:, :ch, :cw].flip(1)
-    cr = crc[:, :ch, :cw].flip(1)
-    return y, cb, cr
+def _check_geometry(n_mcu: int, mb_w: int, mb_h: int, width: int,
+                    height: int) -> None:
+    if (mb_w, mb_h) != ((width + 15) // 16, (height + 15) // 16) or \
+            n_mcu != mb_w * mb_h:
+        raise ValueError(f"{n_mcu} MCUs of {mb_w}x{mb_h} do not make a "
+                         f"{width}x{height} picture")
+
+
+def decode_transform(levels_zz: torch.Tensor, mb_w: int, mb_h: int,
+                     width: int, height: int):
+    """`amv_tpu.codecs.amv_video.decode_transform`'s contract on the
+    levels' device: levels int16 [F, n_mcu, 6, 64] zigzag, slot 0 the DC
+    difference -> (y uint8 [F, H, W], cb and cr uint8 [F, H/2, W/2])
+    display planes.  DC prediction, then kernel U."""
+    _check_geometry(levels_zz.shape[1], mb_w, mb_h, width, height)
+    dc = resolve_dc(levels_zz).reshape(-1)
+    return decode_planes(levels_zz.reshape(-1, 64), dc, width, height)
 
 
 def decode_frames(payloads: list[bytes], width: int, height: int, *,
@@ -89,48 +95,32 @@ def decode_frames(payloads: list[bytes], width: int, height: int, *,
     """Decode a batch of AMV '00dc' payloads to YUV420 planes (numpy
     uint8 [F, H, W], [F, H/2, W/2] x2) on `device`."""
     dev = torch.device(device)
-    mb_w, mb_h = (width + 15) // 16, (height + 15) // 16
-    n_mcu = mb_w * mb_h
+    n_mcu = ((width + 15) // 16) * ((height + 15) // 16)
     rows, lens = native.unescape_frames(payloads)
     order = np.argsort(np.array([len(p) for p in payloads]), kind="stable")
     levels, ok = decode_scans(torch.from_numpy(rows[order]).to(dev),
                               torch.from_numpy(lens[order]).to(dev),
                               n_mcu * 6)
     check_decoded(ok, order)
-    f = len(payloads)
-    dc = resolve_dc(levels.reshape(f, n_mcu, 6, 64)).reshape(-1)
-    pix = idct_blocks(levels.reshape(-1, 64), dc)
-    inv = torch.from_numpy(np.argsort(order)).to(dev)
-    y, cb, cr = assemble_planes(pix.reshape(f, n_mcu, 6, 8, 8)[inv],
-                                mb_w, mb_h, width, height)
+    dc = resolve_dc(levels.reshape(len(payloads), n_mcu, 6, 64)).reshape(-1)
+    y, cb, cr = decode_planes(levels.reshape(-1, 64), dc, width, height,
+                              dst=torch.from_numpy(order).to(dev))
     return y.cpu().numpy(), cb.cpu().numpy(), cr.cpu().numpy()
 
 
-def extract_blocks(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
-                   mb_w: int, mb_h: int) -> torch.Tensor:
-    """YUV420 planes -> encoder block layout uint8 [F, n_mcu, 6, 8, 8]
-    (flip + bottom/right edge replication, amv_encode_picture:467-471 +
-    ff_emulated_edge_mc)."""
-    f = y.shape[0]
-
-    def flip_pad(p, th, tw):
-        p = p.flip(1)
-        h, w = p.shape[1], p.shape[2]
-        rows = torch.arange(th, device=p.device).clamp(max=h - 1)
-        cols = torch.arange(tw, device=p.device).clamp(max=w - 1)
-        return p[:, rows][:, :, cols]
-
-    yc = flip_pad(y, 16 * mb_h, 16 * mb_w)
-    cbc = flip_pad(cb, 8 * mb_h, 8 * mb_w)
-    crc = flip_pad(cr, 8 * mb_h, 8 * mb_w)
-    yb = yc.reshape(f, mb_h, 2, 8, mb_w, 2, 8).permute(0, 1, 4, 2, 5, 3, 6)
-    cbb = cbc.reshape(f, mb_h, 8, mb_w, 8).permute(0, 1, 3, 2, 4)
-    crb = crc.reshape(f, mb_h, 8, mb_w, 8).permute(0, 1, 3, 2, 4)
-    return torch.cat([
-        yb.reshape(f, mb_h * mb_w, 4, 8, 8),
-        cbb.reshape(f, mb_h * mb_w, 1, 8, 8),
-        crb.reshape(f, mb_h * mb_w, 1, 8, 8),
-    ], dim=2)
+def encode_transform(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+                     mb_w: int, mb_h: int, qscale: int = 2,
+                     quant: str = "ffmpeg") -> torch.Tensor:
+    """`amv_tpu.codecs.amv_video.encode_transform`'s contract on the
+    planes' device: YUV420 display planes (uint8 [F, H, W], [F, H/2, W/2]
+    x2) -> levels int16 [F, n_mcu, 6, 64] zigzag, slot 0 the absolute DC.
+    quant "ffmpeg" is the reference encoder's quantizer at qscale; "q60"
+    quantizes with the decoder's own Q60 tables (qscale unused).  Kernel
+    V."""
+    f, h, w = y.shape
+    _check_geometry(mb_w * mb_h, mb_w, mb_h, w, h)
+    return encode_planes(y, cb, cr, qscale, quant).view(f, mb_w * mb_h, 6,
+                                                        64)
 
 
 def first_word_budget(n_mcu: int) -> int:
@@ -142,18 +132,14 @@ def first_word_budget(n_mcu: int) -> int:
 def encode_frames(y, cb, cr, qscale: int = 2, quant: str = "ffmpeg", *,
                   device) -> list[bytes]:
     """Encode YUV420 frames (uint8 arrays [F, H, W], [F, H/2, W/2] x2) into
-    AMV '00dc' payloads on `device`; byte-identical to the C reference
-    encoder.  quant="q60" is not yet ported."""
-    if quant != "ffmpeg":
-        raise NotImplementedError(
-            f"quant={quant!r} is not yet ported (ROADMAP queue 1, item 6)")
+    AMV '00dc' payloads on `device`.  quant "ffmpeg" is byte-identical to
+    the C reference encoder; "q60" quantizes with the decoder's Q60 tables
+    (`encode_transform`), packed by the same mjpegenc rules."""
     dev = torch.device(device)
     f, h, w = y.shape
-    mb_w, mb_h = (w + 15) // 16, (h + 15) // 16
+    n_mcu = ((w + 15) // 16) * ((h + 15) // 16)
     planes = [torch.as_tensor(np.ascontiguousarray(p, np.uint8)).to(dev)
               for p in (y, cb, cr)]
-    blocks = extract_blocks(*planes, mb_w, mb_h)
-    levels = fdct_quant_blocks(blocks.reshape(-1, 64), encoder_qmat(qscale))
-    words, bits = pack_levels(levels.reshape(f, mb_w * mb_h * 6, 64),
-                              first_word_budget(mb_w * mb_h))
+    levels = encode_planes(*planes, qscale, quant)
+    words, bits = pack_levels(levels, first_word_budget(n_mcu))
     return native.escape_frames(words.cpu().numpy(), bits.cpu().numpy())

@@ -39,6 +39,8 @@ _SIGNATURES = {
     "amv_encode_levels": [_P, _I32, _I32, _P, _I32, _P, _P, _P, _P],
     "amv_idct_blocks": [_P, _P, _P, _P, _I64, _P],
     "amv_fdct_quant": [_P, _P, _P, _I64, _I32, _P],
+    "amv_decode_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _P],
+    "amv_encode_fused": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P],
     "amv_adpcm_decode": [_P, _I64, _P, _P, _I64, _I64, _P, _P],
     "amv_adpcm_encode": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P, _I64, _I64,
                          _P, _P, _P, _P, _P],

@@ -98,17 +98,23 @@ def _fdct_1d(c, pass1: bool):
             o4, desc(t5 + zb + zd, sh), o6, desc(t4 + za + zc, sh)]
 
 
-def fdct_quantize_plain(pix: torch.Tensor, qmat: np.ndarray) -> torch.Tensor:
-    """Plain torch version of kernel F on any device: pixels (0..255
-    integers) [N, 64] raster -> levels int16 [N, 64] raster, slot 0 the
-    absolute DC (coef + 32) >> 6, AC coef * qmat with a sign-symmetric
-    >> 22 and a clip to +-1023, in int32 wraparound."""
+def fdct_plain(pix: torch.Tensor) -> torch.Tensor:
+    """ff_jpeg_fdct_islow on pixels (0..255 integers) [N, 64] raster ->
+    coefficients int64 [N, 64] raster, each wrapped to int16."""
     n = pix.shape[0]
     blk = pix.long().view(n, 8, 8)
     p1 = _fdct_1d([blk[:, :, k] for k in range(8)], pass1=True)
     m1 = torch.stack(p1, dim=2)
     p2 = _fdct_1d([m1[:, i, :] for i in range(8)], pass1=False)
-    coef = torch.stack(p2, dim=1).reshape(n, 64)         # raster
+    return torch.stack(p2, dim=1).reshape(n, 64)
+
+
+def fdct_quantize_plain(pix: torch.Tensor, qmat: np.ndarray) -> torch.Tensor:
+    """Plain torch version of kernel F on any device: pixels (0..255
+    integers) [N, 64] raster -> levels int16 [N, 64] raster, slot 0 the
+    absolute DC (coef + 32) >> 6, AC coef * qmat with a sign-symmetric
+    >> 22 and a clip to +-1023, in int32 wraparound."""
+    coef = fdct_plain(pix)
     q = torch.as_tensor(np.asarray(qmat, np.int64), device=pix.device)
     level = w32(coef * q)
     neg = -(w32(-level) >> 22)

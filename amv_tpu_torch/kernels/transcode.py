@@ -27,6 +27,8 @@ import torch
 
 from ..codecs.jpeg_tables import Q60_CHROMA, Q60_LUMA, ZIGZAG
 from . import _build
+from .decode_fused import coded_planes
+from .encode_fused import mcu_blocks
 from .fdct import fdct_quantize_plain
 from .idct import dequantize, idct_put_plain
 
@@ -101,16 +103,26 @@ def transcode_deq(deq: torch.Tensor, qmat: np.ndarray):
     return pix, out
 
 
+def takes_size(size) -> bool:
+    """Whether kernel T's edge replication covers frames of `size`: None,
+    or an even width and height.  An odd size can leave a chroma pad
+    block with no picture pixel in its MCU (h = 16 k + 1 has 8 k chroma
+    rows), which the two-stage route (kernels U then V) covers."""
+    return size is None or (size[0] % 2 == 0 and size[1] % 2 == 0)
+
+
 def _geometry(size, n: int):
     """(mb_w, mb_h, width, height) of the frames of n blocks; a geometry
     with no pad pixels for size=None."""
     if size is None:
         return 1, 1, 16, 16
     w, h = size
-    if w % 2 or h % 2 or w <= 0 or h <= 0:
+    if w <= 0 or h <= 0:
+        raise ValueError(f"{w}x{h}: not a picture size")
+    if not takes_size(size):
         raise NotImplementedError(
-            f"{w}x{h}: odd picture sizes are not yet ported (ROADMAP "
-            "queue 1, item 6)")
+            f"{w}x{h}: kernel T takes even sizes only; odd sizes take the "
+            "two-stage transform (pipeline.transcode.reencode_planes)")
     mb_w, mb_h = (w + 15) // 16, (h + 15) // 16
     if n % (6 * mb_w * mb_h):
         raise ValueError(f"{n} blocks are not whole {w}x{h} frames")
@@ -188,25 +200,14 @@ def _edge_replicate(pix, geom):
     mb_w, mb_h, w, h = geom
     if w == 16 * mb_w and h == 16 * mb_h:
         return pix
-    dev = pix.device
-    b = pix.reshape(-1, mb_h, mb_w, 6, 8, 8)
-    f = b.shape[0]
-    y = (b[:, :, :, :4].reshape(f, mb_h, mb_w, 2, 2, 8, 8)
-         .permute(0, 1, 3, 5, 2, 4, 6).reshape(f, 16 * mb_h, 16 * mb_w))
-    ry = torch.arange(16 * mb_h, device=dev).clamp(max=h - 1)
-    cy = torch.arange(16 * mb_w, device=dev).clamp(max=w - 1)
-    y = y[:, ry][:, :, cy]
-    y = (y.reshape(f, mb_h, 2, 8, mb_w, 2, 8).permute(0, 1, 4, 2, 5, 3, 6)
-         .reshape(f, mb_h, mb_w, 4, 8, 8))
-    rc = torch.arange(8 * mb_h, device=dev).clamp(max=h // 2 - 1)
-    cc = torch.arange(8 * mb_w, device=dev).clamp(max=w // 2 - 1)
-    chroma = []
-    for k in (4, 5):
-        p = b[:, :, :, k].permute(0, 1, 3, 2, 4).reshape(f, 8 * mb_h, 8 * mb_w)
-        p = p[:, rc][:, :, cc]
-        chroma.append(p.reshape(f, mb_h, 8, mb_w, 8).permute(0, 1, 3, 2, 4)
-                      [:, :, :, None])
-    return torch.cat([y] + chroma, dim=3).reshape(-1, 8, 8)
+    planes = []
+    for p, ph, pw in zip(coded_planes(pix.reshape(-1, mb_w * mb_h, 6, 8, 8),
+                                      mb_w, mb_h),
+                         (h, h // 2, h // 2), (w, w // 2, w // 2)):
+        rows = torch.arange(p.shape[1], device=p.device).clamp(max=ph - 1)
+        cols = torch.arange(p.shape[2], device=p.device).clamp(max=pw - 1)
+        planes.append(p[:, rows][:, :, cols])
+    return mcu_blocks(*planes, mb_w, mb_h).reshape(-1, 8, 8)
 
 
 def transcode_blocks_plain(levels: torch.Tensor, dc: torch.Tensor,

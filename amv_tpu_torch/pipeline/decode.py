@@ -1,7 +1,7 @@
 """End-to-end AMV decode: .amv bytes -> YUV420 frames + PCM, on a device.
 
 The counterpart of `amv_tpu/pipeline/decode.py`: RIFF demux on the host,
-video through kernels D and I (`codecs.amv_video.decode_frames`), audio
+video through kernels D and U (`codecs.amv_video.decode_frames`), audio
 through kernel A (`codecs.amv_audio.decode_chunks`).
 """
 

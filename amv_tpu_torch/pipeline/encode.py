@@ -3,7 +3,7 @@ device.
 
 The counterpart of `amv_tpu/pipeline/encode.py`, the canonical reference
 invocation `ffmpeg -i in.avi -f amv -r 16 -s 160x120 -ac 1 -ar 22050
-out.amv` (AMVmuxer/Makefile:25-27): video through kernels F and E
+out.amv` (AMVmuxer/Makefile:25-27): video through kernels V and E
 (`codecs.amv_video.encode_frames`), mono ADPCM audio through kernel Q
 (`codecs.amv_audio.encode_stream`) with a per-chunk sample budget that
 tracks the frame rate (frame_size = av_rescale(sample_rate, 1, fps),

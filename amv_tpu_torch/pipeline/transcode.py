@@ -12,6 +12,14 @@ tokenizer and kernel P, "rechunk" the block-local pack and kernel P,
 "parallel" the scatter-add packer (`kernels/entropy_records.py`,
 `kernels/entropy_parallel.py`).  All give the same bytes.
 
+The transform between the entropy stages is kernel T (dequant, IDCT,
+edge replication, FDCT, requant in one pass) for quant="ffmpeg" at the
+sizes it takes, and otherwise the two-stage route of the JAX package's
+`transcode_bytes` (`decode_transform` then `encode_transform`,
+amv_tpu/pipeline/transcode.py:603-611): kernel U to display planes kept
+on the device, then kernel V (`reencode_planes`).  It carries
+quant="q60" and odd picture sizes.
+
 The chain runs in frame-major layout ([F, n_blocks, 64]); the TPU's slab
 layout, lane tiles, segmentation (`segs`, `segs_dec`, `pick_segments`)
 and the serving hand-over existed for TPU VMEM and dispatch limits and
@@ -26,7 +34,8 @@ import numpy as np
 import torch
 
 from .. import native
-from ..codecs.amv_video import (check_decoded, encoder_qmat, pack_levels,
+from ..codecs.amv_video import (QUANTS, check_decoded, decode_planes,
+                                encode_planes, encoder_qmat, pack_levels,
                                 resolve_dc)
 from ..containers import riff
 from ..kernels.entropy_decode import decode_scans
@@ -34,7 +43,8 @@ from ..kernels.entropy_parallel import (FITTING_WINDOWS,
                                         encode_layout_parallel,
                                         encode_layout_rechunk)
 from ..kernels.entropy_records import encode_layout_async
-from ..kernels.transcode import transcode_blocks, transcode_blocks_pix
+from ..kernels.transcode import (takes_size, transcode_blocks,
+                                 transcode_blocks_pix)
 from . import resolve_device
 
 
@@ -94,41 +104,58 @@ def encode_route(lv2: torch.Tensor, w_first: int, enc: str):
     return words[:, :w_used].contiguous(), bits
 
 
+def reencode_planes(levels: torch.Tensor, dc: torch.Tensor, size, qmat,
+                    quant: str = "ffmpeg") -> torch.Tensor:
+    """The two-stage transform: zigzag levels int16 [F, 6 M, 64] (slot 0
+    ignored) and their resolved DC int32 [F * 6 M] -> display planes of
+    size=(width, height) (kernel U; they stay on the device) ->
+    re-quantized zigzag levels int16 [F, 6 M, 64] (kernel V, `quant`;
+    `qmat` a qscale or a qmat_key)."""
+    if size is None:
+        raise ValueError("the two-stage transform needs the picture size")
+    planes = decode_planes(levels.reshape(-1, 64), dc, *size)
+    return encode_planes(*planes, qmat, quant)
+
+
 def transcode_complete(scans: torch.Tensor, lens: torch.Tensor, n_mcu: int,
-                       qmat, size=None, enc: str = "async"):
+                       qmat, size=None, enc: str = "async",
+                       quant: str = "ffmpeg"):
     """Device chain: unescaped scans uint8 [F, stride] + lens int64 [F] ->
     (words int32 [F, w_out] big-endian scan words, bits int32 [F],
     ok bool [F]) for `native.escape_frames`.
 
     `transcode_complete_async`'s contract at segs=1, with ok per frame;
     `qmat` is a qscale or a qmat_key, `size` as `transcode_levels_fused`,
-    `enc` one of ENCODERS.  ok False marks a frame the decoder rejected.
-    The encoder's words never truncate (`encode_route`)."""
+    `enc` one of ENCODERS, `quant` one of QUANTS.  Kernel T transforms
+    quant="ffmpeg" at the sizes it takes (`takes_size`); "q60" and odd
+    sizes take `reencode_planes`.  ok False marks a frame the decoder
+    rejected.  The encoder's words never truncate (`encode_route`)."""
     if enc not in ENCODERS:
         raise ValueError(f"enc must be one of {ENCODERS}, got {enc!r}")
+    if quant not in QUANTS:
+        raise ValueError(f"quant must be one of {QUANTS}, got {quant!r}")
     levels, ok = decode_scans(scans, lens, n_mcu * 6)
     dc = resolve_dc(levels.reshape(-1, n_mcu, 6, 64)).reshape(-1)
-    lv2 = transcode_blocks(levels.reshape(-1, 64), dc, encoder_qmat(qmat),
-                           size)
-    words, bits = encode_route(lv2.reshape(levels.shape), word_budget(scans),
-                               enc)
+    if quant == "ffmpeg" and takes_size(size):
+        lv2 = transcode_blocks(levels.reshape(-1, 64), dc, encoder_qmat(qmat),
+                               size).reshape(levels.shape)
+    else:
+        lv2 = reencode_planes(levels, dc, size, qmat, quant)
+    words, bits = encode_route(lv2, word_budget(scans), enc)
     return words, bits, ok.bool()
 
 
 def transcode_bytes(data: bytes, *, qscale: int = 2, quant: str = "ffmpeg",
                     device) -> bytes:
     """Re-encode a complete .amv file on `device` (video re-quantized at
-    qscale; audio chunks pass through).  Byte-identical to
+    qscale, or with the decoder's Q60 tables for quant="q60"; audio chunks
+    pass through).  Byte-identical to
     `amv_tpu.pipeline.transcode.transcode_bytes`.  A frame whose scan the
     Huffman decoder rejects raises ValueError naming it, as the JAX
     package's host route raises there."""
     dev = resolve_device(device)
     s = riff.demux(data)
     w, h = s.info.width, s.info.height
-    if quant != "ffmpeg":
-        raise NotImplementedError(
-            f"quant={quant!r} is not yet ported: it needs the two-stage "
-            "video decode/encode (ROADMAP queue 1, item 6)")
 
     def mux(vchunks):
         return riff.mux(vchunks, s.audio_chunks, width=w, height=h,
@@ -143,7 +170,8 @@ def transcode_bytes(data: bytes, *, qscale: int = 2, quant: str = "ffmpeg",
     inv = np.argsort(order)
     words, bits, ok = transcode_complete(
         torch.from_numpy(rows[order]).to(dev),
-        torch.from_numpy(lens[order]).to(dev), n_mcu, qscale, (w, h))
+        torch.from_numpy(lens[order]).to(dev), n_mcu, qscale, (w, h),
+        quant=quant)
     check_decoded(ok, order)
     return mux(native.escape_frames(words.cpu().numpy()[inv],
                                     bits.cpu().numpy()[inv]))

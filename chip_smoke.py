@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Start the PyTorch/CUDA port (amv_tpu_torch) on one NVIDIA GPU and check
 its paths end to end: the complete AMV->AMV transcode (with each of its
-entropy encoders), the record-IR decode, the AMV decode (video and audio)
-and the AMV encode.
+entropy encoders), the record-IR decode, the AMV decode (video and audio),
+the AMV encode, the q60 quantizer and odd picture sizes.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; nothing is caught):
  1. the card: nvidia-smi name and power limit, torch.cuda required;
- 2. build the ten CUDA kernels from amv_tpu_torch/csrc (nvcc, sm_90a,
+ 2. build the twelve CUDA kernels from amv_tpu_torch/csrc (nvcc, sm_90a,
     one nvcc per source, all started together);
  3. a 160x120 corpus at the reference's canonical shape (16 fps, 22,050 Hz
     ADPCM audio): 4,800 frames (5 minutes) of seeded videogen/rotozoom
@@ -21,7 +21,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     could take: the bytes it must move over the memory rate, or its
     integer operations over the peak rate, whichever is larger):
     D, T, E on the corpus as the transcode hands it over; I on the
-    corpus blocks; F on the blocks of the raw corpus pictures; A on the
+    corpus blocks; F on the blocks of the raw corpus pictures; U (both
+    entries) on the corpus levels and DC, un-sorting as the decode does;
+    V on the raw corpus pictures (the path entry with each quantizer, the
+    contract entry on their coded planes); A on the
     file's audio chunks; Q on the 300 s stream's chunk layout; R and X
     (the record decode) on the transcode's scans, in a budget no frame
     overflows; P on the record encoder's records of the re-encode levels;
@@ -31,9 +34,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     blocks, F's raster fdct_quantize, A's wrap entry 64 times over and Q's
     8 times over.  Then extra cases: malformed scans (D, R), no edge
     replication (T), an overflowing word budget (E, P), DC-only blocks
-    (I), qscale 1 (F), clamp-stress payloads (A), a stream with no reset
-    at sample 0 and one starting at step index 88 (Q); R + X against D's
-    levels, in the budget and in JAX's default one;
+    (I), qscale 1 (F, V), flat frames at luma 0/255/128/13 under q60 (V),
+    168x120 and an odd size (U, V), clamp-stress payloads (A), a stream
+    with no reset at sample 0 and one starting at step index 88 (Q); R + X
+    against D's levels, in the budget and in JAX's default one;
  5. the transcode through the user's entry point, amv_tpu_torch.cli.main:
     video byte-identical to the C reference transcode, audio passed
     through, D, T and E launched; frames/s and the split between the
@@ -45,14 +49,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     and each chain's time;
  6. the decode through cli.main, to .yuv and to .wav: every frame
     byte-identical to the C decoder, the PCM to the C ADPCM decoder chunk
-    by chunk, D, I and A launched; frames/s, Msamples/s and the split;
+    by chunk, D, U and A launched and not I; frames/s, Msamples/s and the
+    split; the old chain (I + assembly) against the new (U), interleaved;
  7. the encode through cli.main from .yuv + .wav: every video chunk
     byte-identical to the C encoder, every audio chunk to the Python
-    ADPCM oracle, F, E and Q launched; frames/s, Msamples/s and the split;
- 8. 64 frames at 168x120 (width not whole MCUs) through the transcode
+    ADPCM oracle, V, E and Q launched and not F; frames/s, Msamples/s and
+    the split; the old chain (extraction + F) against the new (V),
+    interleaved;
+ 8. -amv_quant q60 through cli.main: the encode and the transcode of the
+    corpus (the two-stage route D, U, V, E; not T), frames/s; every q60
+    payload decoded by the C decoder to the port's planes, Y round trips
+    of at least 30 dB, the first 256 frames' bytes equal to the port's CPU
+    route;
+ 9. 64 frames at 168x120 (width not whole MCUs) through the transcode
     (with each entropy encoder), the decode and the encode,
-    byte-identical to C;
- 9. 256 frames at 320x240 through transcode_bytes and through the
+    byte-identical to C; then 64 frames at 175x97 (odd: the two-stage
+    transcode, each entropy encoder) byte-identical to C, and their q60
+    transcode and encode equal to the port's CPU route;
+10. 256 frames at 320x240 through transcode_bytes and through the
     transcode's device chain with each entropy encoder, byte-identical to
     C.
 The line before the last is a JSON object of the kernels; the last line is
@@ -75,6 +89,10 @@ import numpy as np
 N_FRAMES, W, H, FPS, RATE, QSCALE = 4800, 160, 120, 16, 22050, 2
 N_CHECK = 512
 N_PAD, W_PAD = 64, 168          # 168 = 10.5 MCUs: right-hand pad columns
+# an odd size: 97 = 16 * 6 + 1 rows leave the last MCU row 48 chroma rows,
+# none in its own MCU row (kernel T refuses it; the two-stage route runs)
+ODD_W, ODD_H = 175, 97
+N_CPU = 256                     # q60 frames also run on the port's CPU route
 WRAP = 64                       # kernel A's wrap entry: the chunks 64 times
 
 # Peaks of one H100 SXM at 700 W, from its datasheet: device memory, and
@@ -87,6 +105,8 @@ PEAK_OPS_S = 67e12
 OPS_DEQUANT = 190    # dct.cuh callers: Q60 dequant and the DC slot
 OPS_IDCT = 1410      # dct.cuh: simple_idct row pass 600 + column pass 810
 OPS_FDCT = 1600      # dct.cuh: two jfdctint passes 1,200 + quantizer 400
+OPS_FDCT_Q60 = 3100  # the passes 1,200 + the q60 quantizer: 64 x (a divide
+                     # by a run-time divisor ~20 + ~10 others)
 Q_WRAP = 8           # kernel Q's wrap entry: the stream 8 times
 OPS_TOKEN = 20       # a Huffman token: peek, table walk, extend, store
 OPS_EXPAND = 15      # an ADPCM decode sample (adpcm_decode.cu expand)
@@ -105,6 +125,8 @@ def import_port() -> SimpleNamespace:
     from amv_tpu_torch.codecs import amv_audio, amv_video, jpeg_tables
     from amv_tpu_torch.containers import riff, wav
     from amv_tpu_torch.kernels import _build, adpcm, fdct, idct
+    from amv_tpu_torch.kernels import decode_fused as U
+    from amv_tpu_torch.kernels import encode_fused as V
     from amv_tpu_torch.kernels import entropy_decode as D
     from amv_tpu_torch.kernels import entropy_encode as E
     from amv_tpu_torch.kernels import entropy_parallel as EP
@@ -132,7 +154,8 @@ def pictures(m, n, h, w, seed):
         k = i // 32 * 16 + i % 16
         y[i] = np.clip(src[0][k].astype(np.int16) +
                        rng.integers(-3, 4, src[0][k].shape), 0, 255)
-        cb[i], cr[i] = src[1][k], src[2][k]
+        cb[i] = src[1][k][:h // 2, :w // 2]
+        cr[i] = src[2][k][:h // 2, :w // 2]
     return y, cb, cr
 
 
@@ -226,7 +249,7 @@ def timed_cli(m, argv, runs=3):
 
 def reset_launches(m):
     m.D.LAUNCHES = m.T.LAUNCHES = m.E.LAUNCHES = 0
-    m.idct.LAUNCHES = m.fdct.LAUNCHES = 0
+    m.idct.LAUNCHES = m.fdct.LAUNCHES = m.U.LAUNCHES = m.V.LAUNCHES = 0
     m.adpcm.DECODE_LAUNCHES = m.adpcm.ENCODE_LAUNCHES = 0
     m.R.RECORD_LAUNCHES = m.R.EXPAND_LAUNCHES = m.RP.LAUNCHES = 0
 
@@ -234,6 +257,7 @@ def reset_launches(m):
 def launches(m):
     return {"D": m.D.LAUNCHES, "T": m.T.LAUNCHES, "E": m.E.LAUNCHES,
             "I": m.idct.LAUNCHES, "F": m.fdct.LAUNCHES,
+            "U": m.U.LAUNCHES, "V": m.V.LAUNCHES,
             "A": m.adpcm.DECODE_LAUNCHES, "Q": m.adpcm.ENCODE_LAUNCHES,
             "R": m.R.RECORD_LAUNCHES, "X": m.R.EXPAND_LAUNCHES,
             "P": m.RP.LAUNCHES}
@@ -262,6 +286,31 @@ def check_routes(m, pays, w, h, want) -> None:
         e0 = m.E.LAUNCHES
         assert route_bytes(m, pays, w, h, enc) == want, (enc, w, h)
         assert (m.E.LAUNCHES > e0) == (enc == "async"), (enc, "kernel E")
+
+
+def rand_levels(rng, n_blocks, dense=0.15):
+    """Sparse levels int16 [n_blocks, 64] in +-1023, some blocks saturated."""
+    lv = np.where(rng.random((n_blocks, 64)) < dense,
+                  rng.integers(-1023, 1024, (n_blocks, 64)), 0)
+    lv[rng.random(n_blocks) < 0.05] = 1023
+    return lv.astype(np.int16)
+
+
+def interleaved(fns, rounds=4):
+    """Median milliseconds (CUDA events) of each of fns, run in turns:
+    forward in even rounds, backward in odd ones, after one warm-up."""
+    times = {k: [] for k in fns}
+    for fn in fns.values():
+        fn()
+    for r in range(rounds):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            times[k].append(cuda_ms(fns[k], 1, warmup=False)[0])
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def psnr(a, b) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
 
 
 def main() -> int:
@@ -466,6 +515,44 @@ def main() -> int:
           lambda: (m.fdct.fdct_quantize_plain(blocks, qmat),),
           f"{blocks.shape[0]} extracted blocks (fdct_quantize's contract)",
           blocks.shape[0] * (64 + 128), blocks.shape[0] * OPS_FDCT)
+    # U: the decode path's entry on the corpus levels and DC, un-sorting the
+    # length-sorted batch as decode_frames does (8 bytes of dst a frame);
+    # its contract entry on the same levels in raster order
+    mb_w, mb_h = (W + 15) // 16, (H + 15) // 16
+    plane_bytes = N_FRAMES * W * H * 3 // 2
+    coded_bytes = N_FRAMES * n_mcu * 384             # 256 Y + 64 Cb + 64 Cr
+    order_t = torch.from_numpy(order).to(dev)
+    check("U", lambda: m.U.decode_planes(lvf, dc_a, W, H, dst=order_t),
+          lambda: m.U.decode_planes_plain(lvf, dc_a, W, H, order_t),
+          f"{n_blk} blocks -> {N_FRAMES} display frames {W}x{H}",
+          n_blk * (128 + 4) + 8 * N_FRAMES + plane_bytes,
+          n_blk * (OPS_DEQUANT + OPS_IDCT))
+    zz = torch.as_tensor(m.jpeg_tables.ZIGZAG, device=dev).long()
+    lv_ras = torch.empty_like(lvf)
+    lv_ras[:, zz] = lvf
+    lv_ras = lv_ras.view(N_FRAMES, n_mcu, 6, 64)
+    dc4 = dc_a.view(N_FRAMES, n_mcu, 6)
+    check("U coded", lambda: m.U.decode_fused(lv_ras, dc4, mb_w, mb_h),
+          lambda: m.U.decode_fused_plain(lv_ras, dc4, mb_w, mb_h),
+          f"{n_blk} raster blocks -> coded planes (decode_fused's contract)",
+          n_blk * (128 + 4) + coded_bytes, n_blk * (OPS_DEQUANT + OPS_IDCT))
+    del lv_ras
+    # V: the encode path's entry on the raw corpus pictures with each
+    # quantizer; its contract entry on their coded (flipped, padded) planes
+    check("V", lambda: (m.V.encode_planes(*ysrc, QSCALE),),
+          lambda: (m.V.encode_planes_plain(*ysrc, qmat),),
+          f"{N_FRAMES} display frames {W}x{H} -> {n_blk} blocks, ffmpeg",
+          plane_bytes + n_blk * 128, n_blk * OPS_FDCT)
+    check("V q60", lambda: (m.V.encode_planes(*ysrc, QSCALE, "q60"),),
+          lambda: (m.V.encode_planes_plain(*ysrc, qmat, "q60"),),
+          f"{N_FRAMES} display frames {W}x{H} -> {n_blk} blocks, q60",
+          plane_bytes + n_blk * 128, n_blk * OPS_FDCT_Q60)
+    coded = [p.contiguous() for p in m.U.coded_planes(
+        blocks.view(N_FRAMES, n_mcu, 6, 8, 8), mb_w, mb_h)]
+    check("V coded", lambda: (m.V.encode_fused(*coded, mb_w, mb_h, QSCALE),),
+          lambda: (m.V.encode_fused_plain(*coded, mb_w, mb_h, qmat),),
+          f"coded planes of {N_FRAMES} frames (encode_fused's contract)",
+          coded_bytes + n_blk * 128, n_blk * OPS_FDCT)
     pay_np, pred_np, sidx_np, alens = m.amv_audio.chunk_arrays(audio)
     pay_t, pred_t, sidx_t = (torch.from_numpy(a).to(dev)
                              for a in (pay_np, pred_np, sidx_np))
@@ -568,6 +655,50 @@ def main() -> int:
           f"{fb.shape[0]} blocks at qscale 1 (wrapping products), raster "
           "entry")
     del blocks, fb
+    fp = [p[:N_CHECK] for p in ysrc]
+    extra("V extra", [(m.V.encode_planes(*fp, 1), m.V.encode_planes_plain(
+        *fp, q1)), (m.V.encode_fused(*(c[:N_CHECK] for c in coded), mb_w,
+                                     mb_h, 1),
+                     m.V.encode_fused_plain(*(c[:N_CHECK] for c in coded),
+                                            mb_w, mb_h, q1))],
+          f"{N_CHECK} frames at qscale 1, both entries")
+    del coded, fp
+    flat = []
+    for val in (0, 255, 128, 13):
+        fl = [torch.full((16, hh, ww), v, dtype=torch.uint8, device=dev)
+              for (hh, ww), v in (((H, W), val), ((H // 2, W // 2), 255 - val),
+                                  ((H // 2, W // 2), val))]
+        flat.append((m.V.encode_planes(*fl, QSCALE, "q60"),
+                     m.V.encode_planes_plain(*fl, qmat, "q60")))
+    extra("V q60 flat", flat, "16 flat frames at each of luma 0, 255, 128 "
+          "and 13 under q60 (the DC chain at the clip rails)")
+    for sw, sh in ((W_PAD, H), (ODD_W, ODD_H)):
+        smw, smh = (sw + 15) // 16, (sh + 15) // 16
+        n_s = N_PAD * smw * smh * 6
+        lv_s = torch.from_numpy(rand_levels(rng, n_s)).to(dev)
+        dc_s = torch.from_numpy(rng.integers(-40000, 40000, n_s)
+                                .astype(np.int32)).to(dev)
+        perm = torch.from_numpy(rng.permutation(N_PAD)).to(dev)
+        pairs = list(zip(m.U.decode_planes(lv_s, dc_s, sw, sh, dst=perm),
+                         m.U.decode_planes_plain(lv_s, dc_s, sw, sh, perm)))
+        lv4, dc3 = lv_s.view(N_PAD, -1, 6, 64), dc_s.view(N_PAD, -1, 6)
+        pairs += list(zip(m.U.decode_fused(lv4, dc3, smw, smh),
+                          m.U.decode_fused_plain(lv4, dc3, smw, smh)))
+        extra(f"U {sw}x{sh}", pairs, f"{N_PAD} frames of random levels, "
+              "both entries")
+        ps = [torch.from_numpy(p).to(dev)
+              for p in pictures(m, N_PAD, sh, sw, seed=sw)]
+        cs = [p.contiguous() for p in m.U.coded_planes(m.V.extract_blocks(
+            *ps, smw, smh), smw, smh)]
+        extra(f"V {sw}x{sh}", [
+            (m.V.encode_planes(*ps, QSCALE), m.V.encode_planes_plain(
+                *ps, qmat)),
+            (m.V.encode_planes(*ps, QSCALE, "q60"),
+             m.V.encode_planes_plain(*ps, qmat, "q60")),
+            (m.V.encode_fused(*cs, smw, smh, QSCALE),
+             m.V.encode_fused_plain(*cs, smw, smh, qmat))],
+            f"{N_PAD} pictures, both quantizers and the contract entry")
+    del flat, lv_s, dc_s, lv4, dc3, ps, cs
     stress = []
     for byte, sidx in ((0x77, sidx_t), (0xFF, torch.full_like(sidx_t, 88))):
         p_s = torch.full_like(pay_t, byte)
@@ -605,6 +736,8 @@ def main() -> int:
         with open(dst, "rb") as f:
             out = m.riff.demux(f.read())
         assert out.video_chunks == want, "video differs from the C reference"
+        ff_bytes = {"encode": sum(map(len, pays)),
+                    "transcode": sum(map(len, want))}
         assert out.audio_chunks == audio, "audio did not pass through"
         assert all(paths["transcode"][k] > 0 for k in "DTE"), paths
         log(f"transcode: cli.main x3, {N_FRAMES} frames in "
@@ -717,7 +850,8 @@ def main() -> int:
         wall_a, walls_a = timed_cli(m, ["-i", src, wavp, "--device", "cuda"])
         paths["decode audio"] = launches(m)
         assert paths["decode video"]["D"] > 0 and \
-            paths["decode video"]["I"] > 0, paths
+            paths["decode video"]["U"] > 0 and \
+            paths["decode video"]["I"] == 0, paths
         assert paths["decode audio"]["A"] > 0, paths
         fbytes = W * H * 3 // 2
         raw = np.fromfile(yuv, np.uint8).reshape(N_FRAMES, fbytes)
@@ -757,11 +891,8 @@ def main() -> int:
         def decode_chain():
             lv, _ = m.D.decode_scans(r_t, l_t, nb)
             dc = m.amv_video.resolve_dc(lv.reshape(N_FRAMES, n_mcu, 6, 64))
-            pix = m.idct.idct_blocks(lv.reshape(-1, 64), dc.reshape(-1))
-            inv = torch.from_numpy(np.argsort(order)).to(dev)
-            return m.amv_video.assemble_planes(
-                pix.reshape(N_FRAMES, n_mcu, 6, 8, 8)[inv], (W + 15) // 16,
-                (H + 15) // 16, W, H)
+            return m.U.decode_planes(lv.reshape(-1, 64), dc.reshape(-1), W, H,
+                                     dst=torch.from_numpy(order).to(dev))
 
         planes = staged(split, "device_chain", decode_chain)
         staged(split, "to_host", lambda: [p.cpu().numpy() for p in planes])
@@ -772,7 +903,37 @@ def main() -> int:
         pcm_t = staged(split, "device_A", lambda: m.adpcm.decode_chunks(*ta))
         staged(split, "audio_to_host", lambda: pcm_t.cpu().numpy())
         log_split("decode", split)
-        del planes, pcm_t, r_t, l_t, raw
+        # the transform before this slice (kernel I, the un-sort gather and
+        # the assembly copies) against kernel U, alone and in the chain
+        lv_c, _ = m.D.decode_scans(r_t, l_t, nb)
+        lv_c = lv_c.reshape(-1, 64)
+        dc_c = m.amv_video.resolve_dc(
+            lv_c.view(N_FRAMES, n_mcu, 6, 64)).reshape(-1)
+        inv_t = torch.from_numpy(np.argsort(order)).to(dev)
+        ord_t = torch.from_numpy(order).to(dev)
+
+        def transform_i():
+            pix = m.idct.idct_blocks(lv_c, dc_c)
+            return m.amv_video.assemble_planes(
+                pix.reshape(N_FRAMES, n_mcu, 6, 8, 8)[inv_t], mb_w, mb_h, W, H)
+
+        def chain_i():
+            lv, _ = m.D.decode_scans(r_t, l_t, nb)
+            dc = m.amv_video.resolve_dc(lv.reshape(N_FRAMES, n_mcu, 6, 64))
+            pix = m.idct.idct_blocks(lv.reshape(-1, 64), dc.reshape(-1))
+            return m.amv_video.assemble_planes(
+                pix.reshape(N_FRAMES, n_mcu, 6, 8, 8)[inv_t], mb_w, mb_h, W, H)
+
+        assert all(torch.equal(a, b) for a, b in zip(transform_i(), planes))
+        cmp = interleaved({
+            "I + assembly": transform_i,
+            "U": lambda: m.U.decode_planes(lv_c, dc_c, W, H, dst=ord_t),
+            "chain D, I": chain_i, "chain D, U": decode_chain})
+        log("decode transform, before (I, un-sort gather, assembly) and "
+            "after (U), interleaved, median of 4 (CUDA events, ms): " +
+            ", ".join(f"{k} {v:.3f}" for k, v in cmp.items()))
+        src_y = raw[:, :W * H].reshape(-1, H, W).copy()
+        del planes, pcm_t, r_t, l_t, raw, lv_c, dc_c
 
         # ---- 7. the encode through the CLI ----------------------------
         yin, win = os.path.join(tmp, "in.yuv"), os.path.join(tmp, "in.wav")
@@ -787,7 +948,8 @@ def main() -> int:
             "-i", yin, "-i", win, "-f", "amv", "-s", f"{W}x{H}", "-r",
             str(FPS), "-ar", str(RATE), dst, "--device", "cuda"])
         paths["encode"] = launches(m)
-        assert all(paths["encode"][k] > 0 for k in "FEQ"), paths
+        assert all(paths["encode"][k] > 0 for k in "VEQ") and \
+            paths["encode"]["F"] == 0, paths
         with open(dst, "rb") as f:
             out = m.riff.demux(f.read())
         assert out.video_chunks == pays, "video differs from the C encoder"
@@ -806,11 +968,8 @@ def main() -> int:
             torch.from_numpy(p).to(dev) for p in pics])
 
         def encode_chain():
-            blk = m.amv_video.extract_blocks(*planes, (W + 15) // 16,
-                                             (H + 15) // 16)
-            lvq = m.fdct.fdct_quant_blocks(blk.reshape(-1, 64), qmat)
             return m.amv_video.pack_levels(
-                lvq.reshape(N_FRAMES, nb, 64),
+                m.V.encode_planes(*planes, QSCALE),
                 m.amv_video.first_word_budget(n_mcu))
 
         words, bits = staged(split, "device_chain", encode_chain)
@@ -833,10 +992,92 @@ def main() -> int:
         log_split("encode", split,
                   f"; words copied to the host {tuple(words.shape)}; audio "
                   f"stages {len(pcm) / t_audio / 1e6:.2f} Msamples/s")
-        del planes, words, tq, bq
-    log(f"phases 5-7 done at {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 8. width padding -------------------------------------------
+        # the transform before this slice (extraction copies and kernel F)
+        # against kernel V, alone and in the chain
+        def transform_f():
+            blk = m.amv_video.extract_blocks(*planes, mb_w, mb_h)
+            return m.fdct.fdct_quant_blocks(blk.reshape(-1, 64), qmat)
+
+        def chain_f():
+            return m.amv_video.pack_levels(
+                transform_f().reshape(N_FRAMES, nb, 64),
+                m.amv_video.first_word_budget(n_mcu))
+
+        assert torch.equal(transform_f().view(N_FRAMES, nb, 64),
+                           m.V.encode_planes(*planes, QSCALE))
+        cmp = interleaved({
+            "extraction + F": transform_f,
+            "V": lambda: m.V.encode_planes(*planes, QSCALE),
+            "chain F, E": chain_f, "chain V, E": encode_chain})
+        log("encode transform, before (extraction, F) and after (V), "
+            "interleaved, median of 4 (CUDA events, ms): " +
+            ", ".join(f"{k} {v:.3f}" for k, v in cmp.items()))
+        del planes, words, tq, bq
+
+        # ---- 8. q60 through the CLI -------------------------------------
+        q60e = os.path.join(tmp, "q60.amv")
+        q60t = os.path.join(tmp, "q60t.amv")
+        enc_argv = ["-i", yin, "-i", win, "-f", "amv", "-s", f"{W}x{H}", "-r",
+                    str(FPS), "-ar", str(RATE), "-amv_quant", "q60", q60e,
+                    "--device", "cuda"]
+        tr_argv = ["-i", src, "-f", "amv", "-amv_quant", "q60", q60t,
+                   "--device", "cuda"]
+        m.cli.main(enc_argv)                                        # warm-up
+        m.cli.main(tr_argv)
+        torch.cuda.synchronize()
+        reset_launches(m)
+        wall_qe, walls_qe = timed_cli(m, enc_argv)
+        paths["encode q60"] = launches(m)
+        reset_launches(m)
+        wall_qt, walls_qt = timed_cli(m, tr_argv)
+        paths["transcode q60"] = launches(m)
+        assert all(paths["encode q60"][k] > 0 for k in "VEQ") and \
+            paths["encode q60"]["F"] == 0, paths
+        assert all(paths["transcode q60"][k] > 0 for k in "DUVE") and \
+            paths["transcode q60"]["T"] == 0, paths
+        with open(q60e, "rb") as f:
+            qe = m.riff.demux(f.read())
+        with open(q60t, "rb") as f:
+            qt = m.riff.demux(f.read())
+        assert qe.audio_chunks == want_audio and qt.audio_chunks == audio
+        db = {}
+        for what, got, ref in (("encode", qe, pics[0]),
+                               ("transcode", qt, src_y)):
+            dec = m.decode.decode_bytes(m.riff.mux(
+                got.video_chunks, [], width=W, height=H, fps=FPS),
+                device="cuda")
+            c_decode_matches(m, got.video_chunks, W, H, dec.y, dec.cb, dec.cr)
+            db[what] = psnr(ref, dec.y)
+            assert db[what] >= 30.0, (what, db[what])
+        assert qe.video_chunks[:N_CPU] == m.amv_video.encode_frames(
+            *(p[:N_CPU] for p in pics), quant="q60", device="cpu"), \
+            "q60 encode differs from the CPU route"
+        cpu_t = m.riff.demux(m.P.transcode_bytes(m.riff.mux(
+            pays[:N_CPU], [], width=W, height=H, fps=FPS), quant="q60",
+            device="cpu")).video_chunks
+        assert qt.video_chunks[:N_CPU] == cpu_t, \
+            "q60 transcode differs from the CPU route"
+        log(f"q60 encode: cli.main x3, {N_FRAMES} frames + {len(pcm)} samples"
+            f" in {', '.join(f'{t:.3f}' for t in walls_qe)} s, median "
+            f"{wall_qe:.3f} s = {N_FRAMES / wall_qe:.1f} frames/s; launches "
+            f"{paths['encode q60']}")
+        log(f"q60 transcode: cli.main x3, {N_FRAMES} frames in "
+            f"{', '.join(f'{t:.3f}' for t in walls_qt)} s, median "
+            f"{wall_qt:.3f} s = {N_FRAMES / wall_qt:.1f} frames/s; launches "
+            f"{paths['transcode q60']}")
+        log(f"q60: every payload decodes through the C decoder to the port's "
+            f"planes; Y round trip {db['encode']:.2f} dB (encode, against the "
+            f"pictures), {db['transcode']:.2f} dB (transcode, against the "
+            f"source decode); the first {N_CPU} frames' bytes equal the "
+            "port's CPU route; video bytes " + ", ".join(
+                f"{k} {sum(map(len, q.video_chunks))} (ffmpeg qscale "
+                f"{QSCALE}: {ff_bytes[k]})" for k, q in
+                (("encode", qe), ("transcode", qt))))
+        del qe, qt, src_y
+    log(f"phases 5-8 done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 9. width padding and an odd size ---------------------------
     pics_p = pictures(m, N_PAD, H, W_PAD, seed=3)
     pays_p = c_encode(m, pics_p)
     data_p = m.riff.mux(pays_p, [], width=W_PAD, height=H, fps=FPS)
@@ -851,8 +1092,31 @@ def main() -> int:
         pays_p, f"{W_PAD}x{H} encode"
     log(f"{W_PAD}x{H}: {N_PAD} frames through the transcode (each entropy "
         "encoder), the decode and the encode, byte-identical to C")
+    pics_o = pictures(m, N_PAD, ODD_H, ODD_W, seed=4)
+    pays_o = c_encode(m, pics_o)
+    data_o = m.riff.mux(pays_o, [], width=ODD_W, height=ODD_H, fps=FPS)
+    reset_launches(m)
+    got = m.riff.demux(m.P.transcode_bytes(data_o, qscale=QSCALE,
+                                           device="cuda")).video_chunks
+    odd = launches(m)
+    assert all(odd[k] > 0 for k in "DUVE") and odd["T"] == 0, odd
+    want_o = c_transcode(m, pays_o, ODD_W, ODD_H)
+    assert got == want_o, f"{ODD_W}x{ODD_H} transcode"
+    check_routes(m, pays_o, ODD_W, ODD_H, want_o)
+    dec = m.decode.decode_bytes(data_o, device="cuda")
+    c_decode_matches(m, pays_o, ODD_W, ODD_H, dec.y, dec.cb, dec.cr)
+    assert m.amv_video.encode_frames(*pics_o, QSCALE, device="cuda") == \
+        pays_o, f"{ODD_W}x{ODD_H} encode"
+    assert m.P.transcode_bytes(data_o, quant="q60", device="cuda") == \
+        m.P.transcode_bytes(data_o, quant="q60", device="cpu")
+    assert m.amv_video.encode_frames(*pics_o, quant="q60", device="cuda") == \
+        m.amv_video.encode_frames(*pics_o, quant="q60", device="cpu")
+    log(f"{ODD_W}x{ODD_H}: {N_PAD} frames through the two-stage transcode "
+        f"(each entropy encoder; launches {odd}), the decode and the "
+        "encode, byte-identical to C; the q60 transcode and encode equal "
+        "to the port's CPU route")
 
-    # ---- 9. big frames ----------------------------------------------
+    # ---- 10. big frames ---------------------------------------------
     big = c_encode(m, pictures(m, 256, 240, 320, seed=2))
     big_data = m.riff.mux(big, [], width=320, height=240, fps=FPS)
     got = m.riff.demux(m.P.transcode_bytes(big_data, qscale=QSCALE,
@@ -886,7 +1150,11 @@ def main() -> int:
             ("X", "expand_records", "record decode", "record_expand.cu",
              "entropy_async_pallas.py:435"),
             ("P", "pack_records", "transcode record", "record_pack.cu",
-             "entropy_encode_async_pallas.py:407")):
+             "entropy_encode_async_pallas.py:407"),
+            ("U", "decode_fused", "decode video", "decode_fused.cu",
+             "decode_fused_pallas.py:111"),
+            ("V", "encode_fused", "encode", "encode_fused.cu",
+             "encode_fused_pallas.py:67")):
         err = max(v for k, v in errs.items() if k.split()[0] == key)
         kernels.append({
             "name": name, "route": "cuda",

@@ -16,11 +16,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from amv_tpu_torch import native  # noqa: E402
-from amv_tpu_torch.codecs import amv_audio  # noqa: E402
+from amv_tpu_torch.codecs import amv_audio, amv_video  # noqa: E402
 from amv_tpu_torch.codecs.amv_video import encoder_qmat  # noqa: E402
 from amv_tpu_torch.codecs.jpeg_tables import ZIGZAG  # noqa: E402
 from amv_tpu_torch.containers import riff  # noqa: E402
 from amv_tpu_torch.kernels import adpcm as AQ  # noqa: E402
+from amv_tpu_torch.kernels import decode_fused as U  # noqa: E402
+from amv_tpu_torch.kernels import encode_fused as V  # noqa: E402
 from amv_tpu_torch.kernels import entropy_decode as D  # noqa: E402
 from amv_tpu_torch.kernels import entropy_encode as E  # noqa: E402
 from amv_tpu_torch.kernels import entropy_parallel as EP  # noqa: E402
@@ -217,8 +219,9 @@ def test_decode_encode_cuda_match_c_reference(dev, w, h):
     y = np.clip(y.astype(np.int16) + rng.integers(-5, 6, y.shape), 0,
                 255).astype(np.uint8)
     pcm = fixtures.audiogen(5 / 16, seed=2)
-    launches = (I.LAUNCHES, F.LAUNCHES, AQ.DECODE_LAUNCHES,
+    launches = (U.LAUNCHES, V.LAUNCHES, AQ.DECODE_LAUNCHES,
                 AQ.ENCODE_LAUNCHES)
+    old = (I.LAUNCHES, F.LAUNCHES)
     data = PE.encode_to_bytes(y, cb, cr, pcm, device="cuda")
     s = riff.demux(data)
     assert s.video_chunks == [native.ref_encode_frame(y[i], cb[i], cr[i], 2)
@@ -233,8 +236,9 @@ def test_decode_encode_cuda_match_c_reference(dev, w, h):
     assert np.array_equal(dec.pcm, amv_audio.decode_chunks(
         s.audio_chunks, device="cpu"))
     assert all(a > b for a, b in zip(
-        (I.LAUNCHES, F.LAUNCHES, AQ.DECODE_LAUNCHES, AQ.ENCODE_LAUNCHES),
+        (U.LAUNCHES, V.LAUNCHES, AQ.DECODE_LAUNCHES, AQ.ENCODE_LAUNCHES),
         launches))
+    assert (I.LAUNCHES, F.LAUNCHES) == old     # U and V replace I and F
 
 
 @pytest.mark.parametrize("qscale", [1, 2])
@@ -320,3 +324,86 @@ def test_transcode_routes_cuda_match_c_reference(dev, enc):
          for p in pays]
     assert E.LAUNCHES == launches[0]
     assert (RP.LAUNCHES > launches[1]) == (enc != "parallel")
+
+
+@pytest.mark.parametrize("w,h", [(160, 120), (40, 24), (33, 25)])
+def test_fused_decode_kernel_matches_plain(dev, w, h):
+    """Kernel U's two entries against their plain versions: the coded
+    planes of decode_fused and the display planes of decode_planes, with
+    and without the un-sort."""
+    rng = np.random.default_rng(w + h)
+    mb_w, mb_h = (w + 15) // 16, (h + 15) // 16
+    f = 9
+    lv = torch.from_numpy(_random_levels(rng, f * mb_w * mb_h * 6)).to(dev)
+    dc = torch.from_numpy(rng.integers(-40000, 40000, lv.shape[0])
+                          .astype(np.int32)).to(dev)
+    perm = torch.from_numpy(rng.permutation(f)).to(dev)
+    pairs = [(U.decode_planes(lv, dc, w, h, dst=d),
+              U.decode_planes_plain(lv, dc, w, h, d)) for d in (None, perm)]
+    lv4 = lv.view(f, mb_w * mb_h, 6, 64)
+    dc3 = dc.view(f, mb_w * mb_h, 6)
+    pairs.append((U.decode_fused(lv4, dc3, mb_w, mb_h),
+                  U.decode_fused_plain(lv4, dc3, mb_w, mb_h)))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        for g, x in zip(got, want):
+            assert torch.equal(g, x)
+
+
+@pytest.mark.parametrize("w,h", [(160, 120), (40, 24), (33, 25), (34, 17)])
+def test_fused_encode_kernel_matches_plain(dev, w, h):
+    """Kernel V's entries against their plain versions: encode_planes with
+    both quantizers (qscale 1 wraps the products) on random and flat
+    pictures, and encode_fused on coded planes."""
+    rng = np.random.default_rng(w * h)
+    mb_w, mb_h = (w + 15) // 16, (h + 15) // 16
+    f = 7
+    y = rng.integers(0, 256, (f, h, w)).astype(np.uint8)
+    cb = rng.integers(0, 256, (f, h // 2, w // 2)).astype(np.uint8)
+    cr = rng.integers(0, 256, (f, h // 2, w // 2)).astype(np.uint8)
+    for i, val in enumerate((0, 255, 13)):
+        y[i], cb[i], cr[i] = val, 255 - val, val
+    planes = [torch.from_numpy(p).to(dev) for p in (y, cb, cr)]
+    pairs = []
+    for quant, q in (("ffmpeg", 1), ("ffmpeg", 2), ("q60", 2)):
+        qm = encoder_qmat(q) if quant == "ffmpeg" else np.zeros(64, np.int32)
+        pairs.append((V.encode_planes(*planes, q, quant),
+                      V.encode_planes_plain(*planes, qm, quant)))
+    coded = [torch.from_numpy(rng.integers(0, 256, (f, s * mb_h, s * mb_w))
+                              .astype(np.uint8)).to(dev) for s in (16, 8, 8)]
+    for q in (1, 2):
+        pairs.append((V.encode_fused(*coded, mb_w, mb_h, q),
+                      V.encode_fused_plain(*coded, mb_w, mb_h,
+                                           encoder_qmat(q))))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("w,h", [(160, 120), (33, 25)])
+def test_q60_and_odd_sizes_cuda_match_cpu_and_c(dev, w, h):
+    """The two-stage transcode (quant="q60", and an odd size with ffmpeg),
+    the q60 encode and the odd-size decode on the card: bytes equal to the
+    port's CPU route, ffmpeg bytes to the C reference, q60 payloads
+    decoded by the C decoder to the port's planes; D, U, V and E launch,
+    T does not."""
+    pays = _payloads(6, h, w, seed=9)
+    data = riff.mux(pays, [], width=w, height=h, fps=16)
+    counts = (D.LAUNCHES, U.LAUNCHES, V.LAUNCHES, E.LAUNCHES, T.LAUNCHES)
+    out = P.transcode_bytes(data, quant="q60", device="cuda")
+    after = (D.LAUNCHES, U.LAUNCHES, V.LAUNCHES, E.LAUNCHES, T.LAUNCHES)
+    assert all(a > b for a, b in zip(after[:4], counts[:4]))
+    assert after[4] == counts[4]
+    assert out == P.transcode_bytes(data, quant="q60", device="cpu")
+    q60 = riff.demux(out).video_chunks
+    dec = PD.decode_bytes(out, device="cuda")
+    for i, p in enumerate(q60):
+        for k, ref in enumerate(native.ref_decode_frame(p, w, h)):
+            assert np.array_equal((dec.y, dec.cb, dec.cr)[k][i], ref)
+    if w % 2:
+        got = riff.demux(P.transcode_bytes(data, qscale=2, device="cuda"))
+        assert got.video_chunks == [native.ref_encode_frame(
+            *native.ref_decode_frame(p, w, h), 2) for p in pays]
+    y, cb, cr = dec.y, dec.cb, dec.cr
+    assert amv_video.encode_frames(y, cb, cr, quant="q60", device="cuda") \
+        == amv_video.encode_frames(y, cb, cr, quant="q60", device="cpu")

@@ -1,7 +1,8 @@
 """The port's decode and encode entry points on the CPU (plain versions of
-kernels D, I, A and F, E, Q) against the JAX package and the C reference:
-`pipeline.decode.decode_bytes`, `pipeline.encode.encode_to_bytes`, the
-CLI's new routes (`--device cpu`) and the explicit-device contract.
+kernels D, U, A and V, E, Q) against the JAX package and the C reference:
+`pipeline.decode.decode_bytes`, `pipeline.batch.decode_many`,
+`pipeline.encode.encode_to_bytes` (quant "ffmpeg" and "q60"), the CLI's
+routes (`--device cpu`) and the explicit-device contract.
 Inputs are made with numpy from seeds.  Tolerance: exact equality.
 """
 
@@ -13,11 +14,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from amv_tpu.containers import riff as jax_riff  # noqa: E402
+from amv_tpu.pipeline import batch as jax_batch  # noqa: E402
 from amv_tpu.pipeline import decode as jax_decode  # noqa: E402
 from amv_tpu.pipeline import encode as jax_encode  # noqa: E402
+from amv_tpu.pipeline import transcode as jax_transcode  # noqa: E402
 from amv_tpu.verify import fixtures, ref_adpcm  # noqa: E402
 from amv_tpu_torch import cli, native  # noqa: E402
 from amv_tpu_torch.containers import riff, wav  # noqa: E402
+from amv_tpu_torch.pipeline import batch as PB  # noqa: E402
 from amv_tpu_torch.pipeline import decode as PD  # noqa: E402
 from amv_tpu_torch.pipeline import encode as PE  # noqa: E402
 
@@ -62,6 +66,29 @@ def test_decode_matches_jax_and_c(clip, kw):
         ref = native.ref_decode_frame(s.video_chunks[first + i], W, H)
         for k, plane in enumerate((got.y, got.cb, got.cr)):
             np.testing.assert_array_equal(plane[i], ref[k])
+
+
+def test_decode_many_matches_jax(clip):
+    """Three files of two geometries: one batch per geometry, each file's
+    planes and PCM equal to the JAX package's."""
+    y, cb, cr, pcm, data = clip
+    rng = np.random.default_rng(9)
+    y2, cb2, cr2 = fixtures.videogen(3, 24, 40, seed=9)
+    y2 = np.clip(y2.astype(np.int16) + rng.integers(-3, 4, y2.shape), 0,
+                 255).astype(np.uint8)
+    other = PE.encode_to_bytes(y2, cb2, cr2, fixtures.audiogen(3 / 16, seed=9),
+                               device="cpu")
+    datas = [data, other, PE.encode_to_bytes(y[:2], cb[:2], cr[:2],
+                                             pcm[:2756], device="cpu")]
+    got = PB.decode_many(datas, device="cpu")
+    want = jax_batch.decode_many(datas)
+    assert len(got) == 3
+    for g, x in zip(got, want):
+        assert (g.info.width, g.info.height) == (x.info.width, x.info.height)
+        for k in ("y", "cb", "cr", "pcm"):
+            np.testing.assert_array_equal(getattr(g, k), getattr(x, k))
+    with pytest.raises(TypeError):
+        PB.decode_many(datas)                      # no default device
 
 
 def _run(*argv):
@@ -113,6 +140,24 @@ def test_cli_encode_route(clip, tmp_path):
         dec.y, dec.cb, dec.cr, dec.pcm)
 
 
+def test_cli_q60_routes(clip, tmp_path):
+    """-amv_quant q60 on the encode and the transcode routes."""
+    y, cb, cr, pcm, data = clip
+    yuv, src, out = tmp_path / "in.yuv", tmp_path / "in.amv", \
+        tmp_path / "out.amv"
+    np.concatenate([p.reshape(N, -1) for p in (y, cb, cr)],
+                   axis=1).tofile(yuv)
+    src.write_bytes(data)
+    assert _run("-i", yuv, "-f", "amv", "-s", f"{W}x{H}", "-amv_quant",
+                "q60", out) == 0
+    assert out.read_bytes() == PE.encode_to_bytes(
+        y, cb, cr, np.zeros(N * 22050 // 16, np.int16), quant="q60",
+        device="cpu")
+    assert _run("-i", src, "-f", "amv", "-amv_quant", "q60", out) == 0
+    assert out.read_bytes() == jax_transcode.transcode_bytes(data,
+                                                             quant="q60")
+
+
 @pytest.mark.parametrize("argv", [
     ["-i", "{amv}", "{tmp}/out.bmp"],
     ["-i", "{amv}", "{tmp}/out.avi"],
@@ -150,8 +195,8 @@ def test_explicit_device_contract(clip, tmp_path):
             PD.decode_bytes(data, device="cuda")
         with pytest.raises(RuntimeError, match="no CUDA device"):
             PE.encode_to_bytes(y, cb, cr, pcm, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PE.encode_to_bytes(y, cb, cr, pcm, quant="q60", device="cpu")
+    assert PE.encode_to_bytes(y, cb, cr, pcm, quant="q60", device="cpu") == \
+        jax_encode.encode_to_bytes(y, cb, cr, pcm, quant="q60")
     p8 = tmp_path / "u8.wav"
     p8.write_bytes(b"RIFF" + (36 + 4).to_bytes(4, "little") + b"WAVEfmt " +
                    (16).to_bytes(4, "little") +

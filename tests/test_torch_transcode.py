@@ -32,6 +32,7 @@ def _clip(kind, n, h, w, seed=0, qscale=2, audio=True):
     rng = np.random.default_rng(seed)
     y, cb, cr = (fixtures.videogen(n, h, w, seed=seed) if kind == "videogen"
                  else fixtures.rotozoom(n, h, w))
+    cb, cr = cb[:, :h // 2, :w // 2], cr[:, :h // 2, :w // 2]
     y = np.clip(y.astype(np.int16) + rng.integers(-2, 3, y.shape), 0,
                 255).astype(np.uint8)
     pays = [native.ref_encode_frame(y[i], cb[i], cr[i], qscale)
@@ -67,10 +68,14 @@ def test_large_frames_match_c_reference(qscale):
 
 @pytest.mark.parametrize("kind,w,h", [("rotozoom", 40, 24),
                                       ("videogen", 40, 32),
-                                      ("rotozoom", 36, 20)])
+                                      ("rotozoom", 36, 20),
+                                      ("videogen", 33, 25),
+                                      ("rotozoom", 34, 17)])
 def test_width_padding_matches_c_reference(kind, w, h):
     """Widths that are not whole MCUs: right-hand pad columns in luma, and
-    chroma planes 20 and 18 pixels wide, edge-replicated by kernel T."""
+    chroma planes 20 and 18 pixels wide, edge-replicated by kernel T; odd
+    sizes (34x17 has a chroma pad MCU row with no picture row) through the
+    two-stage route, kernels U and V."""
     pays, data = _clip(kind, 3, h, w, seed=1, audio=False)
     got = riff.demux(P.transcode_bytes(data, qscale=2, device="cpu"))
     assert got.video_chunks == _c_reference(pays, w, h)
@@ -182,5 +187,8 @@ def test_device_contract():
             P.transcode_bytes(data, qscale=2, device="cuda")
     with pytest.raises(TypeError):
         P.transcode_bytes(data, qscale=2)          # no default device
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.transcode_bytes(data, quant="q60", device="cpu")
+    assert P.transcode_bytes(data, quant="q60", device="cpu") == \
+        jax_transcode.transcode_bytes(data, quant="q60")
+    _, odd = _clip("videogen", 2, 25, 33)
+    assert P.transcode_bytes(odd, qscale=3, device="cpu") == \
+        jax_transcode.transcode_bytes(odd, qscale=3)
