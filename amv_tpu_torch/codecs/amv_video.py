@@ -6,14 +6,14 @@ The counterpart of `amv_tpu/codecs/amv_video.py` on its device route:
   (`resolve_dc`), kernel U (Q60 dequant + IDCT + MCU assembly, with the
   AMV flip, the crop and the un-sort in its store: `decode_planes`);
 * encode: kernel V (flip and edge padding in its load, FDCT, and the
-  "ffmpeg" or "q60" quantizer: `encode_planes`), kernel E (Huffman pack,
-  `pack_levels`), host C escape and framing.
+  "ffmpeg" or "q60" quantizer: `encode_planes`), kernel E (its bit count,
+  then the Huffman pack at the exact word budget: `pack_levels`), host C
+  escape and framing.
 
 `decode_transform` and `encode_transform` keep the JAX package's
 contracts over kernels U and V.  Frames are batched frame-major; the
-batch is length-sorted before kernel D (the longest frames' threads then
-share warps).  A frame kernel D rejects raises ValueError naming it, as
-the JAX package's host route does.
+batch is length-sorted before kernel D.  A frame kernel D rejects raises
+ValueError naming it, as the JAX package's host route does.
 
 Reference semantics: sp5xdec.c + mjpegdec.c (decode), mjpegenc.c +
 mpegvideo_enc.c (encode).
@@ -30,7 +30,7 @@ from ..kernels.decode_fused import (assemble_planes,  # noqa: F401
 from ..kernels.encode_fused import (QUANTS, encode_planes,  # noqa: F401
                                     extract_blocks)
 from ..kernels.entropy_decode import decode_scans
-from ..kernels.entropy_encode import encode_levels
+from ..kernels.entropy_encode import count_bits, encode_levels
 from .jpeg_tables import QDC_CHROMA, QDC_LUMA, encoder_qmat  # noqa: F401
 
 
@@ -57,18 +57,16 @@ def check_decoded(ok: torch.Tensor, order: np.ndarray) -> None:
                          "decoder rejected them")
 
 
-def pack_levels(levels: torch.Tensor, w_first: int):
-    """Kernel E with a word budget that never truncates: levels int16
+def pack_levels(levels: torch.Tensor):
+    """Kernel E at a word budget that never truncates: levels int16
     [F, n_blocks, 64] (slot 0 = absolute DC) -> (words int32 [F, w_used],
-    bits int32 [F]) for `native.escape_frames`.  Packs with `w_first`
-    words a frame; if a frame overflows, packs again with the exact budget
-    from the bit counts; w_used is the longest frame's word count, so no
-    unused words reach the host."""
-    words, bits, _ = encode_levels(levels, w_first)
+    bits int32 [F]) for `native.escape_frames`.  Kernel E's count entry
+    gives every frame's bits first; the pack then runs once, at w_used,
+    the longest frame's word count, so no unused words reach the host."""
+    bits = count_bits(levels)
     w_used = max(1, (int(bits.max()) + 31) // 32) if bits.numel() else 1
-    if w_used > words.shape[1]:
-        words, bits, _ = encode_levels(levels, w_used)
-    return words[:, :w_used].contiguous(), bits
+    words, bits, _ = encode_levels(levels, w_used)
+    return words, bits
 
 
 def _check_geometry(n_mcu: int, mb_w: int, mb_h: int, width: int,
@@ -123,12 +121,6 @@ def encode_transform(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
                                                         64)
 
 
-def first_word_budget(n_mcu: int) -> int:
-    """Kernel E's first guess at the words a frame needs, the JAX
-    package's `min(1664, 1024 * ceil(M / 48))` (amv_video.py:280)."""
-    return min(1664, 1024 * ((n_mcu + 47) // 48))
-
-
 def encode_frames(y, cb, cr, qscale: int = 2, quant: str = "ffmpeg", *,
                   device) -> list[bytes]:
     """Encode YUV420 frames (uint8 arrays [F, H, W], [F, H/2, W/2] x2) into
@@ -136,10 +128,8 @@ def encode_frames(y, cb, cr, qscale: int = 2, quant: str = "ffmpeg", *,
     the C reference encoder; "q60" quantizes with the decoder's Q60 tables
     (`encode_transform`), packed by the same mjpegenc rules."""
     dev = torch.device(device)
-    f, h, w = y.shape
-    n_mcu = ((w + 15) // 16) * ((h + 15) // 16)
     planes = [torch.as_tensor(np.ascontiguousarray(p, np.uint8)).to(dev)
               for p in (y, cb, cr)]
     levels = encode_planes(*planes, qscale, quant)
-    words, bits = pack_levels(levels, first_word_budget(n_mcu))
+    words, bits = pack_levels(levels)
     return native.escape_frames(words.cpu().numpy(), bits.cpu().numpy())

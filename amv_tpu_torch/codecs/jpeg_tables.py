@@ -19,7 +19,8 @@ read (the wrappers copy them to a device once per device, `device_table`):
 * `Q60_LUMA` / `Q60_CHROMA`: the decoder's sp5x Q60 dequant tables, raster;
 * Huffman tables, indexed DC-luma 0, DC-chroma 1, AC-luma 2, AC-chroma 3:
   `DEC_LUT` (flat 16-bit-peek table for the plain decoder), `DEC_TABLES`
-  (two-level form for the decode kernel), `ENC_TABLES` (code and size per
+  (two-level form for the record decode kernel), `DEC_FAST` (kernel D's
+  two-level form), `ENC_TABLES` (code and size per
   symbol).
 """
 
@@ -248,6 +249,32 @@ def _encode_tables():
 
 
 DEC_LUT, DEC_TABLES = _decode_tables()
+
+# The 8-bit prefixes of each table's codes longer than 8 bits start at
+# these values (all ones above): DC-L, DC-C, AC-L, AC-C.
+DEC_LONG_PREFIX = (0xFF, 0xFF, 0xFB, 0xFA)
+
+
+def _decode_fast():
+    """int16 blob for kernel D: per table t the entry (sym << 5) | len of
+    the code that the 16-bit peek p starts with, 0 for an invalid code, in
+    two levels: first[t][p >> 8] for codes of up to 8 bits (0 otherwise),
+    then, for the longer codes, second[t][((p >> 8) - DEC_LONG_PREFIX[t]) *
+    256 + (p & 255)], the second levels of the four tables one after the
+    other."""
+    first = (DEC_LUT[:, ::256] & 31) <= 8
+    first = np.where(first, DEC_LUT[:, ::256], 0)
+    second = []
+    for t, lo in enumerate(DEC_LONG_PREFIX):
+        long_p = DEC_LUT[t, lo << 8:]
+        assert not first[t, lo:].any() and first[t, :lo].all()
+        second.append(long_p)
+    out = np.concatenate([first.reshape(-1)] + second)
+    assert out.max() < (1 << 15)
+    return out.astype(np.int16)
+
+
+DEC_FAST = _decode_fast()
 
 
 def _record_lut():

@@ -1,7 +1,7 @@
-// The MSB-first bit writer shared by kernels E (entropy_encode.cu) and P
-// (record_pack.cu): one thread appends codes to its own row of big-endian
-// 32-bit words, so byte i of the stream is ((uint32)w[i >> 2]) >> (24 - 8 *
-// (i & 3)) -- what amv_escape_frames reads (entropy.c:360-386).  A 64-bit
+// The MSB-first bit writer of kernel P (record_pack.cu): one thread
+// appends codes to its own row of big-endian 32-bit words, so byte i of
+// the stream is ((uint32)w[i >> 2]) >> (24 - 8 * (i & 3)) -- what
+// amv_escape_frames reads (entropy.c:360-386).  A 64-bit
 // accumulator holds the pending low `n` bits and leaves a word at a time.
 // Past w_out words the writer keeps counting bits but drops the words, so
 // an overflow is reported by the count, never truncated silently.

@@ -13,9 +13,9 @@
 // as the TPU kernel does (its caller tests bits against w_out).
 //
 // What bounds it: each record's position depends on every earlier one, so a
-// lane is a serial chain of shifts and ORs (the bit writer of kernel E,
+// lane is a serial chain of shifts and ORs (the bit writer of
 // bitwriter.cuh); with one lane per frame the frames with the most records
-// set the time, as for E.  The records are read frame-major [L, T], each
+// set the time.  The records are read frame-major [L, T], each
 // thread streaming its own row through L1.  The TPU kernel's lockstep
 // iteration, 128-bit register buffer and windowed word emit are gone.  A
 // record-parallel pack (an exclusive scan of the lengths, then each record

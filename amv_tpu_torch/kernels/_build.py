@@ -32,11 +32,13 @@ _I32 = ctypes.c_int
 # C entry -> argtypes (csrc/*.cu, extern "C")
 _SIGNATURES = {
     "amv_transcode_blocks": [_P, _P, _P, _P, _P, _P, _I64, _I32, _P],
-    "amv_decode_scans": [_P, _I64, _P, _I32, _I32, _P, _P, _P, _P],
+    "amv_decode_scans": [_P, _I64, _P, _P, _I32, _I32, _P, _P, _P, _P, _P,
+                         _P],
     "amv_decode_records": [_P, _I64, _P, _I32, _I32, _P, _I64, _P, _P, _P],
     "amv_expand_records": [_P, _I64, _P, _I32, _I32, _P, _P],
     "amv_pack_records": [_P, _I64, _P, _I32, _I32, _P, _P, _P],
     "amv_encode_levels": [_P, _I32, _I32, _P, _I32, _P, _P, _P, _P],
+    "amv_count_bits": [_P, _I32, _I32, _P, _P, _P],
     "amv_idct_blocks": [_P, _P, _P, _P, _I64, _P],
     "amv_fdct_quant": [_P, _P, _P, _I64, _I32, _P],
     "amv_decode_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _P],

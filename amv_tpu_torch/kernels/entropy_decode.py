@@ -3,11 +3,16 @@
 The port of `amv_tpu/kernels/entropy_async_pallas.py:
 decode_scans_async_dense` and its lockstep twin
 `amv_tpu/kernels/entropy_decode_pallas.py:_decode_layout`, backed by one
-CUDA kernel, csrc/entropy_decode.cu (one thread per frame).  Its input is
+CUDA kernel, csrc/entropy_decode.cu (a thread block per frame that splits
+the scan into subsequences, decodes them speculatively in parallel and
+brings them into step: speculate, sync, scan, write).  Its input is
 the row matrix of `amv_tpu.native.entropy_native.unescape_frames` as
 tensors; the TPU's big-endian word layout (`scan_words_layout`) is not
 needed.  Semantics are the C decoder's (`native/entropy.c:
-decode_scan_levels`), including where `ok` is 0.
+decode_scan_levels`), including where `ok` is 0.  A frame also fails
+when it spends its token budget (`token_budget`, which no scan the C
+decoder accepts reaches; the keyword `budget` sets another, to test that
+path).
 
 On a CUDA tensor `decode_scans` launches the kernel; on a CPU tensor it
 runs `decode_scans_plain`, a lockstep decoder that takes one token of
@@ -22,6 +27,8 @@ from ..codecs.jpeg_tables import device_table
 from . import _build
 
 LAUNCHES = 0
+# the sync rounds of each frame in the kernel's last launch, int32 [F]
+LAST_ROUNDS = None
 
 
 def _check(rows, lens, n_blocks):
@@ -36,37 +43,58 @@ def _check(rows, lens, n_blocks):
                          f"got {n_blocks}")
 
 
-def decode_scans(rows: torch.Tensor, lens: torch.Tensor, n_blocks: int):
+def token_budget(lens: torch.Tensor, n_blocks: int,
+                 stride: int) -> torch.Tensor:
+    """The tokens a frame may decode, int64 [F]: n_blocks * 65 + 4 * lens
+    + 64 (every code is at least 2 bits, and the zero fill finishes a block
+    within 64 tokens, so no scan reaches it)."""
+    return n_blocks * 65 + 4 * lens.clamp(0, stride) + 64
+
+
+def decode_scans(rows: torch.Tensor, lens: torch.Tensor, n_blocks: int, *,
+                 budget: torch.Tensor | None = None):
     """rows uint8 [F, stride] unescaped scans, lens int64 [F] valid bytes
     per row -> (levels int16 [F, n_blocks, 64] zigzag with slot 0 = DC
-    difference, ok uint8 [F])."""
+    difference, ok uint8 [F]).  budget int64 [F] replaces
+    `token_budget`."""
     _check(rows, lens, n_blocks)
     if rows.device.type == "cpu" and lens.device.type == "cpu":
-        return decode_scans_plain(rows, lens, n_blocks)
+        return decode_scans_plain(rows, lens, n_blocks, budget=budget)
     _build.require_cuda(rows, lens)
     rows, lens = rows.contiguous(), lens.contiguous()
-    f = rows.shape[0]
+    f, stride = rows.shape
+    if budget is None:
+        budget = token_budget(lens, n_blocks, stride)
+    _build.require_cuda(rows, budget)
+    budget = budget.to(torch.int64).contiguous()
     levels = torch.zeros((f, n_blocks, 64), dtype=torch.int16,
                          device=rows.device)
     ok = torch.empty(f, dtype=torch.uint8, device=rows.device)
-    tables = device_table("DEC_TABLES", rows.device)
+    rounds = torch.empty(f, dtype=torch.int32, device=rows.device)
+    tables = device_table("DEC_FAST", rows.device)
+    # the longest scans first: they take the most sync rounds
+    order = torch.argsort(lens, descending=True, stable=True).to(torch.int32)
     with torch.cuda.device(rows.device):
         rc = _build.library().amv_decode_scans(
-            rows.data_ptr(), rows.shape[1], lens.data_ptr(), f, n_blocks,
-            tables.data_ptr(), levels.data_ptr(), ok.data_ptr(),
-            _build.stream())
+            rows.data_ptr(), stride, lens.data_ptr(), order.data_ptr(), f,
+            n_blocks, tables.data_ptr(), budget.data_ptr(), levels.data_ptr(),
+            ok.data_ptr(), rounds.data_ptr(), _build.stream())
     _build.check(rc, "amv_decode_scans")
-    global LAUNCHES
+    global LAUNCHES, LAST_ROUNDS
     LAUNCHES += 1
+    LAST_ROUNDS = rounds
     return levels, ok
 
 
 def decode_scans_plain(rows: torch.Tensor, lens: torch.Tensor,
-                       n_blocks: int):
+                       n_blocks: int, *, budget: torch.Tensor | None = None):
     """Plain torch version of kernel D on any device (same outputs)."""
     dev = rows.device
     f, stride = rows.shape
     lut = device_table("DEC_LUT", dev).long().reshape(-1)
+    if budget is None:
+        budget = token_budget(lens, n_blocks, stride)
+    budget = budget.to(device=dev, dtype=torch.int64)
     lens = lens.clamp(0, stride)
     # zero past lens, plus 4 zero bytes so a 5-byte peek never leaves a row
     col = torch.arange(stride + 5, device=dev)
@@ -83,7 +111,6 @@ def decode_scans_plain(rows: torch.Tensor, lens: torch.Tensor,
     pos = torch.full((f,), -1, dtype=torch.int64, device=dev)  # -1: DC next
     good = torch.ones(f, dtype=torch.bool, device=dev)
     tokens = torch.zeros(f, dtype=torch.int64, device=dev)
-    budget = n_blocks * 65 + 4 * lens + 64
 
     def step():
         nonlocal bitpos, block, pos, good, tokens

@@ -3,14 +3,17 @@
 The port of `amv_tpu/kernels/entropy_encode_async_pallas.py:
 encode_layout_async_dense` and its lockstep twin
 `amv_tpu/kernels/entropy_encode_pallas.py:_encode_layout`, backed by one
-CUDA kernel, csrc/entropy_encode.cu (one thread per frame).  The output is
-what `amv_tpu.native.entropy_native.escape_frames` takes: big-endian
-words int32 [F, w_out] and exact bit counts int32 [F].  `ok` is 0 for a
-frame whose bits exceed w_out words; its bits still count.
+CUDA kernel, csrc/entropy_encode.cu (a thread block per frame, a warp per
+8x8 block, the block offsets handed from warp to warp).  The output is what
+`amv_tpu.native.entropy_native.escape_frames` takes: big-endian words
+int32 [F, w_out] and exact bit counts int32 [F].  `ok` is 0 for a frame
+whose bits exceed w_out words; its bits still count.  `count_bits` is the
+kernel's count alone: each frame's exact bits, no words.
 
-On a CUDA tensor `encode_levels` launches the kernel; on a CPU tensor it
-runs `encode_levels_plain`, the vectorized token / prefix-sum / scatter
-packer of `amv_tpu/kernels/entropy_encode.py`, stopping at words and bits.
+On a CUDA tensor `encode_levels` and `count_bits` launch the kernel; on a
+CPU tensor they run `encode_levels_plain` and `count_bits_plain`, the
+vectorized token / prefix-sum / scatter packer of
+`amv_tpu/kernels/entropy_encode.py`, stopping at words and bits.
 """
 
 from __future__ import annotations
@@ -20,24 +23,38 @@ import torch
 from ..codecs.jpeg_tables import device_table
 from . import _build
 
+# kernel E's launches through either entry, and through count_bits alone
 LAUNCHES = 0
+COUNT_LAUNCHES = 0
+
+
+def _check(levels: torch.Tensor) -> None:
+    if levels.dim() != 3 or levels.shape[2] != 64 or \
+            levels.dtype != torch.int16 or levels.shape[1] % 6:
+        raise ValueError(f"levels must be int16 [F, 6k, 64], got "
+                         f"{levels.dtype} {tuple(levels.shape)}")
+
+
+def _on_card(levels: torch.Tensor) -> torch.Tensor:
+    """levels as the kernel reads them: contiguous, 4-byte aligned (a lane
+    loads two slots as one word)."""
+    _build.require_cuda(levels)
+    levels = levels.contiguous()
+    return levels if levels.data_ptr() % 4 == 0 else levels.clone()
 
 
 def encode_levels(levels: torch.Tensor, w_out: int):
     """levels int16 [F, n_blocks, 64] zigzag, slot 0 = absolute DC ->
     (words int32 [F, w_out], bits int32 [F], ok uint8 [F])."""
-    if levels.dim() != 3 or levels.shape[2] != 64 or \
-            levels.dtype != torch.int16 or levels.shape[1] % 6:
-        raise ValueError(f"levels must be int16 [F, 6k, 64], got "
-                         f"{levels.dtype} {tuple(levels.shape)}")
+    _check(levels)
     if w_out <= 0:
         raise ValueError(f"w_out must be positive, got {w_out}")
     if levels.device.type == "cpu":
         return encode_levels_plain(levels, w_out)
-    _build.require_cuda(levels)
-    levels = levels.contiguous()
+    levels = _on_card(levels)
     f, nb = levels.shape[:2]
-    words = torch.zeros((f, w_out), dtype=torch.int32, device=levels.device)
+    # the kernel writes every word of every row
+    words = torch.empty((f, w_out), dtype=torch.int32, device=levels.device)
     bits = torch.empty(f, dtype=torch.int32, device=levels.device)
     ok = torch.empty(f, dtype=torch.uint8, device=levels.device)
     tables = device_table("ENC_TABLES", levels.device)
@@ -50,6 +67,28 @@ def encode_levels(levels: torch.Tensor, w_out: int):
     global LAUNCHES
     LAUNCHES += 1
     return words, bits, ok
+
+
+def count_bits(levels: torch.Tensor) -> torch.Tensor:
+    """levels int16 [F, n_blocks, 64] as `encode_levels` takes them ->
+    bits int32 [F], the exact scan bits of each frame (kernel E's count and
+    scan, no words)."""
+    _check(levels)
+    if levels.device.type == "cpu":
+        return count_bits_plain(levels)
+    levels = _on_card(levels)
+    f, nb = levels.shape[:2]
+    bits = torch.empty(f, dtype=torch.int32, device=levels.device)
+    tables = device_table("ENC_TABLES", levels.device)
+    with torch.cuda.device(levels.device):
+        rc = _build.library().amv_count_bits(
+            levels.data_ptr(), f, nb, tables.data_ptr(), bits.data_ptr(),
+            _build.stream())
+    _build.check(rc, "amv_count_bits")
+    global LAUNCHES, COUNT_LAUNCHES
+    LAUNCHES += 1
+    COUNT_LAUNCHES += 1
+    return bits
 
 
 def bitlen(v):
@@ -81,14 +120,11 @@ def _append(val, ln, code, size):
     return (val << size) | (code & ((1 << size) - 1)), ln + size
 
 
-def encode_levels_plain(levels: torch.Tensor, w_out: int):
-    """Plain torch version of kernel E on any device (same outputs).
-
-    Every block renders as 128 token slots: its DC (code + mantissa), then
-    per AC slot i a ZRL token (the ZRLs before slot i) and a code +
-    mantissa token, then the EOB.  Token bit offsets are a prefix sum;
-    each token, MSB-aligned in 64 bits, is added into the <= 3 words it
-    spans (tokens never overlap, so add is or)."""
+def _tokens(levels: torch.Tensor):
+    """Every block of levels [F, NB, 64] as 128 token slots: its DC (code +
+    mantissa), then per AC slot i a ZRL token (the ZRLs before slot i) and
+    a code + mantissa token, then the EOB -> (values, lengths) int64
+    [F, NB * 128], a value in the low `length` (<= 33) bits."""
     dev = levels.device
     f, nb = levels.shape[:2]
     tab = device_table("ENC_TABLES", dev).long()
@@ -132,6 +168,24 @@ def encode_levels_plain(levels: torch.Tensor, w_out: int):
         f, nb, 126), ev[..., None]], dim=2).reshape(f, -1)
     tl = torch.cat([dl[..., None], torch.stack([zl, cl], dim=3).reshape(
         f, nb, 126), el[..., None]], dim=2).reshape(f, -1)
+    return tv, tl
+
+
+def count_bits_plain(levels: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of `count_bits` on any device: the bits of
+    `encode_levels_plain`, without the words."""
+    return _tokens(levels)[1].sum(dim=1).to(torch.int32)
+
+
+def encode_levels_plain(levels: torch.Tensor, w_out: int):
+    """Plain torch version of kernel E on any device (same outputs).
+
+    The tokens of `_tokens` get their bit offsets by a prefix sum; each
+    token, MSB-aligned in 64 bits, is added into the <= 3 words it spans
+    (tokens never overlap, so add is or)."""
+    dev = levels.device
+    f = levels.shape[0]
+    tv, tl = _tokens(levels)
     ends = torch.cumsum(tl, dim=1)
     bits = ends[:, -1]
     off = ends - tl

@@ -65,10 +65,10 @@ def transcode_levels_fused(levels_zz: torch.Tensor, qscale=2, size=None):
 
 
 def word_budget(scans: torch.Tensor) -> int:
-    """Output words per frame for the encoder: twice the longest input scan
-    plus slack, which holds a same-qscale re-encode with room to spare.  A
-    guess, not a measured bound: `pack_levels` re-packs on overflow and
-    trims the words to the longest re-encode."""
+    """The record routes' first word budget per frame: twice the longest
+    input scan plus slack, which holds a same-qscale re-encode with room to
+    spare.  A guess, not a measured bound: `encode_route` packs again on
+    overflow and trims the words to the longest re-encode."""
     return max(64, (2 * scans.shape[1] + 255) // 256 * 64)
 
 
@@ -92,11 +92,12 @@ ENCODERS = ("async",) + tuple(ROUTES)
 
 def encode_route(lv2: torch.Tensor, w_first: int, enc: str):
     """Re-quantized levels int16 [F, NB, 64] -> (words int32 [F, w_used],
-    bits int32 [F]) by encoder `enc`, trimmed to the longest frame.  A
-    route that overflows w_first words packs again with the exact budget,
-    as `pack_levels` does for kernel E ("async")."""
+    bits int32 [F]) by encoder `enc`, trimmed to the longest frame.  Kernel
+    E ("async") counts the bits first and packs once at the exact budget
+    (`pack_levels`); a record route that overflows w_first words packs
+    again with the exact budget."""
     if enc == "async":
-        return pack_levels(lv2, w_first)
+        return pack_levels(lv2)
     words, bits, _ = ROUTES[enc](lv2, w_first)
     w_used = max(1, (int(bits.max()) + 31) // 32) if bits.numel() else 1
     if w_used > w_first:

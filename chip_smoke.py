@@ -9,7 +9,8 @@ the AMV encode, the q60 quantizer and odd picture sizes.
 Phases (any failure raises and exits non-zero; nothing is caught):
  1. the card: nvidia-smi name and power limit, torch.cuda required;
  2. build the twelve CUDA kernels from amv_tpu_torch/csrc (nvcc, sm_90a,
-    one nvcc per source, all started together);
+    one nvcc per source, all started together), and log the registers and
+    shared memory ptxas gives kernels D and E;
  3. a 160x120 corpus at the reference's canonical shape (16 fps, 22,050 Hz
     ADPCM audio): 4,800 frames (5 minutes) of seeded videogen/rotozoom
     pictures with noise, each C-encoded at qscale 2, muxed into an .amv
@@ -20,7 +21,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     beside the plain version's and its bound (the least time the card
     could take: the bytes it must move over the memory rate, or its
     integer operations over the peak rate, whichever is larger):
-    D, T, E on the corpus as the transcode hands it over; I on the
+    D, T, E (and E's count entry) on the corpus as the transcode hands it
+    over, with D's sync rounds per frame; I on the
     corpus blocks; F on the blocks of the raw corpus pictures; U (both
     entries) on the corpus levels and DC, un-sorting as the decode does;
     V on the raw corpus pictures (the path entry with each quantizer, the
@@ -32,8 +34,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     the corpus's dequantized blocks and its wrap 64 times over the first
     N_CHECK frames' blocks, I's raw idct_put on the corpus's dequantized
     blocks, F's raster fdct_quantize, A's wrap entry 64 times over and Q's
-    8 times over.  Then extra cases: malformed scans (D, R), no edge
-    replication (T), an overflowing word budget (E, P), DC-only blocks
+    8 times over.  Then extra cases: malformed scans (D, R), kernel D's
+    subsequence cases (data ending at and around subsequence boundaries,
+    scans cut by 1-3 bytes, failures in the first and the last
+    subsequence, a spent token budget, wider rows and so a larger
+    subsequence), no edge replication (T), an overflowing word
+    budget (E, P), kernel E's edges (a frame ending exactly at 32 w_out
+    bits and one bit past, a w_out too large for shared memory, 320x240 and
+    175x97 pictures, q60 flat frames), DC-only blocks
     (I), qscale 1 (F, V), flat frames at luma 0/255/128/13 under q60 (V),
     168x120 and an odd size (U, V), clamp-stress payloads (A), a stream
     with no reset at sample 0 and one starting at step index 88 (Q); R + X
@@ -247,8 +255,36 @@ def timed_cli(m, argv, runs=3):
     return statistics.median(walls), walls
 
 
+def ptxas_start(m):
+    """nvcc -Xptxas -v of kernels D's and E's sources, started beside the
+    build (the object goes nowhere)."""
+    src = os.path.join(os.path.dirname(os.path.abspath(m._build.__file__)),
+                       os.pardir, "csrc")
+    return [(name, subprocess.Popen(
+        [m._build._nvcc(), *m._build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+         "-o", os.devnull, os.path.join(src, name)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True))
+        for name in ("entropy_decode.cu", "entropy_encode.cu")]
+
+
+def ptxas_log(procs) -> None:
+    """Each kernel's registers, spills and shared memory, as ptxas says."""
+    for name, proc in procs:
+        out = proc.communicate(timeout=600)[0]
+        assert proc.returncode == 0, out
+        fn = None
+        for line in out.splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif "Used" in line and fn:
+                log(f"ptxas {name} {fn}: {line.split(':', 1)[1].strip()}")
+            elif "spill" in line and fn and not line.strip().startswith(
+                    "0 bytes stack frame, 0 bytes spill stores, 0 bytes"):
+                log(f"ptxas {name} {fn}: {line.split(':', 1)[-1].strip()}")
+
+
 def reset_launches(m):
-    m.D.LAUNCHES = m.T.LAUNCHES = m.E.LAUNCHES = 0
+    m.D.LAUNCHES = m.T.LAUNCHES = m.E.LAUNCHES = m.E.COUNT_LAUNCHES = 0
     m.idct.LAUNCHES = m.fdct.LAUNCHES = m.U.LAUNCHES = m.V.LAUNCHES = 0
     m.adpcm.DECODE_LAUNCHES = m.adpcm.ENCODE_LAUNCHES = 0
     m.R.RECORD_LAUNCHES = m.R.EXPAND_LAUNCHES = m.RP.LAUNCHES = 0
@@ -256,6 +292,7 @@ def reset_launches(m):
 
 def launches(m):
     return {"D": m.D.LAUNCHES, "T": m.T.LAUNCHES, "E": m.E.LAUNCHES,
+            "E count": m.E.COUNT_LAUNCHES,
             "I": m.idct.LAUNCHES, "F": m.fdct.LAUNCHES,
             "U": m.U.LAUNCHES, "V": m.V.LAUNCHES,
             "A": m.adpcm.DECODE_LAUNCHES, "Q": m.adpcm.ENCODE_LAUNCHES,
@@ -286,6 +323,50 @@ def check_routes(m, pays, w, h, want) -> None:
         e0 = m.E.LAUNCHES
         assert route_bytes(m, pays, w, h, enc) == want, (enc, w, h)
         assert (m.E.LAUNCHES > e0) == (enc == "async"), (enc, "kernel E")
+
+
+def d_cases(m, rows, lens, nb, rng):
+    """Kernel D's subsequence cases on corpus scans (S is 1,024 bits, 128
+    bytes, for rows up to 16 KB): (name, rows, lens, budget or None)."""
+    import torch
+    n = len(rows)
+    out = []
+    r, ln = rows.copy(), lens.copy()
+    for f in range(n):                   # data ending on and around 128 k
+        ln[f] = min(int(lens[f]), 128 * (1 + f // 3)) + f % 3 - 1
+    out.append(("boundaries", r, ln, None))
+    out.append(("cut", rows, lens - (np.arange(n) % 3 + 1), None))
+    r = rows.copy()
+    r[::2, 3:7] = 0xFF
+    out.append(("fail_first", r, lens, None))
+    r = rows.copy()
+    for f in range(0, n, 2):
+        at = min((8 * int(lens[f]) - 1) // 1024 * 128 + 2, int(lens[f]) - 4)
+        r[f, at:at + 4] = 0xFF
+    out.append(("fail_last", r, lens, None))
+    budget = m.D.token_budget(torch.from_numpy(lens), nb, rows.shape[1])
+    budget[::2] = torch.from_numpy(rng.integers(1, 900, (n + 1) // 2))
+    out.append(("budget", rows, lens, budget))
+    for stride in (20000, 170000):       # wider strides: a larger S
+        wide = np.zeros((n, stride), np.uint8)
+        wide[:, :rows.shape[1]] = rows
+        out.append((f"stride {stride}", wide, lens, None))
+    return out
+
+
+def e_fit(m, lv, target):
+    """lv's frame 0 with levels zeroed from its end until its bits are
+    target mod 32 -> (levels, its bits)."""
+    lv = lv.clone()
+    bits = int(m.E.count_bits_plain(lv[:1])[0])
+    for b in range(lv.shape[1] - 1, 0, -1):
+        for k in range(63, 0, -1):
+            if bits % 32 == target:
+                return lv, bits
+            if lv[0, b, k]:
+                lv[0, b, k] = 0
+                bits = int(m.E.count_bits_plain(lv[:1])[0])
+    raise AssertionError("no fit found")
 
 
 def rand_levels(rng, n_blocks, dense=0.15):
@@ -333,10 +414,12 @@ def main() -> int:
 
     # ---- 2. build ---------------------------------------------------
     t0 = time.perf_counter()
+    ptxas = ptxas_start(m)
     m._build.library()
     m.native.library()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
         f"{' '.join(m._build.NVCC_FLAGS)}; host C library with gcc)")
+    ptxas_log(ptxas)
 
     # ---- 3. corpus --------------------------------------------------
     t0 = time.perf_counter()
@@ -400,6 +483,10 @@ def main() -> int:
         int(lens_a.sum()) + 8 * N_FRAMES + N_FRAMES * nb * 128 + N_FRAMES,
         lambda got: OPS_TOKEN * tokens(got[0]))
     assert ok_a.all()
+    rounds = m.D.LAST_ROUNDS.float()
+    log(f"D sync rounds after the speculation, per frame: mean "
+        f"{float(rounds.mean()):.2f}, max {int(rounds.max())} "
+        f"({int((rounds == 0).sum())} of {N_FRAMES} frames in step at once)")
     dc_a = m.amv_video.resolve_dc(
         lv_a.reshape(N_FRAMES, n_mcu, 6, 64)).reshape(-1)
     lvf = lv_a.reshape(-1, 64)
@@ -417,15 +504,19 @@ def main() -> int:
         n_blk * (OPS_DEQUANT + OPS_IDCT + OPS_FDCT))
     lv2_a = lv2_a.reshape(lv_a.shape)
     wb = m.P.word_budget(rows_a)
-    # E's words out: the longest frame's, as the path keeps them
+    # E as the path runs it (pack_levels): the count entry, then the pack
+    # at the longest frame's words
+    (bits_c,) = check(
+        "E count", lambda: (m.E.count_bits(lv2_a),),
+        lambda: (m.E.count_bits_plain(lv2_a),), f"levels {tuple(lv2_a.shape)}",
+        n_blk * 128 + 4 * N_FRAMES, OPS_TOKEN * tokens(lv2_a))
+    w_used = (int(bits_c.max()) + 31) // 32
     words_e, bits_e, ok_e = check(
-        "E", lambda: m.E.encode_levels(lv2_a, wb),
-        lambda: m.E.encode_levels_plain(lv2_a, wb),
-        f"levels {tuple(lv2_a.shape)}, w_out {wb}",
-        lambda got: n_blk * 128 + N_FRAMES * (
-            4 * ((int(got[1].max()) + 31) // 32) + 5),
-        OPS_TOKEN * tokens(lv2_a))
-    assert ok_e.all()
+        "E", lambda: m.E.encode_levels(lv2_a, w_used),
+        lambda: m.E.encode_levels_plain(lv2_a, w_used),
+        f"levels {tuple(lv2_a.shape)}, w_out {w_used}",
+        n_blk * 128 + N_FRAMES * (4 * w_used + 5), OPS_TOKEN * tokens(lv2_a))
+    assert ok_e.all() and torch.equal(bits_e, bits_c)
     (pix_i,) = check(
         "I", lambda: (m.idct.idct_blocks(lvf, dc_a),),
         lambda: (m.idct.idct_blocks_plain(lvf, dc_a),),
@@ -498,7 +589,8 @@ def main() -> int:
         f"records {tuple(recs_p.shape)}, w_out {wb}",
         lambda got: 4 * n_rec + 4 * N_FRAMES + N_FRAMES * (
             4 * ((int(got[1].max()) + 31) // 32) + 4), OPS_RECORD * n_rec)
-    extra("P vs E", [(words_p, words_e), (bits_p, bits_e)],
+    assert not words_p[:, w_used:].any()
+    extra("P vs E", [(words_p[:, :w_used], words_e), (bits_p, bits_e)],
           f"{N_FRAMES} frames ({n_rec} records): kernel E's words and bits")
     del lv2_a, words_e, pix_i, deq, words_p
     ysrc = [torch.from_numpy(p).to(dev) for p in pics]
@@ -606,6 +698,18 @@ def main() -> int:
     extra("D extra", [(lv_k, lv_p), (ok_k, ok_p)],
           f"{N_CHECK} frames + 8 malformed (ok {ok_k[N_CHECK:].tolist()})")
     assert ok_k[:N_CHECK].all() and not ok_k[N_CHECK + 1], ok_k[N_CHECK:]
+    for name, r_c, l_c, b_c in d_cases(m, rows[:N_PAD], lens[:N_PAD], nb,
+                                        rng):
+        rt_c = torch.from_numpy(r_c).to(dev)
+        lt_c = torch.from_numpy(l_c).to(dev)
+        kw = {} if b_c is None else {"budget": b_c.to(dev)}
+        got = m.D.decode_scans(rt_c, lt_c, nb, **kw)
+        extra(f"D {name}", zip(got, m.D.decode_scans_plain(rt_c, lt_c, nb,
+                                                           **kw)),
+              f"{N_PAD} corpus scans, {name} (ok {int(got[1].sum())} of "
+              f"{N_PAD}; sync rounds max {int(m.D.LAST_ROUNDS.max())})")
+        if name.startswith("fail") or name == "budget":
+            assert not got[1][::2].any() and got[1][1::2].all(), name
     t_def = m.R.default_t_max(nb, rows_t.shape[1])
     rec_k = m.R.decode_records(rows_t, lens_t, nb, t_def)
     rec_p = m.R.decode_records_plain(rows_t, lens_t, nb, t_def)
@@ -640,6 +744,20 @@ def main() -> int:
     extra("E extra", zip(got, m.E.encode_levels_plain(lv2, 16)),
           f"{N_CHECK} frames at w_out 16 (every frame overflows, ok = 0)")
     assert not got[2].any(), "a 16-word budget must overflow"
+    for target in (0, 1):
+        lv_f, bits_f = e_fit(m, lv2[:8], target)
+        pairs = []
+        for w_out in (bits_f // 32, bits_f // 32 + 1):
+            got = m.E.encode_levels(lv_f, w_out)
+            pairs += zip(got, m.E.encode_levels_plain(lv_f, w_out))
+            assert bool(got[2][0]) == (target == 0 or w_out > bits_f // 32)
+        extra("E fit", pairs, f"a frame of {bits_f} bits at w_out "
+              f"{bits_f // 32} and {bits_f // 32 + 1}")
+    got = m.E.encode_levels(lv2[:N_PAD], 30000)
+    extra("E unstaged", zip(got, m.E.encode_levels_plain(lv2[:N_PAD],
+                                                         30000)),
+          f"{N_PAD} frames at w_out 30,000 (120 KB: words ORed in device "
+          "memory)")
 
     lv_dc = lv.clone()
     lv_dc[:, 1:] = 0
@@ -698,7 +816,21 @@ def main() -> int:
             (m.V.encode_fused(*cs, smw, smh, QSCALE),
              m.V.encode_fused_plain(*cs, smw, smh, qmat))],
             f"{N_PAD} pictures, both quantizers and the contract entry")
-    del flat, lv_s, dc_s, lv4, dc3, ps, cs
+    lv_e = [torch.cat([k for k, _ in flat])]
+    for sw, sh in ((320, 240), (ODD_W, ODD_H)):
+        lv_e.append(m.V.encode_planes(*(torch.from_numpy(p).to(dev) for p in
+                                        pictures(m, N_PAD, sh, sw, seed=sh)),
+                                      QSCALE))
+    pairs = []
+    for lv_s in lv_e:
+        bits_s = m.E.count_bits(lv_s)
+        w_s = (int(bits_s.max()) + 31) // 32
+        pairs += [(bits_s, m.E.count_bits_plain(lv_s))]
+        pairs += zip(m.E.encode_levels(lv_s, w_s),
+                     m.E.encode_levels_plain(lv_s, w_s))
+    extra("E sizes", pairs, "the q60 flat frames, 320x240 and "
+          f"{ODD_W}x{ODD_H} pictures, count and pack at the exact budget")
+    del flat, lv_s, dc_s, lv4, dc3, ps, cs, lv_e
     stress = []
     for byte, sidx in ((0x77, sidx_t), (0xFF, torch.full_like(sidx_t, 88))):
         p_s = torch.full_like(pay_t, byte)
@@ -969,8 +1101,7 @@ def main() -> int:
 
         def encode_chain():
             return m.amv_video.pack_levels(
-                m.V.encode_planes(*planes, QSCALE),
-                m.amv_video.first_word_budget(n_mcu))
+                m.V.encode_planes(*planes, QSCALE))
 
         words, bits = staged(split, "device_chain", encode_chain)
         w_np, b_np = staged(split, "to_host", lambda: (
@@ -1001,8 +1132,7 @@ def main() -> int:
 
         def chain_f():
             return m.amv_video.pack_levels(
-                transform_f().reshape(N_FRAMES, nb, 64),
-                m.amv_video.first_word_budget(n_mcu))
+                transform_f().reshape(N_FRAMES, nb, 64))
 
         assert torch.equal(transform_f().view(N_FRAMES, nb, 64),
                            m.V.encode_planes(*planes, QSCALE))

@@ -116,6 +116,126 @@ def test_encode_kernel_matches_plain(dev):
     assert got[2].all() and not E.encode_levels(lt, 64)[2].any()
 
 
+D_CASES = ["boundaries", "cut", "fail_first", "fail_last", "budget",
+           "wide_rows", "widest_rows"]
+
+
+def _decode_case(case, rng):
+    """(rows, lens, budget or None) for kernel D's subsequence design: S is
+    1,024 bits (128 bytes) for rows up to 16 KB and more for wider ones
+    (20,000 and 170,000 bytes here)."""
+    pays = _payloads(12, 120, 160, seed=11)
+    rows, lens = native.unescape_frames(pays)
+    rows, lens = rows.copy(), lens.copy()
+    budget = None
+    if case == "boundaries":        # data ending on, before, after 128 k
+        for f in range(12):
+            lens[f] = 128 * (1 + f % 6 + 6 * (f // 6)) + (f % 3) - 1
+    elif case == "cut":             # decodes on into the zero fill
+        lens -= np.arange(12) % 3 + 1
+    elif case == "fail_first":
+        rows[::2, 3:7] = 0xFF
+    elif case == "fail_last":
+        for f in range(0, 12, 2):
+            at = (8 * int(lens[f]) - 1) // 1024 * 128 + 2
+            at = min(at, int(lens[f]) - 4)
+            rows[f, at:at + 4] = 0xFF
+    elif case == "budget":
+        budget = D.token_budget(torch.from_numpy(lens), 480, rows.shape[1])
+        budget[::2] = torch.from_numpy(rng.integers(1, 900, 6))
+    elif case in ("wide_rows", "widest_rows"):
+        stride = 20000 if case == "wide_rows" else 170000
+        wide = np.zeros((12, stride), np.uint8)
+        wide[:, :rows.shape[1]] = rows
+        rows = wide
+    return rows, lens, budget
+
+
+@pytest.mark.parametrize("case", D_CASES)
+def test_decode_kernel_subsequence_cases_match_plain(dev, case):
+    """Kernel D's speculative decode on the cases that stress it: data
+    ending at and around subsequence boundaries, scans cut by 1-3 bytes,
+    failures in the first and in the last subsequence, a spent token
+    budget, and larger subsequences."""
+    rows, lens, budget = _decode_case(case, np.random.default_rng(
+        D_CASES.index(case)))
+    rt, lt = torch.from_numpy(rows).to(dev), torch.from_numpy(lens).to(dev)
+    kw = {} if budget is None else {"budget": budget.to(dev)}
+    got = D.decode_scans(rt, lt, 480, **kw)
+    want = D.decode_scans_plain(rt, lt, 480, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert D.LAST_ROUNDS.shape == (12,)
+    if case in ("fail_first", "fail_last", "budget"):
+        assert not got[1][::2].any() and got[1][1::2].all()
+
+
+def bits_mod(lt):
+    """frame 0's bits mod 32, as they are (no trimming)."""
+    return int(E.count_bits_plain(lt[:1])[0]) % 32
+
+
+E_CASES = ["exact_fit", "one_bit_over", "unstaged", "320x240", "175x97",
+           "q60_flat"]
+
+
+@pytest.mark.parametrize("case", E_CASES)
+def test_encode_kernel_cases_match_plain(dev, case):
+    """Kernel E and its count entry against their plain versions: frames
+    ending exactly at 32 * w_out bits and one bit past, a w_out too large
+    for shared memory (the global-atomic branch), 320x240 and 175x97
+    pictures, and flat q60 frames at the DC extremes."""
+    rng = np.random.default_rng(E_CASES.index(case))
+    if case in ("320x240", "175x97", "q60_flat"):
+        w, h = {"320x240": (320, 240), "175x97": (175, 97),
+                "q60_flat": (160, 120)}[case]
+        if case == "q60_flat":
+            planes = [torch.full((4, hh, ww), v, dtype=torch.uint8)
+                      for v in (0, 255, 128, 13)
+                      for (hh, ww) in ((h, w), (h // 2, w // 2),
+                                       (h // 2, w // 2))]
+            planes = [torch.cat(planes[k::3]) for k in range(3)]
+        else:
+            y, cb, cr = fixtures.rotozoom(6, h, w)
+            planes = [torch.from_numpy(np.ascontiguousarray(p))
+                      for p in (y, cb[:, :h // 2, :w // 2],
+                                cr[:, :h // 2, :w // 2])]
+        quant = "q60" if case == "q60_flat" else "ffmpeg"
+        lt = V.encode_planes(*(p.to(dev) for p in planes), 2, quant)
+        w_outs = [(int(E.count_bits(lt).max()) + 31) // 32]
+    else:
+        lv = _random_levels(rng, 6 * 480, dense=0.1).reshape(6, 480, 64)
+        lt = torch.from_numpy(lv).to(dev)
+        # zero frame 0's levels from its end until its bits are 32 k
+        # (exact_fit) or 32 k + 1
+        target = {"exact_fit": 0, "one_bit_over": 1}.get(case, bits_mod(lt))
+        bits = int(E.count_bits_plain(lt[:1])[0])
+        for b in range(479, 0, -1):
+            for k in range(63, 0, -1):
+                if bits % 32 == target:
+                    break
+                if lt[0, b, k]:
+                    lt[0, b, k] = 0
+                    bits = int(E.count_bits_plain(lt[:1])[0])
+        assert bits % 32 == target
+        w_outs = {"exact_fit": [bits // 32],
+                  "one_bit_over": [bits // 32, bits // 32 + 1],
+                  "unstaged": [30000]}[case]
+    for w_out in w_outs:
+        got = E.encode_levels(lt, w_out)
+        want = E.encode_levels_plain(lt, w_out)
+        torch.cuda.synchronize()
+        for g, x in zip(got, want):
+            assert torch.equal(g, x)
+    assert torch.equal(E.count_bits(lt), E.count_bits_plain(lt))
+    if case == "exact_fit":
+        assert got[2][0] == 1 and got[1][0] == 32 * w_outs[0]
+    if case == "one_bit_over":
+        assert got[2][0] == 1
+        got = E.encode_levels(lt, w_outs[0])
+        assert got[2][0] == 0 and got[1][0] == 32 * w_outs[0] + 1
+
+
 @pytest.mark.parametrize("w,h", [(160, 120), (40, 24), (36, 20)])
 def test_transcode_bytes_cuda_matches_c_reference(dev, w, h):
     pays = _payloads(6, h, w, seed=1)

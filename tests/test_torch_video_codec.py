@@ -33,6 +33,7 @@ from amv_tpu_torch.codecs import amv_video  # noqa: E402
 from amv_tpu_torch.codecs.jpeg_tables import ZIGZAG  # noqa: E402
 from amv_tpu_torch.kernels import fdct as F  # noqa: E402
 from amv_tpu_torch.kernels import idct as I  # noqa: E402
+from amv_tpu_torch.kernels.entropy_encode import count_bits  # noqa: E402
 
 SLAB = 8 * 128        # frames in one (8, 128) slab of the TPU layout
 
@@ -176,16 +177,15 @@ def test_decode_rejects_malformed_frames():
 
 
 def test_pack_levels_repacks_on_overflow():
-    """A first word budget every frame overflows is packed again with the
-    exact one, and the words are trimmed to the longest frame."""
+    """No frame overflows: kernel E's count entry gives the exact budget
+    before the one pack, and the words are trimmed to the longest frame."""
     y, cb, cr = _pictures(2, 32, 48, seed=7)
     blocks = amv_video.extract_blocks(*(torch.from_numpy(p)
                                         for p in (y, cb, cr)), 3, 2)
     lv = F.fdct_quant_blocks(blocks.reshape(-1, 64),
                              amv_video.encoder_qmat(2)).reshape(2, 36, 64)
-    words, bits = amv_video.pack_levels(lv, 4)
-    assert words.shape[1] == (int(bits.max()) + 31) // 32 > 4
+    words, bits = amv_video.pack_levels(lv)
+    assert words.shape[1] == (int(bits.max()) + 31) // 32
+    assert torch.equal(bits, count_bits(lv))
     assert native.escape_frames(words.numpy(), bits.numpy()) == \
         [native.ref_encode_frame(y[i], cb[i], cr[i], 2) for i in range(2)]
-    assert amv_video.first_word_budget(80) == 1664
-    assert amv_video.first_word_budget(4) == 1024
