@@ -44,9 +44,12 @@ _SIGNATURES = {
     "amv_decode_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _P],
     "amv_encode_fused": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P],
     "amv_adpcm_decode": [_P, _I64, _P, _P, _I64, _I64, _P, _P],
-    "amv_adpcm_encode": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P, _I64, _I64,
-                         _P, _P, _P, _P, _P],
+    "amv_adpcm_encode": [_P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P],
+    "amv_adpcm_encode_scratch": [_I64, _I64, _I64],
 }
+
+# entries that return something other than an int status
+_RESTYPES = {"amv_adpcm_encode_scratch": _I64}
 
 _lib = None
 
@@ -110,7 +113,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _lib = lib
     return _lib
 

@@ -9,10 +9,14 @@
   encode_layout` and `encode_layout_wrap` (`encode_streams_pallas`'s
   contract), backed by csrc/adpcm_encode.cu.  The predictor restarts at
   every reset, so only the step index (0..88) carries from one reset
-  segment to the next: the kernel finds every segment's end step index
-  for each of the 89 possible starts, chains the segments, and encodes
-  each segment once from its true start.  Plain version:
-  `encode_streams_plain`, the same three passes in torch.
+  segment to the next: the kernel cuts each stream into windows of 512
+  samples (a window's segment runs from its first even reset to the next
+  window's), finds every segment's end step index for each of
+  the 89 possible starts (recording each start's state every 256
+  samples), chains the segments (in groups of 64 windows), and
+  encodes every run of 256 samples from its true start or checkpoint.
+  Plain version: `encode_streams_plain`, the same three passes in torch
+  over the reset segments of `segments`.
 
 `repeat=R` is the wrap entries' contract: output row i reads input row
 i % C, as over an input tiled R times, without the tiled copy.
@@ -146,32 +150,34 @@ def encode_streams(samples: torch.Tensor, reset: torch.Tensor,
     [B * repeat, n / 2]): nibble pairs, first nibble high, and the step
     index before sample 2t.  Row i encodes stream i % B."""
     _check_encode(samples, reset, sidx0, repeat)
+    b, n = samples.shape
+    if b == 0 or n == 0:
+        out = torch.zeros((b * repeat, n // 2), dtype=torch.uint8,
+                          device=samples.device)
+        return out, out.clone()
     if all(t.device.type == "cpu" for t in (samples, reset, sidx0)):
         return encode_streams_plain(samples, reset, sidx0, repeat)
     _build.require_cuda(samples, reset, sidx0)
     dev = samples.device
-    b, n = samples.shape
     x = samples.to(torch.int16).contiguous()
-    r = reset.to(torch.uint8).contiguous()
+    r = reset.contiguous()          # bool: one byte a flag
+    # pass 3 copies both by 4-byte cp.async: a view that starts off a
+    # 4-byte boundary is copied
+    x, r = (t if t.data_ptr() % 4 == 0 else t.clone() for t in (x, r))
     sidx0 = sidx0.contiguous()
-    stream, start, end, off = segments(reset)
-    stream = stream.to(torch.int32)
-    n_segs = stream.shape[0] * repeat
-    ends = torch.empty((n_segs, 89), dtype=torch.uint8, device=dev)
-    starts = torch.empty(n_segs, dtype=torch.uint8, device=dev)
-    out = torch.empty((b * repeat, n // 2), dtype=torch.uint8, device=dev)
-    sidx_even = torch.empty_like(out)
+    lib = _build.library()
+    scratch = torch.empty(lib.amv_adpcm_encode_scratch(b, n, repeat),
+                          dtype=torch.uint8, device=dev)
+    out = torch.empty((2, b * repeat, n // 2), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
-        rc = _build.library().amv_adpcm_encode(
-            x.data_ptr(), r.data_ptr(), sidx0.data_ptr(), b, n,
-            stream.data_ptr(), start.data_ptr(), end.data_ptr(),
-            off.data_ptr(), stream.shape[0], repeat, ends.data_ptr(),
-            starts.data_ptr(), out.data_ptr(), sidx_even.data_ptr(),
+        rc = lib.amv_adpcm_encode(
+            x.data_ptr(), r.data_ptr(), sidx0.data_ptr(), b, n, repeat,
+            scratch.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
             _build.stream())
     _build.check(rc, "amv_adpcm_encode")
     global ENCODE_LAUNCHES
     ENCODE_LAUNCHES += 1
-    return out, sidx_even
+    return out[0], out[1]
 
 
 def _compress(p, s, x, steps):

@@ -90,16 +90,17 @@ def _launch(y, cb, cr, qmat, mb_w, display, quant):
     """One launch of kernel V over the planes -> levels int16 [N, 64]."""
     _build.require_cuda(y, cb, cr)
     y, cb, cr = (p.contiguous() for p in (y, cb, cr))
-    for p in (y, cb, cr):
-        if p.shape[2] % 8 == 0 and p.data_ptr() % 8:
-            raise ValueError("planes must be 8-byte aligned (vector loads)")
     f, h, w = y.shape
     n_mcu = mb_w * ((h + 15) // 16)
     n = f * 6 * n_mcu
+    if f * n_mcu >= 1 << 31:
+        raise ValueError(f"{f} frames of {n_mcu} MCUs: at most 2^31 MCUs a "
+                         "launch")
     out = torch.empty((n, 64), dtype=torch.int16, device=y.device)
     if n == 0:
         return out
     tables = np.concatenate([qmat, Q60_LUMA, Q60_CHROMA]).astype(np.int32)
+    tables = np.concatenate([tables, q60_reciprocals().view(np.int32)])
     geo = struct.pack("<qqii", n_mcu, mb_w, w, h)
     with torch.cuda.device(y.device):
         rc = _build.library().amv_encode_fused(
@@ -110,6 +111,14 @@ def _launch(y, cb, cr, qmat, mb_w, display, quant):
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+def q60_reciprocals() -> np.ndarray:
+    """Kernel V's q60 multipliers uint32 [128] (luma then chroma, raster):
+    m = ceil(2^32 / den) for den = 8 * Q60, so that the high word of a * m
+    (`__umulhi`) equals a // den for every a below 2^17."""
+    den = 8 * np.concatenate([Q60_LUMA, Q60_CHROMA]).astype(np.uint64)
+    return (((1 << 32) + den - 1) // den).astype(np.uint32)
 
 
 # ---------------------------------------------------------------- plain

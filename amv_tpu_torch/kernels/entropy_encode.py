@@ -165,9 +165,9 @@ def _tokens(levels: torch.Tensor):
     el = torch.where(eob, size[act[:, :, 0]], 0)
 
     tv = torch.cat([dv[..., None], torch.stack([zv, cv], dim=3).reshape(
-        f, nb, 126), ev[..., None]], dim=2).reshape(f, -1)
+        f, nb, 126), ev[..., None]], dim=2).reshape(f, nb * 128)
     tl = torch.cat([dl[..., None], torch.stack([zl, cl], dim=3).reshape(
-        f, nb, 126), el[..., None]], dim=2).reshape(f, -1)
+        f, nb, 126), el[..., None]], dim=2).reshape(f, nb * 128)
     return tv, tl
 
 

@@ -89,7 +89,10 @@ def unescape_frames(payloads: list[bytes]):
     matrix (kernel D's input).
 
     Returns (rows uint8 [F, stride], lens int64 [F]); stride is the max
-    unescaped length rounded up to a multiple of 4."""
+    unescaped length rounded up to a multiple of 4 (rows [0, 0] for no
+    payloads)."""
+    if not payloads:
+        return np.zeros((0, 0), np.uint8), np.zeros(0, np.int64)
     blob, offsets, sizes = _blob(payloads)
     stride = (int(sizes.max()) + 3) & ~3
     rows = np.zeros((len(payloads), stride), np.uint8)

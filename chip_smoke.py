@@ -9,8 +9,8 @@ the AMV encode, the q60 quantizer and odd picture sizes.
 Phases (any failure raises and exits non-zero; nothing is caught):
  1. the card: nvidia-smi name and power limit, torch.cuda required;
  2. build the twelve CUDA kernels from amv_tpu_torch/csrc (nvcc, sm_90a,
-    one nvcc per source, all started together), and log the registers and
-    shared memory ptxas gives kernels D and E;
+    one nvcc per source, all started together), and log the registers,
+    spills and shared memory ptxas gives kernels D, E, Q and V;
  3. a 160x120 corpus at the reference's canonical shape (16 fps, 22,050 Hz
     ADPCM audio): 4,800 frames (5 minutes) of seeded videogen/rotozoom
     pictures with noise, each C-encoded at qscale 2, muxed into an .amv
@@ -27,7 +27,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     entries) on the corpus levels and DC, un-sorting as the decode does;
     V on the raw corpus pictures (the path entry with each quantizer, the
     contract entry on their coded planes); A on the
-    file's audio chunks; Q on the 300 s stream's chunk layout; R and X
+    file's audio chunks; Q on the 300 s stream's chunk layout, with its
+    passes' device times (torch.profiler) and one chunk's walk alone; R and X
     (the record decode) on the transcode's scans, in a budget no frame
     overflows; P on the record encoder's records of the re-encode levels;
     and the other entries over the same kernels: T's dequantized entry on
@@ -44,7 +45,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     175x97 pictures, q60 flat frames), DC-only blocks
     (I), qscale 1 (F, V), flat frames at luma 0/255/128/13 under q60 (V),
     168x120 and an odd size (U, V), clamp-stress payloads (A), a stream
-    with no reset at sample 0 and one starting at step index 88 (Q); R + X
+    with no reset at sample 0, one starting at step index 88 and 2 s as
+    one segment (Q); R + X
     against D's levels, in the budget and in JAX's default one;
  5. the transcode through the user's entry point, amv_tpu_torch.cli.main:
     video byte-identical to the C reference transcode, audio passed
@@ -63,7 +65,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     byte-identical to the C encoder, every audio chunk to the Python
     ADPCM oracle, V, E and Q launched and not F; frames/s, Msamples/s and
     the split; the old chain (extraction + F) against the new (V),
-    interleaved;
+    interleaved; a zero-frame encode on the card equal to the CPU route's;
  8. -amv_quant q60 through cli.main: the encode and the transcode of the
     corpus (the two-stage route D, U, V, E; not T), frames/s; every q60
     payload decoded by the C decoder to the port's planes, Y round trips
@@ -204,6 +206,38 @@ def cuda_ms(fn, reps, warmup=True):
     return statistics.median(times), out
 
 
+Q_PASSES = (("pass 1", ("window_ends",)),
+            ("pass 2", ("group_maps", "group_chain", "window_chain")),
+            ("pass 3", ("window_encode",)))
+
+
+def q_passes(fn, reps=10):
+    """Device milliseconds per call of fn (kernel Q's wrapper) by pass, from
+    torch.profiler's kernel times: Q's three passes and the rest (the
+    counters' memset and any torch work of the wrapper, "other")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {k: 0.0 for k, _ in Q_PASSES}
+    out["other"] = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        us = getattr(ev, "cuda_time_total", 0) if us is None else us
+        if us <= 0:
+            continue
+        key = next((k for k, names in Q_PASSES
+                    if any(nm in ev.key for nm in names)), "other")
+        out[key] += us / 1e3 / reps
+    assert out["pass 1"] > 0 and out["pass 3"] > 0, \
+        f"torch.profiler saw no device time for kernel Q's passes: {out}"
+    return out
+
+
 def max_abs_err(pairs) -> int:
     """Largest |kernel - plain| over pairs of integer tensors; raises if
     shapes or dtypes differ."""
@@ -256,15 +290,16 @@ def timed_cli(m, argv, runs=3):
 
 
 def ptxas_start(m):
-    """nvcc -Xptxas -v of kernels D's and E's sources, started beside the
-    build (the object goes nowhere)."""
+    """nvcc -Xptxas -v of kernels D's, E's, Q's and V's sources, started
+    beside the build (the object goes nowhere)."""
     src = os.path.join(os.path.dirname(os.path.abspath(m._build.__file__)),
                        os.pardir, "csrc")
     return [(name, subprocess.Popen(
         [m._build._nvcc(), *m._build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
          "-o", os.devnull, os.path.join(src, name)], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True))
-        for name in ("entropy_decode.cu", "entropy_encode.cu")]
+        for name in ("entropy_decode.cu", "entropy_encode.cu",
+                     "adpcm_encode.cu", "encode_fused.cu")]
 
 
 def ptxas_log(procs) -> None:
@@ -678,6 +713,26 @@ def main() -> int:
           lambda: m.adpcm.encode_streams_plain(x_q, r_q, s_q, repeat=Q_WRAP),
           f"repeat={Q_WRAP}, {Q_WRAP * n_q} samples",
           2 * n_q + n_q + 4 + Q_WRAP * n_q, Q_WRAP * n_q * OPS_COMPRESS)
+    # Q's passes on the stream, and one chunk alone (one segment: the
+    # latency of one serial walk, which sets Q's floor, not its bytes)
+    n1 = 2 * ns[0]
+    x1, r1 = x_q[:, :n1], r_q[:, :n1]
+    kern["Q"]["passes_ms"] = q_passes(
+        lambda: m.adpcm.encode_streams(x_q, r_q, s_q))
+    kern["Q"]["one_chunk_ms"] = cuda_ms(
+        lambda: m.adpcm.encode_streams(x1, r1, s_q), 10)[0]
+    one = q_passes(lambda: m.adpcm.encode_streams(x1, r1, s_q))
+    log("Q passes at 1 stream x {} samples (device ms a call, "
+        "torch.profiler): {}; one chunk of {} samples alone {:.4f} ms "
+        "(passes {}) beside the stream's byte bound {:.4f} ms".format(
+            n_q, ", ".join(f"{k} {v:.4f}" for k, v in
+                           kern["Q"]["passes_ms"].items()), n1,
+            kern["Q"]["one_chunk_ms"], ", ".join(
+                f"{k} {v:.4f}" for k, v in one.items()),
+            kern["Q"]["bound_ms"]))
+    log(f"V at {N_FRAMES} frames {W}x{H}: ffmpeg {kern['V']['ms']:.3f} ms, "
+        f"q60 {kern['V q60']['ms']:.3f} ms, contract entry "
+        f"{kern['V coded']['ms']:.3f} ms (median, CUDA events)")
 
     # extra cases on N_CHECK corpus frames: malformed scans for D, T without
     # edge replication, E with a word budget every frame overflows, I on
@@ -846,8 +901,13 @@ def main() -> int:
     s88 = torch.full_like(s_q, 88)
     pairs += list(zip(m.adpcm.encode_streams(x10, r_q[:, :n10], s88),
                       m.adpcm.encode_streams_plain(x10, r_q[:, :n10], s88)))
+    n2 = 2 * sum(ns[:32])                      # 2 s as one segment
+    r2 = torch.zeros_like(r_q[:, :n2])
+    r2[:, 0] = True
+    pairs += list(zip(m.adpcm.encode_streams(x_q[:, :n2], r2, s_q),
+                      m.adpcm.encode_streams_plain(x_q[:, :n2], r2, s_q)))
     extra("Q extra", pairs, f"{n10} samples with no reset at sample 0, and "
-          "from step index 88")
+          f"from step index 88; {n2} samples as one segment")
     del lv_a, lvf, dc_a, ok_a, ysrc, x_q, r_q, stress, pairs
     torch.cuda.empty_cache()
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
@@ -1143,6 +1203,16 @@ def main() -> int:
         log("encode transform, before (extraction, F) and after (V), "
             "interleaved, median of 4 (CUDA events, ms): " +
             ", ".join(f"{k} {v:.3f}" for k, v in cmp.items()))
+        z = [np.zeros((0, H, W), np.uint8)] + 2 * [np.zeros(
+            (0, H // 2, W // 2), np.uint8)]
+        for quant in m.V.QUANTS:
+            got = m.encode.encode_to_bytes(*z, np.zeros(0, np.int16),
+                                           quant=quant, device="cuda")
+            torch.cuda.synchronize()
+            assert got == m.encode.encode_to_bytes(
+                *z, np.zeros(0, np.int16), quant=quant, device="cpu")
+        log(f"zero-frame encode on the card ({len(got)} bytes, ffmpeg and "
+            "q60): equal to the CPU route")
         del planes, words, tq, bq
 
         # ---- 8. q60 through the CLI -------------------------------------
@@ -1293,7 +1363,10 @@ def main() -> int:
             "launches": paths[path][key], "max_abs_err": err,
             "ms": kern[key]["ms"], "plain_ms": kern[key]["plain_ms"],
             "bound_ms": kern[key]["bound_ms"],
-            "bound_by": kern[key]["bound_by"], "library_ms": None})
+            "bound_by": kern[key]["bound_by"], "library_ms": None,
+            **({"passes_ms": kern[key]["passes_ms"],
+                "one_chunk_ms": kern[key]["one_chunk_ms"]} if key == "Q"
+               else {"q60_ms": kern["V q60"]["ms"]} if key == "V" else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

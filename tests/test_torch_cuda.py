@@ -470,7 +470,8 @@ def test_fused_decode_kernel_matches_plain(dev, w, h):
             assert torch.equal(g, x)
 
 
-@pytest.mark.parametrize("w,h", [(160, 120), (40, 24), (33, 25), (34, 17)])
+@pytest.mark.parametrize("w,h", [(160, 120), (168, 120), (175, 97), (40, 24),
+                                 (33, 25), (34, 17)])
 def test_fused_encode_kernel_matches_plain(dev, w, h):
     """Kernel V's entries against their plain versions: encode_planes with
     both quantizers (qscale 1 wraps the products) on random and flat
@@ -527,3 +528,89 @@ def test_q60_and_odd_sizes_cuda_match_cpu_and_c(dev, w, h):
     y, cb, cr = dec.y, dec.cb, dec.cr
     assert amv_video.encode_frames(y, cb, cr, quant="q60", device="cuda") \
         == amv_video.encode_frames(y, cb, cr, quant="q60", device="cpu")
+
+
+@pytest.mark.parametrize("case", ["long_segments", "one_segment", "uneven",
+                                  "many_groups"])
+def test_adpcm_encode_kernel_segment_cases_match_plain(dev, case):
+    """Kernel Q's windows: segments longer than a staged tile (chunks of
+    3,000 samples), one segment for the whole stream, streams with uneven
+    segment counts (B = 4), and streams of more than two groups of 64
+    windows of 512 samples with sparse resets (most windows empty)."""
+    rng = np.random.default_rng(17)
+    b, n = 4, 12000
+    if case == "many_groups":
+        n = 2 * 64 * 512 + 1000                 # 130 windows, 3 groups
+    x = np.cumsum(rng.integers(-1200, 1200, (b, n)), axis=1).clip(
+        -32768, 32767).astype(np.int16)
+    reset = np.zeros((b, n), bool)
+    sidx0 = np.array([0, 88, 17, 60], np.int32)
+    if case == "long_segments":
+        reset[:, ::3000] = True
+        reset[1, 4321] = True                   # odd, inside a segment
+    elif case == "one_segment":
+        reset[:, 0] = True
+    elif case == "uneven":
+        reset[0, ::1378] = True
+        reset[1, ::40] = True
+        reset[2, [0, 9000]] = True
+        reset[3, 100::2] = rng.random((n - 100) // 2) < 0.01
+    else:
+        for bi in range(b):     # even resets 1,000-4,000 samples apart
+            at = np.cumsum(rng.integers(500, 2000, n // 500))
+            reset[bi, 2 * at[at < n // 2]] = True
+        reset[:, 0] = True
+        reset[2, 33333] = True                  # odd, inside a segment
+    args = [torch.from_numpy(a).to(dev) for a in (x, reset, sidx0)]
+    for repeat in (1, 3):
+        got = AQ.encode_streams(*args, repeat=repeat)
+        want = AQ.encode_streams_plain(*args, repeat=repeat)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("skip", [1, 2, 3])
+def test_adpcm_encode_kernel_takes_offset_views(dev, skip):
+    """One stream given as a contiguous view that starts 1-3 samples into
+    its storage (samples and reset flags off a 4-byte boundary): the
+    kernel's output equals the plain version's on the same views."""
+    rng = np.random.default_rng(skip)
+    n = 3000 + skip
+    x = torch.from_numpy(rng.integers(-20000, 20000, (1, n)).astype(
+        np.int16)).to(dev)
+    reset = torch.zeros((1, n), dtype=torch.bool, device=dev)
+    reset[:, skip::1000] = True
+    args = (x[:, skip:], reset[:, skip:],
+            torch.full((1,), 40, dtype=torch.int32, device=dev))
+    assert args[0].is_contiguous() and args[1].is_contiguous()
+    got = AQ.encode_streams(*args)
+    want = AQ.encode_streams_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
+def test_zero_frame_encode_on_card(dev):
+    """No frames and no audio: V, E's count, E and Q take the empty
+    inputs without a launch error, and the file equals the CPU route's."""
+    y = np.zeros((0, 120, 160), np.uint8)
+    c = np.zeros((0, 60, 80), np.uint8)
+    pcm = np.zeros(0, np.int16)
+    for quant in ("ffmpeg", "q60"):
+        got = PE.encode_to_bytes(y, c, c, pcm, quant=quant, device="cuda")
+        torch.cuda.synchronize()
+        assert got == PE.encode_to_bytes(y, c, c, pcm, quant=quant,
+                                         device="cpu")
+        assert len(got) == 324
+    lv = V.encode_planes(*(torch.from_numpy(p).to(dev) for p in (y, c, c)),
+                         2)
+    assert lv.shape == (0, 480, 64)
+    assert E.count_bits(lv).shape == (0,)
+    words, bits, ok = E.encode_levels(lv, 1)
+    assert words.shape == (0, 1) and bits.shape == (0,)
+    empty = torch.zeros((1, 0), dtype=torch.int16, device=dev)
+    out = AQ.encode_streams(empty, empty.bool(),
+                            torch.zeros(1, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    assert out[0].shape == (1, 0) and out[1].shape == (1, 0)

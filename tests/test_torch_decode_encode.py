@@ -205,3 +205,23 @@ def test_explicit_device_contract(clip, tmp_path):
                    b"\x80\x80\x80\x80")
     with pytest.raises(NotImplementedError, match="16-bit PCM"):
         wav.read_pcm(str(p8))
+
+
+@pytest.mark.parametrize("quant", ["ffmpeg", "q60"])
+@pytest.mark.parametrize("n_pcm", [0, 700])
+def test_zero_frame_encode_matches_jax(quant, n_pcm):
+    """No frames (and no audio, or less than a chunk of it): the port's
+    file equals the JAX package's (324 bytes without audio)."""
+    y = np.zeros((0, 120, 160), np.uint8)
+    c = np.zeros((0, 60, 80), np.uint8)
+    pcm = fixtures.audiogen(1.0, seed=3)[:n_pcm]
+    got = PE.encode_to_bytes(y, c, c, pcm, quant=quant, device="cpu")
+    assert got == jax_encode.encode_to_bytes(y, c, c, pcm, quant=quant)
+    if n_pcm == 0:
+        assert len(got) == 324
+
+
+def test_unescape_no_frames():
+    rows, lens = native.unescape_frames([])
+    assert rows.shape == (0, 0) and rows.dtype == np.uint8
+    assert lens.shape == (0,) and lens.dtype == np.int64

@@ -119,3 +119,16 @@ def test_encode_planes_rejects_bad_inputs():
         V.encode_planes(y[:, :1], c[:, :0], c[:, :0], 2)
     with pytest.raises(ValueError):
         V.encode_fused(y.int(), c, c, 1, 1, 2)
+
+
+def test_q60_reciprocals_divide_exactly():
+    """Kernel V's q60 multipliers give (n + den/2) // den for every n below
+    2^17 and every den = 8 * Q60 of both tables."""
+    from amv_tpu_torch.codecs.jpeg_tables import Q60_CHROMA, Q60_LUMA
+    den = 8 * np.concatenate([Q60_LUMA, Q60_CHROMA]).astype(np.uint64)
+    mul = V.q60_reciprocals()
+    assert mul.dtype == np.uint32 and mul.shape == (128,)
+    n = np.arange(1 << 17, dtype=np.uint64)
+    for d, m in zip(den, mul):
+        got = ((n + d // 2) * np.uint64(m)) >> np.uint64(32)   # __umulhi
+        assert np.array_equal(got, (n + d // 2) // d), int(d)
