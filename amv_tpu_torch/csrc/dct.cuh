@@ -6,7 +6,7 @@
 //   * jfdctint (jfdctint.c:184-341), CONST_BITS 13, PASS1_BITS 4, wrap16
 //     after every output;
 //   * dct_quantize_c's AC rule (mpegvideo_enc.c:3646-3725): coef * qmat
-//     with a sign-symmetric >> 22 and a clip to +-1023.
+//     with a sign-symmetric >> 22 (its clip to +-1023 never acts here).
 // All arithmetic is int32 two's-complement with wraparound, as XLA and the
 // C reference compute it: products and sums are formed in uint32 so that
 // nvcc's signed-overflow assumptions cannot change a result; shifts and
@@ -144,12 +144,14 @@ __device__ __forceinline__ int16_t quant_dc(u32 coef) {
     return (int16_t)sra(coef + 32u, 6);
 }
 
-// dct_quantize_c's AC rule for one coefficient and its qmat entry
+// dct_quantize_c's AC rule for one coefficient and its qmat entry.  Its
+// clip to +-1023 is left out: the wrapped int32 product shifted right by
+// 22, sign-symmetrically, lies in [-511, 512] for every u32 product, so
+// the clip never acts.
 __device__ __forceinline__ int16_t quant_ac(u32 coef, int32_t qmat) {
     const u32 level = coef * (u32)qmat;
-    const int32_t q = s32(level) >= 0 ? s32(level) >> 22
-                                      : -(s32(0u - level) >> 22);
-    return (int16_t)(q > 1023 ? 1023 : (q < -1023 ? -1023 : q));
+    return (int16_t)(s32(level) >= 0 ? s32(level) >> 22
+                                     : -(s32(0u - level) >> 22));
 }
 
 }  // namespace

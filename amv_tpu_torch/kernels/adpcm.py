@@ -2,7 +2,8 @@
 
 * A, `decode_chunks`: the port of `amv_tpu/kernels/adpcm_pallas.py:
   decode_layout` and `decode_layout_wrap`, backed by csrc/adpcm_decode.cu
-  (one thread per chunk).  Plain version: `decode_chunks_plain`, the
+  (a warp per chunk: the step-index and the predictor recurrences are
+  clipped additions, decoded as two warp scans of clipped-add maps).  Plain version: `decode_chunks_plain`, the
   `amv_tpu.kernels.adpcm.decode_nibbles_scan` form, a loop over samples
   vectorised over chunks.
 * Q, `encode_streams`: the port of `amv_tpu/kernels/adpcm_encode_pallas.py:
@@ -67,6 +68,9 @@ def decode_chunks(payload: torch.Tensor, pred: torch.Tensor,
         raise ValueError(f"repeat must be >= 1, got {repeat}")
     if all(t.device.type == "cpu" for t in (payload, pred, sidx)):
         return decode_chunks_plain(payload, pred, sidx, repeat)
+    if c * repeat >= 2 ** 31 or nbytes >= 2 ** 31:
+        raise ValueError(f"{c * repeat} rows of {nbytes} bytes: kernel A "
+                         "takes fewer than 2^31 of each (32-bit indices)")
     _build.require_cuda(payload, pred, sidx)
     payload, pred, sidx = (t.contiguous() for t in (payload, pred, sidx))
     out = torch.empty((c * repeat, 2 * nbytes), dtype=torch.int16,

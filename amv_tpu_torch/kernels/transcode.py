@@ -162,13 +162,13 @@ def _launch(levels, dc, qmat, geom, with_pix, mode, repeat=1):
         raise ValueError("levels must be 16-byte aligned (vector loads)")
     n_base = levels.shape[0]
     n = n_base * repeat
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} blocks: kernel T takes fewer than 2^31 "
+                         "(32-bit indices)")
     out = torch.empty((n, 64), dtype=torch.int16, device=levels.device)
     pix = (torch.empty((n, 64), dtype=torch.uint8, device=levels.device)
            if with_pix else None)
-    tables = np.concatenate([qmat, Q60_LUMA, Q60_CHROMA]).astype(np.int32)
-    mb_w, mb_h, w, h = geom
-    geo = struct.pack("<qqiiqq", mb_w, mb_w * mb_h, w, h, n // 8,
-                      n_base // 8)
+    tables, geo = kernel_args(qmat, geom, n, n_base)
     with torch.cuda.device(levels.device):
         rc = _build.library().amv_transcode_blocks(
             levels.data_ptr(), dc.data_ptr() if dc is not None else None,
@@ -178,6 +178,25 @@ def _launch(levels, dc, qmat, geom, with_pix, mode, repeat=1):
     global LAUNCHES
     LAUNCHES += 1
     return out, pix
+
+
+def kernel_args(qmat, geom, n: int, n_base: int):
+    """csrc/transcode.cu's Tables (int32 [192]: qmat, Q60 luma, Q60
+    chroma) and Geom (7 int32: MCUs a row and a frame, width, height, the
+    wrap's nm_full and nm_base, whether the frames have pad pixels) for n
+    output blocks over n_base input blocks."""
+    tables = np.concatenate([qmat, Q60_LUMA, Q60_CHROMA]).astype(np.int32)
+    mb_w, mb_h, w, h = geom
+    geo = struct.pack("<7i", mb_w, mb_w * mb_h, w, h, n // 8, n_base // 8,
+                      has_pad(geom))
+    return tables, geo
+
+
+def has_pad(geom) -> bool:
+    """Whether frames of geometry (mb_w, mb_h, width, height) have pad
+    pixels, which take the encoder's edge replication."""
+    mb_w, mb_h, w, h = geom
+    return w != 16 * mb_w or h != 16 * mb_h
 
 
 def wrap_index(n_base: int, repeat: int, device=None) -> torch.Tensor:
@@ -197,9 +216,9 @@ def _edge_replicate(pix, geom):
     """Encoder edge replication of decoded blocks [N, 8, 8] for frames of
     geometry (mb_w, mb_h, width, height): every pad pixel takes the value
     of the nearest picture pixel (extract_blocks' flip + edge pad)."""
-    mb_w, mb_h, w, h = geom
-    if w == 16 * mb_w and h == 16 * mb_h:
+    if not has_pad(geom):
         return pix
+    mb_w, mb_h, w, h = geom
     planes = []
     for p, ph, pw in zip(coded_planes(pix.reshape(-1, mb_w * mb_h, 6, 8, 8),
                                       mb_w, mb_h),

@@ -10,7 +10,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  1. the card: nvidia-smi name and power limit, torch.cuda required;
  2. build the twelve CUDA kernels from amv_tpu_torch/csrc (nvcc, sm_90a,
     one nvcc per source, all started together), and log the registers,
-    spills and shared memory ptxas gives kernels D, E, Q and V;
+    spills and shared memory ptxas gives kernels D, E, Q, V, T and A, and
+    kernel T's SASS instructions (cuobjdump, static counts: one thread a
+    block), logged in phase 4 with a static-count estimate of each T
+    entry's issue time at its own blocks;
  3. a 160x120 corpus at the reference's canonical shape (16 fps, 22,050 Hz
     ADPCM audio): 4,800 frames (5 minutes) of seeded videogen/rotozoom
     pictures with noise, each C-encoded at qscale 2, muxed into an .amv
@@ -44,7 +47,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     bits and one bit past, a w_out too large for shared memory, 320x240 and
     175x97 pictures, q60 flat frames), DC-only blocks
     (I), qscale 1 (F, V), flat frames at luma 0/255/128/13 under q60 (V),
-    168x120 and an odd size (U, V), clamp-stress payloads (A), a stream
+    168x120 and an odd size (U, V), 168x120 (T, both entries), clamp-stress
+    payloads (A), a stream
     with no reset at sample 0, one starting at step index 88 and 2 s as
     one segment (Q); R + X
     against D's levels, in the budget and in JAX's default one;
@@ -145,6 +149,7 @@ def import_port() -> SimpleNamespace:
     from amv_tpu_torch.kernels import transcode as T
     from amv_tpu_torch.pipeline import decode, encode
     from amv_tpu_torch.pipeline import transcode as P
+    from amv_tpu_torch.tools import time_transcode_kernel as tools_t
     from amv_tpu_torch.verify import fixtures, ref_adpcm
     return SimpleNamespace(**locals())
 
@@ -290,32 +295,21 @@ def timed_cli(m, argv, runs=3):
 
 
 def ptxas_start(m):
-    """nvcc -Xptxas -v of kernels D's, E's, Q's and V's sources, started
-    beside the build (the object goes nowhere)."""
-    src = os.path.join(os.path.dirname(os.path.abspath(m._build.__file__)),
-                       os.pardir, "csrc")
-    return [(name, subprocess.Popen(
-        [m._build._nvcc(), *m._build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
-         "-o", os.devnull, os.path.join(src, name)], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True))
-        for name in ("entropy_decode.cu", "entropy_encode.cu",
-                     "adpcm_encode.cu", "encode_fused.cu")]
+    """nvcc -Xptxas -v of kernels D's, E's, Q's, V's, T's and A's sources,
+    started beside the build (the object goes nowhere)."""
+    return m.tools_t.ptxas_start(m._build, (
+        "entropy_decode.cu", "entropy_encode.cu", "adpcm_encode.cu",
+        "encode_fused.cu", "transcode.cu", "adpcm_decode.cu"))
 
 
-def ptxas_log(procs) -> None:
-    """Each kernel's registers, spills and shared memory, as ptxas says."""
-    for name, proc in procs:
-        out = proc.communicate(timeout=600)[0]
-        assert proc.returncode == 0, out
-        fn = None
-        for line in out.splitlines():
-            if "Compiling entry function" in line:
-                fn = line.split("'")[1]
-            elif "Used" in line and fn:
-                log(f"ptxas {name} {fn}: {line.split(':', 1)[1].strip()}")
-            elif "spill" in line and fn and not line.strip().startswith(
+def ptxas_log(m, procs) -> None:
+    """Each kernel's registers, spills and shared memory, as ptxas says
+    (stack and spill lines only where they are not all 0)."""
+    for name, lines in m.tools_t.ptxas_lines(procs).items():
+        for line in lines:
+            if not line.split(": ", 1)[1].startswith(
                     "0 bytes stack frame, 0 bytes spill stores, 0 bytes"):
-                log(f"ptxas {name} {fn}: {line.split(':', 1)[-1].strip()}")
+                log(f"ptxas {name} {line}")
 
 
 def reset_launches(m):
@@ -454,7 +448,12 @@ def main() -> int:
     m.native.library()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
         f"{' '.join(m._build.NVCC_FLAGS)}; host C library with gcc)")
-    ptxas_log(ptxas)
+    ptxas_log(m, ptxas)
+    t_sass = m.tools_t.sass_counts(m._build, ("transcode_blocks_kernel",))
+    max_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+        .split()[0])
 
     # ---- 3. corpus --------------------------------------------------
     t0 = time.perf_counter()
@@ -590,6 +589,25 @@ def main() -> int:
           "blocks out", base.shape[0] * 128 + n_wrap * (4 + 128 + 64),
           n_wrap * (OPS_DEQUANT + OPS_IDCT + OPS_FDCT))
     del widx, dc_wrap
+    # kernel T's static SASS count a block, and for each entry a static-count
+    # estimate of its issue time at its own blocks (an upper bound on the
+    # issue of its instructions: the count holds both sides of each branch)
+    t_entries = {"zigzag": ("T", n_blk),
+                 "zigzag pix": ("T pixel entry", n_blk),
+                 "deq pix": ("T deq entry", n_blk),
+                 "wrap pix": ("T wrap", n_wrap)}
+    sass_t = {}
+    for fn, (cnt, ops) in sorted(t_sass.items()):
+        entry = m.tools_t.t_instance(fn)
+        sass_t[entry] = cnt
+        key, blocks = t_entries[entry]
+        log(f"T SASS {entry}: {cnt} instructions a block (static); "
+            f"static-count issue estimate at its {blocks} blocks "
+            f"<= {m.tools_t.issue_ms(cnt, blocks, max_mhz):.4f} ms "
+            f"({max_mhz:.0f} MHz) beside its byte bound "
+            f"{kern[key]['bound_ms']:.4f} ms and its time "
+            f"{kern[key]['ms']:.4f} ms; commonest "
+            + ", ".join(f"{o} {c}" for o, c in ops))
     # R and X: the record decode of the transcode's scans in a budget no
     # frame overflows (a block owns at most 64 records), then R + X against
     # kernel D's levels
@@ -859,6 +877,14 @@ def main() -> int:
                           m.U.decode_fused_plain(lv4, dc3, smw, smh)))
         extra(f"U {sw}x{sh}", pairs, f"{N_PAD} frames of random levels, "
               "both entries")
+        if m.T.takes_size((sw, sh)):
+            geom_s = m.T._geometry((sw, sh), n_s)
+            want = m.T.transcode_blocks_plain(lv_s, dc_s, qmat, geom_s)
+            extra(f"T {sw}x{sh}", list(zip(
+                m.T.transcode_blocks_pix(lv_s, dc_s, qmat, (sw, sh)), want))
+                + [(m.T.transcode_blocks(lv_s, dc_s, qmat, (sw, sh)),
+                    want[0])], f"{N_PAD} frames of random levels, both "
+                  "entries (pad columns and rows)")
         ps = [torch.from_numpy(p).to(dev)
               for p in pictures(m, N_PAD, sh, sw, seed=sw)]
         cs = [p.contiguous() for p in m.U.coded_planes(m.V.extract_blocks(
@@ -887,12 +913,13 @@ def main() -> int:
           f"{ODD_W}x{ODD_H} pictures, count and pack at the exact budget")
     del flat, lv_s, dc_s, lv4, dc3, ps, cs, lv_e
     stress = []
-    for byte, sidx in ((0x77, sidx_t), (0xFF, torch.full_like(sidx_t, 88))):
+    for byte, sidx in ((0x77, sidx_t), (0xFF, torch.full_like(sidx_t, 88)),
+                       (0x88, sidx_t)):
         p_s = torch.full_like(pay_t, byte)
         stress.append((m.adpcm.decode_chunks(p_s, pred_t, sidx),
                        m.adpcm.decode_chunks_plain(p_s, pred_t, sidx)))
-    extra("A extra", stress, f"{c_a} chunks of all 0x77, and of all 0xFF at "
-          "step index 88 (clamp stress)")
+    extra("A extra", stress, f"{c_a} chunks of all 0x77, of all 0xFF at "
+          "step index 88, and of all 0x88 (clamp stress)")
     n10 = 2 * sum(ns[:160])                    # the first 10 s of chunks
     x10, r10 = x_q[:, :n10], r_q[:, :n10].clone()
     r10[:, 0] = False
@@ -1366,7 +1393,13 @@ def main() -> int:
             "bound_by": kern[key]["bound_by"], "library_ms": None,
             **({"passes_ms": kern[key]["passes_ms"],
                 "one_chunk_ms": kern[key]["one_chunk_ms"]} if key == "Q"
-               else {"q60_ms": kern["V q60"]["ms"]} if key == "V" else {})})
+               else {"q60_ms": kern["V q60"]["ms"]} if key == "V"
+               else {"pix_ms": kern["T pixel entry"]["ms"],
+                     "deq_ms": kern["T deq entry"]["ms"],
+                     "wrap_ms": kern["T wrap"]["ms"],
+                     "sass_a_block": sass_t}
+               if key == "T"
+               else {"wrap_ms": kern["A wrap"]["ms"]} if key == "A" else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -614,3 +614,82 @@ def test_zero_frame_encode_on_card(dev):
                             torch.zeros(1, dtype=torch.int32, device=dev))
     torch.cuda.synchronize()
     assert out[0].shape == (1, 0) and out[1].shape == (1, 0)
+
+
+@pytest.mark.parametrize("w,h", [(168, 120), (320, 240)])
+def test_transcode_kernel_all_entries_at_sizes(dev, w, h):
+    """Kernel T's four entries on frames of 168x120 (pad columns and rows)
+    and 320x240 (whole MCUs), against their plain versions: the layout and
+    pixel entries with the edge replication, the dequantized entry on the
+    same blocks, and the wrap over two frames' blocks."""
+    rng = np.random.default_rng(w)
+    q = encoder_qmat(2)
+    nb = ((w + 15) // 16) * ((h + 15) // 16) * 6
+    n = 5 * nb
+    lv = torch.from_numpy(_random_levels(rng, n)).to(dev)
+    dc = torch.from_numpy(rng.integers(-40000, 40000, n).astype(np.int32)
+                          ).to(dev)
+    got = T.transcode_blocks_pix(lv, dc, q, (w, h))
+    got_lv = T.transcode_blocks(lv, dc, q, (w, h))
+    want = T.transcode_blocks_plain(lv, dc, q, T._geometry((w, h), n))
+    deq = I.dequantize(lv, dc).to(torch.int16)
+    got_deq = T.transcode_deq(deq, q)
+    want_deq = T.transcode_deq_plain(deq, q)
+    base = lv[:2 * nb]
+    nm_base = base.shape[0] // 8
+    repeat = T.WRAP_TILE // np.gcd(nm_base, T.WRAP_TILE)
+    dc_w = dc[:2 * nb].repeat(repeat)
+    got_w = T.transcode_blocks_pix(base, dc_w, q, repeat=repeat)
+    want_w = T.transcode_blocks_plain(
+        base[T.wrap_index(base.shape[0], repeat, dev)], dc_w, q)
+    torch.cuda.synchronize()
+    for g, x in zip(got + (got_lv,) + got_deq + got_w,
+                    want + want[:1] + want_deq + want_w):
+        assert torch.equal(g, x)
+
+
+@pytest.mark.parametrize("n_mcu", [1, 7, 31, 32, 33, 65])
+def test_transcode_kernel_partial_tiles(dev, n_mcu):
+    """Block counts that are not whole CTA tiles of 32 MCUs (192 blocks):
+    the layout and pixel entries with and without pad pixels, and the
+    dequantized entry on counts that are not whole MCUs either."""
+    rng = np.random.default_rng(n_mcu)
+    q = encoder_qmat(1)
+    n = 6 * n_mcu * 3
+    lv = torch.from_numpy(_random_levels(rng, n)).to(dev)
+    dc = torch.from_numpy(rng.integers(-40000, 40000, n).astype(np.int32)
+                          ).to(dev)
+    pairs = []
+    for size in (None, (16 * n_mcu - 6, 10)):   # one MCU row, pad both ways
+        want = T.transcode_blocks_plain(lv, dc, q, T._geometry(size, n))
+        pairs += zip(T.transcode_blocks_pix(lv, dc, q, size), want)
+        pairs.append((T.transcode_blocks(lv, dc, q, size), want[0]))
+    deq = I.dequantize(lv, dc).to(torch.int16)
+    for m in (1, n - 1, n):
+        pairs += zip(T.transcode_deq(deq[:m], q),
+                     T.transcode_deq_plain(deq[:m], q))
+    torch.cuda.synchronize()
+    for g, x in pairs:
+        assert torch.equal(g, x)
+
+
+@pytest.mark.parametrize("nbytes", [1, 16, 31, 32, 33, 689, 1024, 1025, 5000])
+def test_adpcm_decode_kernel_tile_edges(dev, nbytes):
+    """Kernel A on chunks shorter than a warp's lanes, around a lane run and
+    a staged tile (1,024 bytes), and longer than four tiles; payloads that
+    start 0-3 bytes past a 16-byte boundary (offset views of one buffer);
+    the wrap 64 times over; header predictors beyond int16."""
+    rng = np.random.default_rng(nbytes)
+    c = 37
+    buf = torch.from_numpy(rng.integers(0, 256, c * nbytes + 16)
+                           .astype(np.uint8)).to(dev)
+    pred = torch.from_numpy(rng.integers(-70000, 70000, c).astype(np.int32)
+                            ).to(dev)
+    sidx = torch.from_numpy(rng.integers(-5, 100, c).astype(np.int32)).to(dev)
+    for skip in range(4):
+        pay = buf[skip:skip + c * nbytes].view(c, nbytes)
+        for repeat in (1, 64):
+            got = AQ.decode_chunks(pay, pred, sidx, repeat=repeat)
+            want = AQ.decode_chunks_plain(pay, pred, sidx, repeat=repeat)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (skip, repeat)
