@@ -18,10 +18,10 @@ read (the wrappers copy them to a device once per device, `device_table`):
   order; the counterpart of `amv_tpu.codecs.amv_video._encoder_quant_qmat_np`;
 * `Q60_LUMA` / `Q60_CHROMA`: the decoder's sp5x Q60 dequant tables, raster;
 * Huffman tables, indexed DC-luma 0, DC-chroma 1, AC-luma 2, AC-chroma 3:
-  `DEC_LUT` (flat 16-bit-peek table for the plain decoder), `DEC_TABLES`
-  (two-level form for the record decode kernel), `DEC_FAST` (kernel D's
-  two-level form), `ENC_TABLES` (code and size per
-  symbol).
+  `DEC_LUT` (flat 16-bit-peek table for the plain decoder), `RECORD_LUT`
+  (the same with JAX's reading of an invalid code, for the plain record
+  decoder), `DEC_FAST` and `REC_FAST` (their two-level forms for kernels
+  D and R), `ENC_TABLES` (code and size per symbol).
 """
 
 from __future__ import annotations
@@ -206,37 +206,14 @@ def encoder_qmat(qscale) -> np.ndarray:
     return ((1 << 22) // (8 * m)).astype(np.int32)
 
 
-def _decode_tables():
-    """(lut [4, 65536], blob) for the decoders.
-
-    lut[t, peek16] = (sym << 5) | len, 0 for an invalid prefix: the
-    plain decoder's one-gather table.  blob is the kernel's two-level
-    form, per table t: e1[256] (the same entry for codes of <= 8 bits,
-    else 0; entropy.c build_tables_one), maxcode[17] and valoff[17]
-    (canonical decode, JPEG F.16: the longest codes resolve as
-    vals[valoff[L] + code] where code <= maxcode[L]) and vals[256].
-    """
+def _decode_lut():
+    """lut [4, 65536]: lut[t, peek16] = (sym << 5) | len, 0 for an invalid
+    prefix: the plain decoder's one-gather table."""
     lut = np.zeros((4, 1 << 16), np.int32)
-    blob = np.zeros((4, 256 + 17 + 17 + 256), np.int32)
     for t, (bits, vals) in enumerate(_HUFF):
         syms, lens = build_decode_table(bits, vals)
         lut[t] = np.where(lens > 0, (syms.astype(np.int32) << 5) | lens, 0)
-        e1 = lut[t, ::256]
-        blob[t, :256] = np.where((e1 & 31) <= 8, e1, 0)
-        maxcode = np.full(17, -1, np.int32)
-        valoff = np.zeros(17, np.int32)
-        code = k = 0
-        for L in range(1, 17):
-            n = int(bits[L])
-            if n:
-                valoff[L] = k - code
-                maxcode[L] = code + n - 1
-            code = (code + n) << 1
-            k += n
-        blob[t, 256:273] = maxcode
-        blob[t, 273:290] = valoff
-        blob[t, 290:290 + len(vals)] = vals
-    return lut, blob.reshape(-1)
+    return lut
 
 
 def _encode_tables():
@@ -248,33 +225,30 @@ def _encode_tables():
     return out
 
 
-DEC_LUT, DEC_TABLES = _decode_tables()
+DEC_LUT = _decode_lut()
 
 # The 8-bit prefixes of each table's codes longer than 8 bits start at
 # these values (all ones above): DC-L, DC-C, AC-L, AC-C.
 DEC_LONG_PREFIX = (0xFF, 0xFF, 0xFB, 0xFA)
 
 
-def _decode_fast():
-    """int16 blob for kernel D: per table t the entry (sym << 5) | len of
-    the code that the 16-bit peek p starts with, 0 for an invalid code, in
-    two levels: first[t][p >> 8] for codes of up to 8 bits (0 otherwise),
-    then, for the longer codes, second[t][((p >> 8) - DEC_LONG_PREFIX[t]) *
-    256 + (p & 255)], the second levels of the four tables one after the
-    other."""
-    first = (DEC_LUT[:, ::256] & 31) <= 8
-    first = np.where(first, DEC_LUT[:, ::256], 0)
+def _decode_fast(lut):
+    """int16 blob of a flat table `lut` for kernels D and R: per table t
+    the entry (sym << 5) | len of the code that the 16-bit peek p starts
+    with, as `lut` has it, in two levels: first[t][p >> 8] for codes of up
+    to 8 bits (0 otherwise), then, for the longer codes,
+    second[t][((p >> 8) - DEC_LONG_PREFIX[t]) * 256 + (p & 255)], the
+    second levels of the four tables one after the other."""
+    first = (lut[:, ::256] & 31) <= 8
+    first = np.where(first, lut[:, ::256], 0)
     second = []
     for t, lo in enumerate(DEC_LONG_PREFIX):
-        long_p = DEC_LUT[t, lo << 8:]
+        long_p = lut[t, lo << 8:]
         assert not first[t, lo:].any() and first[t, :lo].all()
         second.append(long_p)
     out = np.concatenate([first.reshape(-1)] + second)
     assert out.max() < (1 << 15)
     return out.astype(np.int16)
-
-
-DEC_FAST = _decode_fast()
 
 
 def _record_lut():
@@ -288,6 +262,8 @@ def _record_lut():
 
 
 RECORD_LUT = _record_lut()
+DEC_FAST = _decode_fast(DEC_LUT)
+REC_FAST = _decode_fast(RECORD_LUT)
 ENC_TABLES = _encode_tables()
 
 _ON_DEVICE: dict = {}

@@ -1,6 +1,7 @@
-// Kernel D: JPEG K.3 Huffman decode of unescaped AMV scans, one thread
-// block (CTA) per frame, many threads per scan; and kernel R, a token walk
-// emitting the record IR, one thread per frame.
+// Kernels D and R: JPEG K.3 Huffman decode of unescaped AMV scans, one
+// thread block (CTA) per frame, many threads per scan.  D writes zigzag
+// levels with the C decoder's semantics; R writes the record IR with the
+// JAX package's.  Both are one kernel body, decode_kernel<kMode>.
 //
 // Kernel D replaces the Pallas kernels
 //   amv_tpu/kernels/entropy_async_pallas.py:decode_scans_async_dense (the
@@ -18,37 +19,57 @@
 // levels decoded before the failing token stay written, none after it.
 // Bits after the last block are ignored.
 //
-// What bounds it on the H100: Huffman decode is bit-serial (a code's
-// position depends on every code before it), so latency, not the 0.1 ms
-// of bytes, bounds it; one thread per frame ran 4,800 threads on 132
-// SMs at ~1,000 cycles a token.  Design: JPEG's codes self-synchronize
+// Kernel R replaces amv_tpu/kernels/entropy_async_pallas.py:_decode_records
+// (the record-IR decoder): per frame, one 32-bit record per token,
+// level << 16 | is_dc << 7 | write << 6 | wpos (entropy_async_pallas.py:
+// 308-311), stored frame-major [F, T]; records past a frame's last token
+// are 0, written by the frame's CTA (so the wrapper allocates with
+// torch.empty and the array is written once).  Its semantics are JAX's,
+// not the C decoder's: a code no table holds reads as length 16 and the
+// table's last symbol (the threshold decode's clip; R's tables, REC_FAST,
+// hold that entry where D's hold 0), size 0 with run != 15 writes a 0
+// level, a position past 63 or a ZRL past it ends the block, and a frame
+// stops only when its blocks are done or T records are spent.  So R's
+// token step never fails.  status[f] = (blocks done, records), and blocks
+// done < n_blocks is JAX's not-ok.
+//
+// What bounds them on the H100: Huffman decode is bit-serial (a code's
+// position depends on every code before it), so latency, not bytes,
+// bounds it (D's 0.1 ms of scans; R's 0.18 ms is its record array, 4 bytes
+// a record for T = 30,720 records a frame at the main shapes, most of it
+// the zero tail); one thread per frame ran 4,800 threads on 132 SMs at
+// ~1,000 cycles a token.  Design: JPEG's codes self-synchronize
 // (Weissenberger and Schmidt, ICPP 2018, HiPC 2021), so a CTA splits its
 // scan into subsequences of S bits (>= 1,024; at most kMaxSub a row) and
 // decodes them in parallel.  The decoder state at a token boundary is (bit
 // position, zigzag position, block mod 6: the tables); D writes DC
-// differences, so no predictor is part of it.
+// differences and R records, so no predictor is part of it.
 //  1. Speculate: thread j decodes subsequence j from its first bit with an
 //     assumed state (an AC slot of a Y block; subsequence 0 from the exact
 //     start) and records the state at the first token boundary past its
-//     end, its tokens, the blocks it finishes and its first failing token.
-//     A failing token restarts the walk one bit on (only the exact pass
-//     decides ok).
+//     end, its tokens, the blocks it finishes and (D) its first failing
+//     token.  A failing token restarts D's walk one bit on (only the exact
+//     pass decides ok); R's walk never fails and heals by
+//     self-synchronization or in the sync.
 //  2. Sync: every entry that differs from its predecessor's exit takes
 //     that exit and is decoded again, in parallel, until nothing changes.
 //     The prefix whose entries equal their predecessors' exits is exact,
 //     and it grows by at least one subsequence a round; a CTA scan of that
 //     prefix's tokens and blocks gives each subsequence its first output
 //     block and global token index, and stops the sync early once the
-//     prefix reaches the frame's last block, a failing token or the
-//     budget.  A wrong guess of the block mod 6 does not heal by bits
-//     alone (the tables differ), which is what most rounds fix; their
+//     prefix reaches the frame's last block, a failing token (D) or the
+//     budget (D's tokens, R's T records: the cut may fall inside a
+//     subsequence).  A wrong guess of the block mod 6 does not heal by
+//     bits alone (the tables differ), which is what most rounds fix; their
 //     count per frame is reported.
 //  3. Write: each subsequence up to the stopping one decodes again from its
-//     exact entry and writes its levels; the stopping one resolves the end
-//     (the last block, or the failing token) in token order.  If the data
-//     ends first (a truncated scan), the last subsequence's thread goes on
-//     serially into the zero fill until the blocks are done, a code is
-//     invalid or the budget runs out.
+//     exact entry and writes its levels (D, at its block and slot) or its
+//     records (R, at their global token index); the stopping one resolves
+//     the end in token order.  If the data ends first (a truncated scan),
+//     the last subsequence's thread goes on serially into the zero fill
+//     until the blocks are done, a code is invalid (D) or the budget runs
+//     out.  R's CTA then zeroes its frame's records past the last by
+//     16-byte stores.
 // The rounds grow with the scan's length, and the frames with the most set
 // the kernel's end, so CTA x decodes frame order[x], the longest frames
 // first.  Each thread reads the scan through a 64-bit window in registers,
@@ -56,106 +77,29 @@
 // rather than branches, so the lanes of a warp, each at its own token,
 // stay together; the tables sit in shared memory in two levels: one
 // lookup resolves a code of up to 8 bits, a second the longer ones (whose
-// first 8 bits are 0xFA-0xFF in these tables).
-
-// Kernel R replaces amv_tpu/kernels/entropy_async_pallas.py:_decode_records
-// (the record-IR decoder): per frame, one 32-bit record per token,
-// level << 16 | is_dc << 7 | write << 6 | wpos (entropy_async_pallas.py:
-// 308-311), stored record-major [t_rows, F] so that a warp's stores of one
-// token row coalesce; rows past a frame's last token stay 0.  Its semantics
-// are JAX's, not the C decoder's: a code no table holds reads as length 16
-// and the table's last symbol (the threshold decode's clip), size 0 with
-// run != 15 writes a 0 level, a position past 63 ends the block, and a
-// frame stops only when its blocks are done or t_rows records are spent.
-// status[f] = (blocks done, records), and blocks done < n_blocks is JAX's
-// not-ok.  Its bit reader is a 64-bit cache over the row, its tables a
-// 256-entry first level per Huffman table (entropy.c:144-147) and the
-// canonical maxcode/valoff walk for longer codes (JPEG F.16); its token
-// loop is flat (one record per iteration), which is also what makes the
-// stores of a warp land in one row.  Its walk is serial in a frame, one
-// thread per frame.
+// first 8 bits are 0xFA-0xFF in these tables).  Frame-major records make
+// each thread's stores a run of consecutive words (a CTA writes one row);
+// a record-major layout [T, F] would make every store its own sector.
+//
+// One body serves both (kMode): the speculation, the sync rounds and the
+// CTA scan are the same, and the tables have one layout (R's differ only
+// in the entries of invalid codes).  The mode selects the token semantics
+// (step), the stopping test and what the write phase stores.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-// per Huffman table (DC-L, DC-C, AC-L, AC-C): e1[256], maxcode[17],
-// valoff[17], vals[256] -- amv_tpu_torch/codecs/amv_video.py
-constexpr int kTabInts = 256 + 17 + 17 + 256;
-constexpr int kAllTabInts = 4 * kTabInts;
-constexpr int kVals = 256 + 17 + 17;    // vals[] within a table
-
-struct BitReader {
-    const uint8_t *row;
-    long long len, pos;
-    uint64_t cache;   // top `bits` bits valid, MSB-aligned, zero below
-    int bits;
-
-    __device__ __forceinline__ void fill() {
-        while (bits <= 56) {
-            uint64_t b = pos < len ? row[pos] : 0;
-            pos++;
-            cache |= b << (56 - bits);
-            bits += 8;
-        }
-    }
-    __device__ __forceinline__ void skip(int n) { cache <<= n; bits -= n; }
-    // JPEG extend of the next n (1..16) bits; needs n valid bits
-    __device__ __forceinline__ int32_t get_extend(int n) {
-        uint32_t v = (uint32_t)(cache >> (64 - n));
-        skip(n);
-        uint32_t neg = ((v >> (n - 1)) & 1u) - 1u;
-        return (int32_t)(v - (neg & ((1u << n) - 1u)));
-    }
-};
-
-// Decode one symbol of table t from a filled reader; returns sym, sets
-// *len (0 = invalid code).
-__device__ __forceinline__ int decode_sym(const int *tab, uint32_t peek16,
-                                          int *len) {
-    int ent = tab[peek16 >> 8];
-    if (ent) {
-        *len = ent & 31;
-        return ent >> 5;
-    }
-    const int *maxcode = tab + 256, *valoff = tab + 273, *vals = tab + 290;
-    for (int L = 9; L <= 16; L++) {
-        int code = (int)(peek16 >> (16 - L));
-        if (code <= maxcode[L]) {
-            *len = L;
-            return vals[valoff[L] + code];
-        }
-    }
-    *len = 0;
-    return 0;
-}
-
-// The next symbol of table `tab`: fills the reader, looks the symbol up and
-// consumes its code; *len = 0 for an invalid code (nothing consumed).
-__device__ __forceinline__ int read_sym(BitReader &br, const int *tab,
-                                        int *len) {
-    br.fill();
-    const int sym = decode_sym(tab, (uint32_t)(br.cache >> 48), len);
-    if (*len) br.skip(*len);
-    return sym;
-}
-
-// the shared-memory copy of the four tables, loaded by every thread block
-__device__ __forceinline__ void load_tables(int *tab, const int *tables) {
-    for (int i = threadIdx.x; i < kAllTabInts; i += blockDim.x)
-        tab[i] = tables[i];
-    __syncthreads();
-}
-
-// ---- kernel D ------------------------------------------------------------
+constexpr int kLevels = 0;            // kernel D
+constexpr int kRecords = 1;           // kernel R
 
 constexpr int kDThreads = 128;
 constexpr int kMaxSub = 128;          // subsequences a frame at most
 constexpr int kSMin = 1024;           // subsequence bits at least
 constexpr int kGuessPos = 1;          // speculative entry: AC slot 1
-// DEC_FAST (codecs/jpeg_tables.py): first levels [4][256], then the
-// second levels of the codes longer than 8 bits
+// DEC_FAST and REC_FAST (codecs/jpeg_tables.py): first levels [4][256],
+// then the second levels of the codes longer than 8 bits
 constexpr int kFastInts = 4352;
 
 // The frame's scan as big-endian 32-bit words, zero past the data: the
@@ -198,15 +142,21 @@ struct Window {
 };
 
 struct Tok {
-    int done, slot;        // the token finished a block; level slot or -1
-    int32_t level;
+    int done, slot;        // the token finished a block; D: level slot or -1
+    int32_t level;         // D: the level
+    uint32_t rec;          // R: the record
 };
 
-// One token of the C decoder from state (bp, pos, c6), pos -1 when the DC
-// is next.  false for an invalid token (an invalid code, size 0 with run !=
-// 15, a position past 63), the state unchanged.  The outcomes are selects,
-// not branches, so that the lanes of a warp, each at its own token, stay
+// One token from state (bp, pos, c6), pos -1 when the DC is next, else the
+// last zigzag slot written.  D (the C decoder): false for an invalid token
+// (an invalid code, size 0 with run != 15, a position past 63), the state
+// unchanged.  R (JAX's record decode): always true; the record's position
+// is pos + run + 1 clipped to 63, written where it is a DC or a coefficient
+// at most 63 (a size-0 symbol writes a 0 level), and a position past 63 or
+// a ZRL reaching 63 ends the block.  The outcomes are selects, not
+// branches, so that the lanes of a warp, each at its own token, stay
 // together; a code longer than 8 bits takes a second table lookup.
+template <int kMode>
 __device__ __forceinline__ bool step(Window &win, const uint16_t *fast,
                                      int &bp, int &pos, int &c6, Tok &t) {
     const uint32_t peek = win.peek(bp);
@@ -228,12 +178,23 @@ __device__ __forceinline__ bool step(Window &win, const uint16_t *fast,
     const int32_t level = (int32_t)(v - (neg & ((1u << nb) - 1u)));
     const bool eob = !dc && sym == 0, zrl = !dc && sym == 0xF0;
     const int i = pos + (sym >> 4) + 1;
-    if (!ln || (!dc && nb == 0 && !eob && !zrl) || (!dc && nb && i > 63))
-        return false;
-    const bool done = eob || (!dc && nb && i == 63);  // no EOB after 63
-    t = {done, dc ? 0 : (nb ? i : -1), level};
+    bool done;
+    if (kMode == kLevels) {
+        if (!ln || (!dc && nb == 0 && !eob && !zrl) || (!dc && nb && i > 63))
+            return false;
+        done = eob || (!dc && nb && i == 63);         // no EOB after 63
+        t.slot = dc ? 0 : (nb ? i : -1);
+        t.level = level;
+        pos = dc ? 0 : (zrl ? pos + 16 : (done ? -1 : i));
+    } else {
+        done = !dc && (eob || (zrl ? pos + 16 >= 63 : i >= 63));
+        const bool write = dc || (!eob && !zrl && i <= 63);
+        t.rec = ((uint32_t)level << 16) | ((uint32_t)dc << 7) |
+                ((uint32_t)write << 6) | (uint32_t)min(i, 63);
+        pos = dc ? 0 : (done ? -1 : (zrl ? pos + 16 : i));
+    }
+    t.done = done;
     bp += ln + nb;
-    pos = dc ? 0 : (zrl ? pos + 16 : (done ? -1 : i));
     c6 = done ? (c6 == 5 ? 0 : c6 + 1) : c6;
     return true;
 }
@@ -248,7 +209,9 @@ struct Walk {
 
 // Decode from (bp, pos, c6) while bp < end: the state moves to the first
 // token boundary at or past end; ftok is -1 when no token failed.  A
-// failing token restarts the walk one bit on with the speculative guess.
+// failing token (D only) restarts the walk one bit on with the speculative
+// guess.
+template <int kMode>
 __device__ __forceinline__ Walk walk(const Scan &sc, const uint16_t *fast,
                                      int &bp, int &pos, int &c6, int end) {
     Walk r{0, 0, -1};
@@ -256,7 +219,7 @@ __device__ __forceinline__ Walk walk(const Scan &sc, const uint16_t *fast,
     Tok t;
     while (bp < end) {
         r.toks++;
-        if (!step(win, fast, bp, pos, c6, t)) {
+        if (!step<kMode>(win, fast, bp, pos, c6, t)) {
             if (r.ftok < 0) r.ftok = r.toks - 1;
             bp++;
             pos = kGuessPos;
@@ -267,14 +230,18 @@ __device__ __forceinline__ Walk walk(const Scan &sc, const uint16_t *fast,
     return r;
 }
 
+// D: out = levels int16 [F, n_blocks, 64], flag = ok uint8 [F], budgets
+// int64 [F] tokens.  R: out = records int32 [F, t_rows], flag = status
+// int32 [F, 2], budgets unused (the budget is t_rows records).
+template <int kMode>
 __global__ void __launch_bounds__(kDThreads)
-decode_scans_kernel(const uint8_t *__restrict__ rows, long long stride,
-                    const long long *__restrict__ lens,
-                    const int32_t *__restrict__ order, int n_blocks,
-                    const int16_t *__restrict__ tables,
-                    const long long *__restrict__ budgets, int S,
-                    int16_t *__restrict__ levels, uint8_t *__restrict__ ok,
-                    int32_t *__restrict__ rounds) {
+decode_kernel(const uint8_t *__restrict__ rows, long long stride,
+              const long long *__restrict__ lens,
+              const int32_t *__restrict__ order, int n_blocks,
+              const int16_t *__restrict__ tables,
+              const long long *__restrict__ budgets, long long t_rows, int S,
+              void *__restrict__ out, void *__restrict__ flag,
+              int32_t *__restrict__ rounds) {
     __shared__ uint16_t fast[kFastInts];
     // per subsequence: entry and exit state, and the walk from the entry
     __shared__ int e_bp[kMaxSub], e_pc[kMaxSub], y_bp[kMaxSub], y_pc[kMaxSub];
@@ -282,7 +249,7 @@ decode_scans_kernel(const uint8_t *__restrict__ rows, long long stride,
     __shared__ int tok0[kMaxSub], blk0[kMaxSub];   // the scan
     __shared__ int scan_t[2][kMaxSub], scan_b[2][kMaxSub];
     __shared__ uint8_t changed[kMaxSub], todo[kMaxSub];   // a round's re-walks
-    __shared__ int s_first, s_stop, s_todo, s_ok;
+    __shared__ int s_first, s_stop, s_todo, s_ok, s_blk, s_tok;
     const int f = order[blockIdx.x], tid = threadIdx.x;
     for (int i = tid; i < kFastInts; i += kDThreads)
         fast[i] = (uint16_t)tables[i];
@@ -292,7 +259,7 @@ decode_scans_kernel(const uint8_t *__restrict__ rows, long long stride,
     const int sh = (int)((uintptr_t)row & 3);
     const Scan sc{(const uint32_t *)(row - sh), 8 * sh,
                   (int)((sh + len + 3) >> 2), (int)(sh + len)};
-    const long long budget = budgets[f];
+    const long long budget = kMode == kLevels ? budgets[f] : t_rows;
     const int n_sub = max(1, (int)((8 * len + S - 1) / S));
     __syncthreads();
 
@@ -301,7 +268,7 @@ decode_scans_kernel(const uint8_t *__restrict__ rows, long long stride,
         int bp = j * S, pos = j ? kGuessPos : -1, c6 = 0;
         e_bp[j] = bp;
         e_pc[j] = pack_pc(pos, c6);
-        const Walk r = walk(sc, fast, bp, pos, c6, (j + 1) * S);
+        const Walk r = walk<kMode>(sc, fast, bp, pos, c6, (j + 1) * S);
         n_tok[j] = r.toks;
         n_blk[j] = r.blks;
         f_tok[j] = r.ftok;
@@ -313,10 +280,11 @@ decode_scans_kernel(const uint8_t *__restrict__ rows, long long stride,
     // 2. sync, with the scan of the exact prefix.  A round: entry j
     // changed if it differs from exit j - 1; the subsequences before the
     // first change are exact; their tokens and blocks, scanned, stop the
-    // sync at the first one that fails, spends the budget or finishes the
-    // frame; otherwise every changed entry takes the exit before it and
-    // is walked again, the walks packed into the first threads so that as
-    // few warps as can take them run the round.
+    // sync at the first one that fails, spends the budget (D: a token past
+    // it; R: the T-th record) or finishes the frame; otherwise every
+    // changed entry takes the exit before it and is walked again, the
+    // walks packed into the first threads so that as few warps as can
+    // take them run the round.
     int n_rounds = 0;
     for (;;) {
         if (tid == 0) {
@@ -346,8 +314,9 @@ decode_scans_kernel(const uint8_t *__restrict__ rows, long long stride,
             const int t = scan_t[src][j] - n_tok[j], b = scan_b[src][j] - n_blk[j];
             tok0[j] = t;
             blk0[j] = b;
+            const long long spent = (long long)t + n_tok[j];
             if (f_tok[j] >= 0 || b + n_blk[j] >= n_blocks ||
-                (long long)t + n_tok[j] > budget)
+                (kMode == kLevels ? spent > budget : spent >= budget))
                 atomicMin(&s_stop, j);
         }
         __syncthreads();
@@ -363,7 +332,7 @@ decode_scans_kernel(const uint8_t *__restrict__ rows, long long stride,
         for (int i = tid; i < s_todo; i += kDThreads) {
             const int j = todo[i];
             int bp = e_bp[j], pos = (e_pc[j] >> 3) - 1, c6 = e_pc[j] & 7;
-            const Walk r = walk(sc, fast, bp, pos, c6, (j + 1) * S);
+            const Walk r = walk<kMode>(sc, fast, bp, pos, c6, (j + 1) * S);
             n_tok[j] = r.toks;
             n_blk[j] = r.blks;
             f_tok[j] = r.ftok;
@@ -377,7 +346,8 @@ decode_scans_kernel(const uint8_t *__restrict__ rows, long long stride,
     // 3. write
     const int stop = s_stop < n_sub ? s_stop : -1;
     const int last = stop >= 0 ? stop : n_sub - 1;
-    int16_t *out = levels + (long long)f * n_blocks * 64;
+    int16_t *lv = (int16_t *)out + (long long)f * n_blocks * 64;
+    int32_t *rec = (int32_t *)out + (long long)f * t_rows;
     for (int j = tid; j <= last; j += kDThreads) {
         int bp = e_bp[j], pos = (e_pc[j] >> 3) - 1, c6 = e_pc[j] & 7;
         int blk = blk0[j];
@@ -389,74 +359,53 @@ decode_scans_kernel(const uint8_t *__restrict__ rows, long long stride,
         Tok t;
         while (tail || bp < end) {
             if (blk >= n_blocks) break;
-            if (++tok > budget || !step(win, fast, bp, pos, c6, t)) {
-                good = 0;
-                break;
+            if (kMode == kLevels) {
+                if (++tok > budget || !step<kMode>(win, fast, bp, pos, c6, t)) {
+                    good = 0;
+                    break;
+                }
+                if (t.slot >= 0) lv[(long long)blk * 64 + t.slot] = (int16_t)t.level;
+            } else {
+                if (tok >= budget) break;
+                step<kMode>(win, fast, bp, pos, c6, t);
+                rec[tok++] = (int32_t)t.rec;
             }
-            if (t.slot >= 0) out[(long long)blk * 64 + t.slot] = (int16_t)t.level;
             blk += t.done;
         }
-        if (j == last) s_ok = good != 0 && blk >= n_blocks;
+        if (j == last) {
+            s_ok = good != 0 && blk >= n_blocks;
+            s_blk = blk;
+            s_tok = (int)tok;
+        }
     }
     __syncthreads();
+    if (kMode == kRecords) {
+        // the zero tail [s_tok, t_rows): to a 16-byte boundary word by
+        // word, then 16-byte vectors (t_rows and the row are 16-byte
+        // aligned: the entry checks)
+        const long long a = min(((long long)s_tok + 3) & ~3ll, t_rows);
+        if (s_tok + tid < a) rec[s_tok + tid] = 0;
+        int4 *vec = (int4 *)rec;
+        for (long long k = a / 4 + tid; k < t_rows / 4; k += kDThreads)
+            vec[k] = make_int4(0, 0, 0, 0);
+    }
     if (tid == 0) {
-        ok[f] = (uint8_t)s_ok;
+        if (kMode == kLevels) {
+            ((uint8_t *)flag)[f] = (uint8_t)s_ok;
+        } else {
+            ((int32_t *)flag)[2 * f] = s_blk;
+            ((int32_t *)flag)[2 * f + 1] = s_tok;
+        }
         rounds[f] = n_rounds;
     }
 }
 
-// ---- kernel R ------------------------------------------------------------
-__global__ void decode_records_kernel(const uint8_t *__restrict__ rows,
-                                      long long stride,
-                                      const long long *__restrict__ lens,
-                                      int n_frames, int n_blocks,
-                                      const int *__restrict__ tables,
-                                      long long t_rows,
-                                      int32_t *__restrict__ recs,
-                                      int32_t *__restrict__ status) {
-    __shared__ int tab[kAllTabInts];
-    load_tables(tab, tables);
-    const int f = blockIdx.x * blockDim.x + threadIdx.x;
-    if (f >= n_frames) return;
-
-    long long len = lens[f];
-    len = len < 0 ? 0 : (len > stride ? stride : len);
-    BitReader br{rows + (long long)f * stride, len, 0, 0, 0};
-    int blk = 0, pos = 0, c6 = 0;     // block, next zigzag slot, block % 6
-    long long t = 0;
-    for (; t < t_rows && blk < n_blocks; t++) {
-        const bool is_dc = pos == 0, luma = c6 < 4;
-        const int *table = tab + (is_dc ? (luma ? 0 : 1) : (luma ? 2 : 3))
-                                 * kTabInts;
-        int ln;
-        int sym = read_sym(br, table, &ln);
-        if (!ln) {                    // JAX: length 16, the last symbol
-            br.skip(16);
-            sym = table[kVals + (is_dc ? 11 : 161)];
-        }
-        const int size = is_dc ? sym : (sym & 15);   // DC vals are 0..11
-        const int32_t level = size ? br.get_extend(size) : 0;
-        int wpos = 0, newpos = 1;
-        bool write = true;
-        if (!is_dc) {
-            const bool eob = sym == 0, zrl = sym == 0xF0;
-            wpos = pos + (sym >> 4);
-            write = !eob && !zrl && wpos <= 63;
-            newpos = eob ? 64 : (zrl ? pos + 16 : wpos + 1);
-        }
-        recs[t * n_frames + f] = (int32_t)(
-            ((uint32_t)level << 16) | ((uint32_t)is_dc << 7) |
-            ((uint32_t)write << 6) | (uint32_t)min(wpos, 63));
-        if (!is_dc && newpos >= 64) {
-            blk++;
-            c6 = c6 == 5 ? 0 : c6 + 1;
-            pos = 0;
-        } else {
-            pos = newpos;
-        }
-    }
-    status[2 * f] = blk;
-    status[2 * f + 1] = (int32_t)t;
+// S: at least kSMin bits, and at most kMaxSub subsequences a row; 0 if
+// the row is too long for 32-bit bit positions
+int sub_bits(long long stride) {
+    long long s = (8 * stride + kMaxSub - 1) / kMaxSub;
+    s = s < kSMin ? kSMin : (s + 31) / 32 * 32;
+    return s > (1ll << 30) ? 0 : (int)s;
 }
 
 }  // namespace
@@ -468,30 +417,30 @@ extern "C" int amv_decode_scans(const void *rows, long long stride,
                                 void *levels, void *ok, void *rounds,
                                 void *stream) {
     if (n_frames <= 0) return 0;
-    // S: at least kSMin bits, and at most kMaxSub subsequences a row
-    long long s = (8 * stride + kMaxSub - 1) / kMaxSub;
-    s = s < kSMin ? kSMin : (s + 31) / 32 * 32;
-    if (s > (1ll << 30)) return (int)cudaErrorInvalidValue;
-    decode_scans_kernel<<<n_frames, kDThreads, 0, (cudaStream_t)stream>>>(
+    const int s = sub_bits(stride);
+    if (!s) return (int)cudaErrorInvalidValue;
+    decode_kernel<kLevels><<<n_frames, kDThreads, 0, (cudaStream_t)stream>>>(
         (const uint8_t *)rows, stride, (const long long *)lens,
-        (const int32_t *)order, n_blocks,
-        (const int16_t *)tables, (const long long *)budgets, (int)s,
-        (int16_t *)levels, (uint8_t *)ok, (int32_t *)rounds);
+        (const int32_t *)order, n_blocks, (const int16_t *)tables,
+        (const long long *)budgets, 0, s, levels, ok, (int32_t *)rounds);
     return (int)cudaGetLastError();
 }
 
 extern "C" int amv_decode_records(const void *rows, long long stride,
-                                  const void *lens, int n_frames, int n_blocks,
+                                  const void *lens, const void *order,
+                                  int n_frames, int n_blocks,
                                   const void *tables, long long t_rows,
-                                  void *recs, void *status, void *stream) {
-    if (n_frames > 0) {
-        const int threads = 64;
-        decode_records_kernel<<<(n_frames + threads - 1) / threads, threads,
-                                0, (cudaStream_t)stream>>>(
-            (const uint8_t *)rows, stride, (const long long *)lens,
-            n_frames, n_blocks, (const int *)tables, t_rows,
-            (int32_t *)recs, (int32_t *)status);
-    }
+                                  void *recs, void *status, void *rounds,
+                                  void *stream) {
+    if (n_frames <= 0) return 0;
+    const int s = sub_bits(stride);
+    // the zero tail's 16-byte stores need 16-byte aligned rows
+    if (!s || t_rows <= 0 || t_rows % 4 || (uintptr_t)recs % 16 ||
+        t_rows > (1ll << 31) - 1)
+        return (int)cudaErrorInvalidValue;
+    decode_kernel<kRecords><<<n_frames, kDThreads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t *)rows, stride, (const long long *)lens,
+        (const int32_t *)order, n_blocks, (const int16_t *)tables, nullptr,
+        t_rows, s, recs, status, (int32_t *)rounds);
     return (int)cudaGetLastError();
 }
-

@@ -17,11 +17,12 @@
 // zeroed (the wrapper's torch.zeros).  A frame's records past counts[f] are
 // not read: kernel R leaves them 0.
 //
-// Layout: records record-major [T, F] (kernel R's coalesced stores), so a
-// warp's 32 loads of one frame fall in 32 lines; the warps of neighbouring
-// frames read the same lines, which L2 serves.  What bounds it: the records
-// a frame holds (4 bytes each) and the scattered 2-byte level stores; a
-// warp's steps are its frame's records / 32.
+// Layout: records frame-major [F, T], as kernel R stores them (a CTA of R
+// writes one frame's row), so a warp's 32 loads of one frame are one
+// coalesced 128-byte line (record-major [T, F] would put them in 32
+// lines).  What bounds it: the records a frame holds (4 bytes each) and
+// the scattered 2-byte level stores; a warp's steps are its frame's
+// records / 32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,7 +45,7 @@ expand_records_kernel(const int32_t *__restrict__ recs, long long t_rows,
     int blocks = 0;                                 // is_dc records so far
     for (long long t0 = 0; t0 < n; t0 += 32) {
         const long long t = t0 + lane;
-        const int32_t rec = t < n ? recs[t * n_frames + f] : 0;
+        const int32_t rec = t < n ? recs[(long long)f * t_rows + t] : 0;
         const unsigned dc = __ballot_sync(0xFFFFFFFFu, (rec >> 7) & 1);
         const int b = blocks + __popc(dc & below) - 1;
         if (((rec >> 6) & 1) && b >= 0 && b < n_blocks)

@@ -34,7 +34,8 @@ _SIGNATURES = {
     "amv_transcode_blocks": [_P, _P, _P, _P, _P, _P, _I64, _I32, _P],
     "amv_decode_scans": [_P, _I64, _P, _P, _I32, _I32, _P, _P, _P, _P, _P,
                          _P],
-    "amv_decode_records": [_P, _I64, _P, _I32, _I32, _P, _I64, _P, _P, _P],
+    "amv_decode_records": [_P, _I64, _P, _P, _I32, _I32, _P, _I64, _P, _P,
+                           _P, _P],
     "amv_expand_records": [_P, _I64, _P, _I32, _I32, _P, _P],
     "amv_pack_records": [_P, _I64, _P, _I32, _I32, _P, _P, _P],
     "amv_encode_levels": [_P, _I32, _I32, _P, _I32, _P, _P, _P, _P],

@@ -3,11 +3,13 @@
 The port of the record IR of `amv_tpu/kernels/entropy_async_pallas.py`
 (decode) and `amv_tpu/kernels/entropy_encode_async_pallas.py` (encode):
 
-* kernel R, `decode_records` (`_decode_records`): one thread per frame
-  walks kernel D's tokens (csrc/entropy_decode.cu) and emits one int32
-  record a token, `level << 16 | is_dc << 7 | write << 6 | wpos`, with
-  JAX's semantics (`ok` is blocks done == n_blocks, not the C decoder's),
-  in a budget of T = t_max rounded up to 256 records a frame;
+* kernel R, `decode_records` (`_decode_records`): kernel D's body
+  (csrc/entropy_decode.cu: a thread block per frame decodes subsequences
+  of the scan speculatively, brings them into step in sync rounds and
+  writes) in its record mode, one int32 record a token,
+  `level << 16 | is_dc << 7 | write << 6 | wpos`, with JAX's semantics
+  (`ok` is blocks done == n_blocks, not the C decoder's), in a budget of
+  T = t_max rounded up to 256 records a frame;
 * kernel X, `expand_records` (`_expand_records` and the XLA glue of
   `decode_scans_async_layout`), csrc/record_expand.cu: a warp a frame
   counts the is_dc records before each record (its block) with a ballot
@@ -22,11 +24,10 @@ The port of the record IR of `amv_tpu/kernels/entropy_async_pallas.py`
 * `encode_layout_async` and `encode_scans_async`: the tokenizer then
   kernel P (`record_pack.pack_records`).
 
-Layouts are frame-major: records [F, T], levels [F, n_blocks, 64]; kernel
-R stores record-major [T, F] (coalesced) and `decode_records` returns the
-transposed view.  On a CUDA tensor the wrappers launch their kernels; on a
-CPU tensor they run the plain versions in this module: R's is a lockstep
-decoder (one token of every frame a step), X's an index_put.
+Layouts are frame-major: records [F, T], levels [F, n_blocks, 64].  On a
+CUDA tensor the wrappers launch their kernels; on a CPU tensor they run
+the plain versions in this module: R's is a lockstep decoder (one token of
+every frame a step), X's an index_put.
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ from .record_pack import M32, pack_records
 
 RECORD_LAUNCHES = 0      # kernel R
 EXPAND_LAUNCHES = 0      # kernel X
+# the sync rounds of each frame in kernel R's last launch, int32 [F]
+LAST_ROUNDS = None
 TROW = 256               # JAX's record rows a grid step: T's granule
 WIN_O = 128              # JAX's word-window rows: encode_scans_async's w_out
 
@@ -95,18 +98,22 @@ def decode_records(rows: torch.Tensor, lens: torch.Tensor, n_blocks: int,
     _build.require_cuda(rows, lens)
     rows, lens = rows.contiguous(), lens.contiguous()
     f, t = rows.shape[0], record_rows(t_max)
-    recs = torch.zeros((t, f), dtype=torch.int32, device=rows.device)
+    recs = torch.empty((f, t), dtype=torch.int32, device=rows.device)
     status = torch.empty((f, 2), dtype=torch.int32, device=rows.device)
-    tables = device_table("DEC_TABLES", rows.device)
+    rounds = torch.empty(f, dtype=torch.int32, device=rows.device)
+    tables = device_table("REC_FAST", rows.device)
+    # the longest scans first: they take the most sync rounds
+    order = torch.argsort(lens, descending=True, stable=True).to(torch.int32)
     with torch.cuda.device(rows.device):
         rc = _build.library().amv_decode_records(
-            rows.data_ptr(), rows.shape[1], lens.data_ptr(), f, n_blocks,
-            tables.data_ptr(), t, recs.data_ptr(), status.data_ptr(),
-            _build.stream())
+            rows.data_ptr(), rows.shape[1], lens.data_ptr(), order.data_ptr(),
+            f, n_blocks, tables.data_ptr(), t, recs.data_ptr(),
+            status.data_ptr(), rounds.data_ptr(), _build.stream())
     _build.check(rc, "amv_decode_records")
-    global RECORD_LAUNCHES
+    global RECORD_LAUNCHES, LAST_ROUNDS
     RECORD_LAUNCHES += 1
-    return recs.t(), status
+    LAST_ROUNDS = rounds
+    return recs, status
 
 
 def decode_records_plain(rows: torch.Tensor, lens: torch.Tensor,
@@ -192,13 +199,12 @@ def expand_records(records: torch.Tensor, counts: torch.Tensor,
         return expand_records_plain(records, counts, n_blocks)
     _build.require_cuda(records, counts)
     f, t = records.shape
-    rm = records.t().contiguous()           # record-major [T, F]: R's own
-    counts = counts.contiguous()
+    records, counts = records.contiguous(), counts.contiguous()
     levels = torch.zeros((f, n_blocks, 64), dtype=torch.int16,
                          device=records.device)
     with torch.cuda.device(records.device):
         rc = _build.library().amv_expand_records(
-            rm.data_ptr(), t, counts.data_ptr(), f, n_blocks,
+            records.data_ptr(), t, counts.data_ptr(), f, n_blocks,
             levels.data_ptr(), _build.stream())
     _build.check(rc, "amv_expand_records")
     global EXPAND_LAUNCHES

@@ -4,7 +4,8 @@ The port of `amv_tpu/kernels/entropy_encode_async_pallas.py:_pack_records`,
 the packer of the record encoder (`entropy_records.encode_layout_async`)
 and the splice of the rechunk encoder (`entropy_parallel.
 encode_layout_rechunk`), backed by one CUDA kernel, csrc/record_pack.cu
-(one thread per lane, kernel E's bit writer).  A record is
+(a thread block per lane: a scan of the lengths gives each record its
+offset, and each is ORed into its words in shared memory).  A record is
 `code << 5 | len`: `len` (0..31) bits of `code` (< 2^len, at most 27 bits),
 appended MSB-first.  The output is what `native.escape_frames` takes:
 big-endian words int32 [L, w_out], the tail zero-filled, and bits int32
@@ -59,7 +60,7 @@ def pack_records(records: torch.Tensor, totals: torch.Tensor, w_out: int):
     _build.require_cuda(records, totals)
     records, totals = records.contiguous(), totals.contiguous()
     n = records.shape[0]
-    words = torch.zeros((n, w_out), dtype=torch.int32, device=records.device)
+    words = torch.empty((n, w_out), dtype=torch.int32, device=records.device)
     bits = torch.empty(n, dtype=torch.int32, device=records.device)
     with torch.cuda.device(records.device):
         rc = _build.library().amv_pack_records(

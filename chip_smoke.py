@@ -126,7 +126,8 @@ OPS_TOKEN = 20       # a Huffman token: peek, table walk, extend, store
 OPS_EXPAND = 15      # an ADPCM decode sample (adpcm_decode.cu expand)
 OPS_COMPRESS = 25    # an ADPCM encode sample (adpcm_encode.cu compress)
 OPS_SCATTER = 8      # a record expanded (record_expand.cu)
-OPS_RECORD = 12      # a record packed (record_pack.cu, bitwriter.cuh put)
+OPS_RECORD = 12      # a record packed (record_pack.cu: its length in the
+                     # scan, the code's mask and shifts, one or two ORs)
 
 
 def log(msg: str) -> None:
@@ -295,11 +296,12 @@ def timed_cli(m, argv, runs=3):
 
 
 def ptxas_start(m):
-    """nvcc -Xptxas -v of kernels D's, E's, Q's, V's, T's and A's sources,
-    started beside the build (the object goes nowhere)."""
+    """nvcc -Xptxas -v of kernels D's and R's, E's, Q's, V's, T's, A's, X's
+    and P's sources, started beside the build (the object goes nowhere)."""
     return m.tools_t.ptxas_start(m._build, (
         "entropy_decode.cu", "entropy_encode.cu", "adpcm_encode.cu",
-        "encode_fused.cu", "transcode.cu", "adpcm_decode.cu"))
+        "encode_fused.cu", "transcode.cu", "adpcm_decode.cu",
+        "record_expand.cu", "record_pack.cu"))
 
 
 def ptxas_log(m, procs) -> None:
@@ -517,10 +519,17 @@ def main() -> int:
         int(lens_a.sum()) + 8 * N_FRAMES + N_FRAMES * nb * 128 + N_FRAMES,
         lambda got: OPS_TOKEN * tokens(got[0]))
     assert ok_a.all()
-    rounds = m.D.LAST_ROUNDS.float()
-    log(f"D sync rounds after the speculation, per frame: mean "
-        f"{float(rounds.mean()):.2f}, max {int(rounds.max())} "
-        f"({int((rounds == 0).sum())} of {N_FRAMES} frames in step at once)")
+
+    def log_rounds(key, rounds):
+        rounds = rounds.float()
+        kern[key]["rounds"] = {"mean": float(rounds.mean()),
+                               "max": int(rounds.max())}
+        log(f"{key} sync rounds after the speculation, per frame: mean "
+            f"{float(rounds.mean()):.2f}, max {int(rounds.max())} "
+            f"({int((rounds == 0).sum())} of {N_FRAMES} frames in step at "
+            "once)")
+
+    log_rounds("D", m.D.LAST_ROUNDS)
     dc_a = m.amv_video.resolve_dc(
         lv_a.reshape(N_FRAMES, n_mcu, 6, 64)).reshape(-1)
     lvf = lv_a.reshape(-1, 64)
@@ -619,7 +628,8 @@ def main() -> int:
         "frame", lambda got: int(lens_a.sum()) + 8 * N_FRAMES +
         4 * got[0].numel() + 8 * N_FRAMES,
         lambda got: OPS_TOKEN * int(got[1][:, 1].sum()))
-    assert (st_a[:, 0] == nb).all()
+    assert (st_a[:, 0] == nb).all() and recs_a.is_contiguous()
+    log_rounds("R", m.R.LAST_ROUNDS)
     cnt_a = st_a[:, 1].contiguous()
     n_dec = int(cnt_a.sum())
     (lv_x,) = check(
@@ -1399,7 +1409,9 @@ def main() -> int:
                      "wrap_ms": kern["T wrap"]["ms"],
                      "sass_a_block": sass_t}
                if key == "T"
-               else {"wrap_ms": kern["A wrap"]["ms"]} if key == "A" else {})})
+               else {"wrap_ms": kern["A wrap"]["ms"]} if key == "A"
+               else {"rounds": kern[key]["rounds"]} if key in ("D", "R")
+               else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

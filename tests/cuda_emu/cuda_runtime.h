@@ -2,10 +2,11 @@
 // the port's kernels use, so that a kernel source (amv_tpu_torch/csrc/*.cu)
 // compiles with g++ and runs on the CPU: every CTA's threads run as
 // std::threads, one CTA at a time; __syncthreads and __syncwarp are
-// std::barriers, the warp shuffles exchange through a per-warp buffer
-// between two warp barriers, and a thread that returns drops out of both
-// barriers (as an exited thread does on the card).  __shared__ variables
-// become function statics, shared by the running CTA's threads.
+// std::barriers, the warp shuffles and ballots exchange through a per-warp
+// buffer between two warp barriers, atomics are std::atomic_ref, and a
+// thread that returns drops out of both barriers (as an exited thread
+// does on the card).  __shared__ variables become function statics,
+// shared by the running CTA's threads.
 //
 // tests/test_torch_cuda_emulated.py compiles a source against this
 // directory (-I) after rewriting each `kernel<<<grid, block, smem,
@@ -37,6 +38,7 @@
 
 typedef void *cudaStream_t;
 typedef int cudaError_t;
+constexpr cudaError_t cudaErrorInvalidValue = 1;
 inline cudaError_t cudaGetLastError() { return 0; }
 
 struct dim3 {
@@ -141,6 +143,33 @@ T __shfl_up_sync(unsigned, T v, unsigned d) {
 }
 template <class T>
 T __ldg(const T *p) { return *p; }
+// the warp's predicates as a mask (a warp whose lanes all run)
+inline unsigned __ballot_sync(unsigned mask, int p) {
+    auto *b = amv_emu::blk;
+    const unsigned t = amv_emu::linear(), w = t / 32;
+    const unsigned n = std::min(32u, amv_emu::bdim.x * amv_emu::bdim.y *
+                                         amv_emu::bdim.z - 32 * w);
+    b->xchg[w][t % 32] = p ? 1 : 0;
+    b->warps[w]->arrive_and_wait();
+    unsigned r = 0;
+    for (unsigned i = 0; i < n; i++) r |= (unsigned)b->xchg[w][i] << i;
+    b->warps[w]->arrive_and_wait();
+    return r & mask;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// atomics on shared or device memory: the CTA's threads are std::threads
+template <class T>
+T atomicAdd(T *p, T v) { return std::atomic_ref<T>(*p).fetch_add(v); }
+template <class T>
+T atomicOr(T *p, T v) { return std::atomic_ref<T>(*p).fetch_or(v); }
+template <class T>
+T atomicMin(T *p, T v) {
+    std::atomic_ref<T> a(*p);
+    T old = a.load();
+    while (v < old && !a.compare_exchange_weak(old, v)) {
+    }
+    return old;
+}
 inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
     const uint64_t v = (uint64_t)y << 32 | x;
     unsigned r = 0;

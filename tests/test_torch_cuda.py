@@ -18,7 +18,7 @@ torch = pytest.importorskip("torch")
 from amv_tpu_torch import native  # noqa: E402
 from amv_tpu_torch.codecs import amv_audio, amv_video  # noqa: E402
 from amv_tpu_torch.codecs.amv_video import encoder_qmat  # noqa: E402
-from amv_tpu_torch.codecs.jpeg_tables import ZIGZAG  # noqa: E402
+from amv_tpu_torch.codecs.jpeg_tables import ENC_TABLES, ZIGZAG  # noqa: E402
 from amv_tpu_torch.containers import riff  # noqa: E402
 from amv_tpu_torch.kernels import adpcm as AQ  # noqa: E402
 from amv_tpu_torch.kernels import decode_fused as U  # noqa: E402
@@ -428,6 +428,96 @@ def test_record_encoders_match_plain_and_e(dev):
             EP.encode_layout_parallel(lt, 8192, **EP.FITTING_WINDOWS)):
         assert ok.all()
         assert torch.equal(words, ew) and torch.equal(bits, eb)
+
+
+def _zrl_scan(n_blocks):
+    """Blocks no C encoder writes: a DC of size 0, ZRL, ZRL, a 1 at slot
+    47 and a ZRL reaching slot 63, which ends the block in JAX's record
+    decode."""
+    code, size = ENC_TABLES
+    bits = ""
+    for b in range(n_blocks):
+        dc, ac = (0, 2) if b % 6 < 4 else (1, 3)
+        for t, sym, extra in ((dc, 0, ""), (ac, 0xF0, ""), (ac, 0xF0, ""),
+                              (ac, 0xE1, "1"), (ac, 0xF0, "")):
+            bits += format(int(code[t, sym]), f"0{size[t, sym]}b") + extra
+    bits += "1" * (-len(bits) % 8)
+    return np.frombuffer(bytes(int(bits[i:i + 8], 2)
+                               for i in range(0, len(bits), 8)), np.uint8)
+
+
+@pytest.mark.parametrize("t_max", [1000, 1800 * 64])
+def test_record_decode_kernel_edges_320x240(dev, t_max):
+    """Kernel R at 320x240 (~40 subsequences of 1,024 bits a frame) in a
+    budget that cuts every frame inside a subsequence and in one no frame
+    reaches: clean frames, random bytes, a run of 0xFF to the end of the
+    scan (invalid codes), a truncated scan, an empty one and blocks that
+    end on a ZRL reaching slot 63 (`_zrl_scan`); the records
+    land on memory left dirty, so R's own zero tail shows; then kernel X on
+    R's frame-major records, and R's sync rounds."""
+    pays = _payloads(6, 240, 320, seed=12)
+    rows, lens = native.unescape_frames(pays + pays[:5])
+    rows = np.ascontiguousarray(rows)
+    rng = np.random.default_rng(12)
+    rows[6, :lens[6]] = rng.integers(0, 256, lens[6])
+    rows[7, lens[7] // 4:] = 0xFF
+    lens[8] //= 3
+    lens[9] = 0
+    z = _zrl_scan(1800)[:rows.shape[1]]
+    rows[10, :len(z)] = z
+    lens[10] = len(z)
+    rt, lt = torch.from_numpy(rows).to(dev), torch.from_numpy(lens).to(dev)
+    t_rows = ER.record_rows(t_max)
+    dirty = torch.full((11, t_rows), 0x5A5A5A5A, dtype=torch.int32,
+                       device=dev)
+    del dirty                    # the caching allocator hands it to R
+    recs, status = ER.decode_records(rt, lt, 1800, t_max)
+    want_r, want_s = ER.decode_records_plain(rt, lt, 1800, t_max)
+    lv = ER.expand_records(recs, status[:, 1].contiguous(), 1800)
+    want_lv = ER.expand_records_plain(want_r, want_s[:, 1], 1800)
+    torch.cuda.synchronize()
+    assert recs.is_contiguous() and recs.shape == (11, t_rows)
+    assert torch.equal(status, want_s) and torch.equal(recs, want_r)
+    assert torch.equal(lv, want_lv)
+    rounds = ER.LAST_ROUNDS.cpu()
+    assert (rounds >= 0).all() and rounds[:6].max() > 0
+    if t_max > 1000:
+        assert (status[:6, 0] == 1800).all()
+        levels, _ = D.decode_scans(rt[:6], lt[:6], 1800)
+        assert torch.equal(lv[:6], levels)
+    else:
+        assert (status[:, 1] == t_rows).all()
+
+
+@pytest.mark.parametrize("case", ["tokens", "rechunk", "unaligned"])
+def test_record_pack_kernel_edges_320x240(dev, case):
+    """Kernel P at 320x240: the record encoder's tokens, the rechunk
+    encoder's 26-bit pieces, and rows of a length that is not a multiple
+    of 4 (no 16-byte loads); a lane with no records, a total above T, word
+    budgets below the words needed (16), exact and above, on memory left
+    dirty (P's own zero fill)."""
+    rng = np.random.default_rng(len(case))
+    lv = _random_levels(rng, 7 * 1800, dense=0.08).reshape(7, 1800, 64)
+    lv[:, :, 0] = rng.integers(0, 2048, (7, 1800))
+    lt = torch.from_numpy(lv).to(dev)
+    if case == "rechunk":
+        recs, _ = EP.rechunk_records(lt, None)
+        totals = torch.full((7,), recs.shape[1], dtype=torch.int32,
+                            device=dev)
+    else:
+        t_max = 64 * 1800 + (3 if case == "unaligned" else 0)
+        recs, totals, _, _ = ER.tokenize_levels(lt, t_max)
+        totals = totals.clone()
+    totals[1] = 0
+    totals[2] = recs.shape[1] + 100
+    need = int((RP.pack_records_plain(recs, totals, 1)[1].max() + 31) // 32)
+    for w_out in (16, need, need + 300):
+        dirty = torch.full((7, w_out), -1, dtype=torch.int32, device=dev)
+        del dirty
+        got = RP.pack_records(recs, totals, w_out)
+        want = RP.pack_records_plain(recs, totals, w_out)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("enc", ["record", "rechunk", "parallel"])

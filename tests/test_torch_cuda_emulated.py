@@ -7,7 +7,8 @@ threads as std::threads with barriers for __syncthreads/__syncwarp and a
 shared buffer for the warp shuffles; its launches `k<<<g, b, s, st>>>(...)`
 are rewritten into that header's launch helper.  The library is loaded
 with ctypes under the C signatures of `kernels._build`, and the kernel's
-output is held bit-exact against its plain version at small sizes.  This
+output is held bit-exact against its plain version at small sizes
+(kernels A, T, F, D, R, X and P).  This
 checks a kernel's logic (indices, tiles, scans, barriers) where there is no
 card; what nvcc makes of it is checked on the card
 (tests/test_torch_cuda.py, chip_smoke.py).  Skipped where g++ is absent.
@@ -23,11 +24,19 @@ import numpy as np
 import pytest
 import torch
 
+from amv_tpu_torch import native
 from amv_tpu_torch.codecs.amv_video import encoder_qmat
+from amv_tpu_torch.codecs.jpeg_tables import DEC_FAST, REC_FAST
 from amv_tpu_torch.kernels import _build
 from amv_tpu_torch.kernels import adpcm as AQ
+from amv_tpu_torch.kernels import entropy_decode as D
+from amv_tpu_torch.kernels import entropy_parallel as EP
+from amv_tpu_torch.kernels import entropy_records as ER
 from amv_tpu_torch.kernels import fdct as F
+from amv_tpu_torch.kernels import record_pack as RP
 from amv_tpu_torch.kernels import transcode as T
+from amv_tpu_torch.verify import fixtures
+from test_torch_record_sync import boundaries, cut, zrl_scan
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(HERE), "amv_tpu_torch", "csrc")
@@ -198,3 +207,207 @@ def test_fdct_source_matches_plain(fdct_lib, qscale, zigzag):
     if zigzag:
         want = want[:, torch.as_tensor(F.ZIGZAG).long()]
     np.testing.assert_array_equal(out, want.numpy())
+
+
+def _lib(source, tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the kernel source for the CPU")
+    return emulated(source, str(tmp_path_factory.mktemp("emu")))
+
+
+@pytest.fixture(scope="module")
+def decode_lib(tmp_path_factory):
+    return _lib("entropy_decode.cu", tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def expand_lib(tmp_path_factory):
+    return _lib("record_expand.cu", tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def pack_lib(tmp_path_factory):
+    return _lib("record_pack.cu", tmp_path_factory)
+
+
+def _aligned(shape, dtype, fill):
+    """A C-contiguous array of `shape` at a 16-byte aligned address, filled
+    with `fill` (so that a kernel that skips an element shows)."""
+    n = int(np.prod(shape)) * np.dtype(dtype).itemsize
+    buf = np.empty(n + 16, np.uint8)
+    base = (-buf.ctypes.data) % 16
+    out = buf[base:base + n].view(dtype).reshape(shape)
+    out[...] = fill
+    return out
+
+
+@pytest.fixture(scope="module")
+def scans():
+    """Unescaped scans of 4 C-encoded 160x120 pictures (~24 subsequences
+    of 1,024 bits a frame) and 5 malformed ones: random bytes, a run of
+    0xFF from a quarter of the scan on (invalid codes to its end), a scan
+    truncated to a third, an empty one, and blocks that end on a ZRL
+    reaching slot 63 (`zrl_scan`)."""
+    rng = np.random.default_rng(3)
+    y, cb, cr = fixtures.videogen(4, 120, 160, seed=3)
+    y = np.clip(y.astype(np.int16) + rng.integers(-3, 4, y.shape), 0,
+                255).astype(np.uint8)
+    pays = [native.ref_encode_frame(y[i], cb[i][:60, :80], cr[i][:60, :80],
+                                    2) for i in range(4)]
+    rows, lens = native.unescape_frames(pays + pays + pays[:1])
+    rows = np.ascontiguousarray(rows)          # the C entries' layout
+    z = zrl_scan(480)[:rows.shape[1]]
+    rows[8, :len(z)] = np.frombuffer(z, np.uint8)
+    lens[8] = len(z)
+    rows[4, :lens[4]] = rng.integers(0, 256, lens[4])
+    rows[5, lens[5] // 4:] = 0xFF
+    lens[6] //= 3
+    lens[7] = 0
+    return rows, lens
+
+
+def _order(lens):
+    return np.argsort(-lens, kind="stable").astype(np.int32)
+
+
+def _records(lib, rows, lens, t_rows, n_blocks=480):
+    """Kernel R's C entry on numpy arrays -> (records [F, t_rows], status
+    [F, 2], rounds [F]); the records start as garbage."""
+    f = rows.shape[0]
+    recs = _aligned((f, t_rows), np.int32, 0x5A5A5A5A)
+    status = np.zeros((f, 2), np.int32)
+    rounds = np.full(f, -1, np.int32)
+    tables = np.ascontiguousarray(REC_FAST)
+    rc = lib.amv_decode_records(rows.ctypes.data, rows.shape[1],
+                                lens.ctypes.data, _order(lens).ctypes.data,
+                                f, n_blocks, tables.ctypes.data, t_rows,
+                                recs.ctypes.data, status.ctypes.data,
+                                rounds.ctypes.data, None)
+    assert rc == 0
+    return recs, status, rounds
+
+
+@pytest.mark.parametrize("t_max", [64 * 480, 1000])
+def test_record_decode_source_matches_plain(decode_lib, expand_lib, scans,
+                                            t_max):
+    """Kernel R (D's body in its record mode) on the CPU, records, status
+    and its zero tail, in a budget no frame reaches and in one that cuts
+    every frame inside a subsequence; then kernel X, frame-major, on those
+    records.  The clean frames sync in rounds."""
+    rows, lens = scans
+    t_rows = ER.record_rows(t_max)
+    recs, status, rounds = _records(decode_lib, rows, lens, t_rows)
+    want_r, want_s = ER.decode_records_plain(torch.from_numpy(rows),
+                                             torch.from_numpy(lens), 480,
+                                             t_max)
+    np.testing.assert_array_equal(status, want_s.numpy())
+    np.testing.assert_array_equal(recs, want_r.numpy())
+    assert (rounds >= 0).all() and rounds[:4].max() > 0
+    if t_max > 1000:
+        assert (status[:4, 0] == 480).all()
+    else:
+        assert (status[:, 1] == t_rows).all()
+    levels = np.zeros((9, 480, 64), np.int16)
+    counts = np.ascontiguousarray(status[:, 1])
+    rc = expand_lib.amv_expand_records(recs.ctypes.data, t_rows,
+                                       counts.ctypes.data, 9, 480,
+                                       levels.ctypes.data, None)
+    assert rc == 0
+    want = ER.expand_records_plain(want_r, want_s[:, 1].contiguous(), 480)
+    np.testing.assert_array_equal(levels, want.numpy())
+
+
+def test_record_decode_source_cuts_on_boundaries(decode_lib, scans):
+    """Kernel R's budget cut on a subsequence's boundary (the T-th record
+    ends subsequence j: the sync stops at j) and 4 records before and
+    after it, against the plain decoder's records cut to T."""
+    rows, lens = scans
+    rows, lens = rows[:1], lens[:1].copy()
+    want_r, want_s = ER.decode_records_plain(torch.from_numpy(rows),
+                                             torch.from_numpy(lens), 480,
+                                             64 * 480)
+    assert rows.shape[1] <= 16384        # the kernel's S is 1,024 bits
+    ts = [t for t in boundaries(rows[0], lens[0], 480, 1024) if t % 4 == 0]
+    assert len(ts) >= 2
+    for t in ts[:2]:
+        for t_rows in (t - 4, t, t + 4):
+            recs, status, _ = _records(decode_lib, rows, lens, t_rows)
+            wr, ws = cut(want_r.numpy(), want_s.numpy(), t_rows)
+            np.testing.assert_array_equal(status, ws)
+            np.testing.assert_array_equal(recs, wr)
+
+
+def test_decode_scans_source_matches_plain(decode_lib, scans):
+    """Kernel D (the same body, the C decoder's semantics) on the CPU:
+    levels and ok on the clean and malformed scans, and token budgets that
+    fail half the frames."""
+    rows, lens = scans
+    budget = D.token_budget(torch.from_numpy(lens), 480,
+                            rows.shape[1]).numpy()
+    budget[[0, 2]] = 700                 # spent inside the third subsequence
+    levels = np.zeros((9, 480, 64), np.int16)
+    ok = np.full(9, 7, np.uint8)
+    rounds = np.full(9, -1, np.int32)
+    tables = np.ascontiguousarray(DEC_FAST)
+    rc = decode_lib.amv_decode_scans(
+        rows.ctypes.data, rows.shape[1], lens.ctypes.data,
+        _order(lens).ctypes.data, 9, 480, tables.ctypes.data,
+        budget.ctypes.data, levels.ctypes.data, ok.ctypes.data,
+        rounds.ctypes.data, None)
+    assert rc == 0
+    want_lv, want_ok = D.decode_scans_plain(
+        torch.from_numpy(rows), torch.from_numpy(lens), 480,
+        budget=torch.from_numpy(budget))
+    np.testing.assert_array_equal(ok, want_ok.numpy())
+    np.testing.assert_array_equal(levels, want_lv.numpy())
+    assert ok[:4].tolist() == [0, 1, 0, 1] and (rounds >= 0).all()
+
+
+def _pack(lib, recs, totals, w_out):
+    """Kernel P's C entry -> (words, bits); the words start as garbage."""
+    words = np.full((recs.shape[0], w_out), 0x5A5A5A5A, np.int32)
+    bits = np.full(recs.shape[0], -1, np.int32)
+    rc = lib.amv_pack_records(recs.ctypes.data, recs.shape[1],
+                              totals.ctypes.data, recs.shape[0], w_out,
+                              words.ctypes.data, bits.ctypes.data, None)
+    assert rc == 0
+    return words, bits
+
+
+@pytest.mark.parametrize("case", ["tokens", "rechunk", "unaligned", "dense"])
+def test_record_pack_source_matches_plain(pack_lib, case):
+    """Kernel P on the CPU: the record encoder's tokens (two chunks of
+    1,024 records or more a lane), the rechunk encoder's 26-bit pieces
+    with their zero-length pads, rows whose length is not a multiple of 4
+    records (no 16-byte loads), and records of 27 to 31 bits whose window
+    words fill up; in each, a lane with no records, a total above T, and
+    word budgets below and above the words needed (the tail zero-filled
+    by the kernel)."""
+    rng = np.random.default_rng(len(case))
+    lv = np.where(rng.random((9, 96, 64)) < 0.3,
+                  rng.integers(-1023, 1024, (9, 96, 64)), 0)
+    lv[:, :, 0] = rng.integers(0, 2048, (9, 96))
+    lv = torch.from_numpy(lv.astype(np.int16))
+    if case == "rechunk":
+        recs = EP.rechunk_records(lv, None)[0]
+        totals = torch.full((9,), recs.shape[1], dtype=torch.int32)
+    elif case == "dense":
+        ln = rng.integers(27, 32, (9, 3000))
+        code = rng.integers(0, 1 << 27, (9, 3000))
+        recs = torch.from_numpy((code << 5 | ln).astype(np.int32))
+        totals = torch.full((9,), 3000, dtype=torch.int32)
+    else:
+        t_max = 96 * 64 + (3 if case == "unaligned" else 0)
+        recs, totals = ER.tokenize_levels(lv, t_max)[:2]
+    recs = np.ascontiguousarray(recs.numpy())
+    totals = totals.numpy().copy()
+    totals[1] = 0
+    totals[2] = recs.shape[1] + 100
+    assert (totals > 1024).sum() >= 6                # two chunks or more
+    for w_out in (16, 4000):
+        words, bits = _pack(pack_lib, recs, totals, w_out)
+        want_w, want_b = RP.pack_records_plain(
+            torch.from_numpy(recs), torch.from_numpy(totals), w_out)
+        np.testing.assert_array_equal(bits, want_b.numpy())
+        np.testing.assert_array_equal(words, want_w.numpy())
+    assert (bits[3:] > 16 * 32).all() and (bits[3:] < 4000 * 32).all()
