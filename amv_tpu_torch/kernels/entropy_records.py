@@ -11,9 +11,10 @@ The port of the record IR of `amv_tpu/kernels/entropy_async_pallas.py`
   (`ok` is blocks done == n_blocks, not the C decoder's), in a budget of
   T = t_max rounded up to 256 records a frame;
 * kernel X, `expand_records` (`_expand_records` and the XLA glue of
-  `decode_scans_async_layout`), csrc/record_expand.cu: a warp a frame
-  counts the is_dc records before each record (its block) with a ballot
-  and scatters the written levels;
+  `decode_scans_async_layout`), csrc/record_expand.cu: a CTA a frame
+  counts the is_dc records before each record (its block) with ballots
+  and a scan over its warps, assembles the levels in a window of blocks
+  in shared memory and stores every block once;
 * `decode_scans_async`: R then X, the drop-in for kernel D with JAX's
   `decode_scans_async` semantics (no pad lanes: nothing here runs in
   1,024-frame tiles);
@@ -186,7 +187,8 @@ def expand_records(records: torch.Tensor, counts: torch.Tensor,
     each frame, R's status[:, 1]) -> levels int16 [F, n_blocks, 64] zigzag,
     slot 0 = DC difference: every record with its write bit set stores its
     level at its block (the is_dc records up to it, minus 1) and slot; the
-    rest stay 0."""
+    rest are 0 (the kernel writes every slot, so the levels start
+    uninitialized)."""
     if records.dim() != 2 or records.dtype != torch.int32:
         raise ValueError(f"records must be int32 [F, T], got "
                          f"{records.dtype} {tuple(records.shape)}")
@@ -200,7 +202,7 @@ def expand_records(records: torch.Tensor, counts: torch.Tensor,
     _build.require_cuda(records, counts)
     f, t = records.shape
     records, counts = records.contiguous(), counts.contiguous()
-    levels = torch.zeros((f, n_blocks, 64), dtype=torch.int16,
+    levels = torch.empty((f, n_blocks, 64), dtype=torch.int16,
                          device=records.device)
     with torch.cuda.device(records.device):
         rc = _build.library().amv_expand_records(

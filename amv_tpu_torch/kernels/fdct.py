@@ -52,8 +52,8 @@ def _fdct(pix, qmat, zigzag):
         return out[:, torch.as_tensor(ZIGZAG).long()] if zigzag else out
     _build.require_cuda(pix)
     pix = pix.contiguous()
-    if pix.data_ptr() % 16:
-        raise ValueError("pixels must be 16-byte aligned (vector loads)")
+    if pix.data_ptr() % 8:
+        raise ValueError("pixels must be 8-byte aligned (a row a load)")
     n = pix.shape[0]
     out = torch.empty((n, 64), dtype=torch.int16, device=pix.device)
     with torch.cuda.device(pix.device):

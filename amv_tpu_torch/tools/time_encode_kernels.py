@@ -1,10 +1,10 @@
-"""Time kernels Q (IMA-ADPCM encode) and V (encode transform) of the
-amv_tpu_torch package that comes first on sys.path, and the encode path's
-staged device chains, at the main path's shapes on one GPU: 300 s of
-seeded audiogen PCM at 22,050 Hz in the encoder's chunk layout (one
-stream, 4,800 chunks of 1,378 samples), and 4,800 seeded 160x120 pictures
-(videogen and rotozoom with +-3 luma noise, as `chip_smoke.py` makes
-them).
+"""Time kernels Q (IMA-ADPCM encode), V (encode transform) and F (FDCT +
+quantize) of the amv_tpu_torch package that comes first on sys.path, and
+the encode path's staged device chains, at the main path's shapes on one
+GPU: 300 s of seeded audiogen PCM at 22,050 Hz in the encoder's chunk
+layout (one stream, 4,800 chunks of 1,378 samples), and 4,800 seeded
+160x120 pictures (videogen and rotozoom with +-3 luma noise, as
+`chip_smoke.py` makes them).
 
     PYTHONPATH=<tree> python3 amv_tpu_torch/tools/time_encode_kernels.py
 
@@ -13,7 +13,14 @@ Q on the stream (`encode_streams`), its wrap entry 8 times over, one
 chunk alone (one segment: the latency of one segment's walk) and the
 stream with no reset but at sample 0 (one 6.6 M-sample segment: the
 serial floor, 3 launches); V's path entry with each quantizer and its
-contract entry (`encode_fused`) on the coded planes.  Q's launch split
+contract entry (`encode_fused`) on the coded planes; F's two entries on
+the pictures' 2,304,000 blocks (`extract_blocks`, as `chip_smoke.py`
+phase 4 takes them): zigzag out (`fdct_quant_blocks`) and raster out
+(`fdct_quantize`), each held bit-exact against the plain version, with
+its device time (`torch.profiler`, `_device`), `nvcc -Xptxas -v` of
+csrc/fdct.cu and the static SASS count of its kernels (`cuobjdump`, NOPs
+left out; F's API is the same in every tree of the port, so the tool
+times an earlier tree's F too).  Q's launch split
 by device kernel (`torch.profiler`, device time per launch of
 `encode_streams`), and the segment table `segments()` where the tree's
 `encode_streams` builds one (before kernel Q's windows).
@@ -108,14 +115,18 @@ def kernel_split(fn, reps):
 def main(reps: int = 20) -> None:
     import amv_tpu_torch
     from amv_tpu_torch.codecs import amv_audio, amv_video
-    from amv_tpu_torch.kernels import adpcm
+    from amv_tpu_torch.codecs.jpeg_tables import ZIGZAG
+    from amv_tpu_torch.kernels import _build, adpcm
+    from amv_tpu_torch.kernels import fdct as F
     from amv_tpu_torch.kernels import decode_fused as U
     from amv_tpu_torch.kernels import encode_fused as V
+    from amv_tpu_torch.tools import time_transcode_kernel as tk
     from amv_tpu_torch.verify import fixtures
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda")
+    ptxas = tk.ptxas_start(_build, ("fdct.cu",))
     pcm = fixtures.audiogen(N / FPS, RATE, seed=0)
     frame_size = (2 * RATE + FPS) // (2 * FPS)
     ns, _, padded, reset = amv_audio.stream_layout(pcm, frame_size, RATE)
@@ -150,6 +161,18 @@ def main(reps: int = 20) -> None:
                            reps)
     out["V_coded"] = cuda_ms(lambda: V.encode_fused(*coded, mb_w, mb_h,
                                                     QSCALE), reps)
+    fb = blocks.reshape(-1, 64)
+    qmat = amv_video.encoder_qmat(QSCALE)
+    want = F.fdct_quantize_plain(fb, qmat)
+    zz = torch.as_tensor(ZIGZAG, device=dev).long()
+    for key, fn, ref in (
+            ("F", lambda: F.fdct_quant_blocks(fb, qmat), want[:, zz]),
+            ("F_raster", lambda: F.fdct_quantize(fb.view(-1, 8, 8), qmat),
+             want)):
+        assert torch.equal(fn(), ref), key
+        out[key] = cuda_ms(fn, reps)
+        out[f"{key}_device"] = tk.device_ms(fn, reps)
+    del want
     out["chain_encode"] = host_ms(lambda: amv_video.pack_levels(
         V.encode_planes(*pics, QSCALE)), reps)
     out["chain_encode_q60"] = host_ms(lambda: amv_video.pack_levels(
@@ -161,7 +184,10 @@ def main(reps: int = 20) -> None:
     print(json.dumps({"tree": os.path.dirname(os.path.dirname(
         os.path.abspath(amv_tpu_torch.__file__))), "card": card,
         "frames": N, "samples": int(padded.shape[0]), "chunks": len(ns),
-        "ms": out, "Q_kernels_ms": split}))
+        "F_blocks": fb.shape[0], "ms": out, "Q_kernels_ms": split,
+        "ptxas": tk.ptxas_lines(ptxas),
+        "sass": {fn: c for fn, (c, _) in tk.sass_counts(
+            _build, ("fdct_quant_kernel",)).items()}}))
 
 
 if __name__ == "__main__":

@@ -15,7 +15,9 @@ levels (`tokenize_levels`) at the transcode's word budget, and on the
 rechunk encoder's 26-bit pieces.  Each: the
 median of CUDA events over `reps` launches after a warm-up (they hold the
 wrapper's host work when the card has nothing queued) and its device time
-per call (torch.profiler: its kernels' time alone, `_device`).  D's and
+per call (torch.profiler: its kernels' time alone, `_device`); X's
+device time also by kernel name (`X_kernels_ms`: an earlier tree's
+fill of the levels apart from its expand kernel).  D's and
 R's sync rounds per frame where the tree reports them.  Routes: the median
 host-clock time, after a synchronize, of `decode_scans_async` (R, X) and
 of `transcode_complete(enc="record")` and `enc="rechunk"` (D, T, the
@@ -54,6 +56,7 @@ def main(reps: int = 20) -> None:
     from amv_tpu_torch.kernels import transcode as T
     from amv_tpu_torch.pipeline import transcode as P
     from amv_tpu_torch.tools import time_transcode_kernel as tk
+    from amv_tpu_torch.tools.time_encode_kernels import kernel_split
     from amv_tpu_torch.tools.time_entropy_kernels import (corpus, cuda_ms,
                                                           host_ms)
     from amv_tpu_torch.verify import fixtures
@@ -104,6 +107,7 @@ def main(reps: int = 20) -> None:
         if rounds is not None:
             out[f"{key}_rounds_mean"] = float(rounds.float().mean())
             out[f"{key}_rounds_max"] = int(rounds.max())
+    out["X_kernels_ms"] = kernel_split(fns["X"], reps)
     out["records"] = int(cnt.sum())
     out["records_packed"] = int(tot_p.sum())
     out["route_decode_scans_async"] = host_ms(

@@ -10,10 +10,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  1. the card: nvidia-smi name and power limit, torch.cuda required;
  2. build the twelve CUDA kernels from amv_tpu_torch/csrc (nvcc, sm_90a,
     one nvcc per source, all started together), and log the registers,
-    spills and shared memory ptxas gives kernels D, E, Q, V, T and A, and
-    kernel T's SASS instructions (cuobjdump, static counts: one thread a
-    block), logged in phase 4 with a static-count estimate of each T
-    entry's issue time at its own blocks;
+    spills and shared memory ptxas gives kernels D, E, Q, V, T, A, X, P
+    and F, and kernel T's SASS instructions (cuobjdump, static counts: one
+    thread a block), logged in phase 4 with a static-count estimate of
+    each T entry's issue time at its own blocks;
  3. a 160x120 corpus at the reference's canonical shape (16 fps, 22,050 Hz
     ADPCM audio): 4,800 frames (5 minutes) of seeded videogen/rotozoom
     pictures with noise, each C-encoded at qscale 2, muxed into an .amv
@@ -296,12 +296,13 @@ def timed_cli(m, argv, runs=3):
 
 
 def ptxas_start(m):
-    """nvcc -Xptxas -v of kernels D's and R's, E's, Q's, V's, T's, A's, X's
-    and P's sources, started beside the build (the object goes nowhere)."""
+    """nvcc -Xptxas -v of kernels D's and R's, E's, Q's, V's, T's, A's, X's,
+    P's and F's sources, started beside the build (the object goes
+    nowhere)."""
     return m.tools_t.ptxas_start(m._build, (
         "entropy_decode.cu", "entropy_encode.cu", "adpcm_encode.cu",
         "encode_fused.cu", "transcode.cu", "adpcm_decode.cu",
-        "record_expand.cu", "record_pack.cu"))
+        "record_expand.cu", "record_pack.cu", "fdct.cu"))
 
 
 def ptxas_log(m, procs) -> None:
@@ -1410,6 +1411,7 @@ def main() -> int:
                      "sass_a_block": sass_t}
                if key == "T"
                else {"wrap_ms": kern["A wrap"]["ms"]} if key == "A"
+               else {"raster_ms": kern["F raster"]["ms"]} if key == "F"
                else {"rounds": kern[key]["rounds"]} if key in ("D", "R")
                else {})})
     print(json.dumps({"kernels": kernels}))

@@ -47,6 +47,27 @@ struct dim3 {
 };
 struct alignas(16) int4 { int x, y, z, w; };
 inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
+struct alignas(8) uint2 { unsigned x, y; };
+inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
+
+// the device a grid is sized for: two SMs, each holding one CTA of any
+// kernel, so that a kernel whose CTAs stride over the work takes several
+// steps at the tests' sizes
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int *dev) {
+    *dev = 0;
+    return 0;
+}
+inline cudaError_t cudaDeviceGetAttribute(int *v, cudaDeviceAttr, int) {
+    *v = 2;
+    return 0;
+}
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int *n, K, int,
+                                                          size_t) {
+    *n = 1;
+    return 0;
+}
 
 using std::max;
 using std::min;
@@ -143,6 +164,8 @@ T __shfl_up_sync(unsigned, T v, unsigned d) {
 }
 template <class T>
 T __ldg(const T *p) { return *p; }
+template <class T>
+void __stcs(T *p, T v) { *p = v; }
 // the warp's predicates as a mask (a warp whose lanes all run)
 inline unsigned __ballot_sync(unsigned mask, int p) {
     auto *b = amv_emu::blk;

@@ -783,3 +783,57 @@ def test_adpcm_decode_kernel_tile_edges(dev, nbytes):
             want = AQ.decode_chunks_plain(pay, pred, sidx, repeat=repeat)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (skip, repeat)
+
+
+@pytest.mark.parametrize("h,w", [(120, 160), (240, 320)])
+def test_record_expand_kernel_on_dirty_memory(dev, h, w):
+    """Kernel X (480 and 1,800 blocks a frame: 3.75 and 14.06 windows of
+    128 blocks) on kernel R's records, its levels allocated where a
+    0x5A-filled buffer of their size was just freed, so that every slot
+    the kernel leaves unwritten shows; a frame with count 0, one with a
+    count above T, a truncated scan (a frame that is not ok: blocks no
+    record reaches) and one of random bytes."""
+    n_blocks = (w // 16) * ((h + 15) // 16) * 6
+    pays = _payloads(7, h, w, seed=n_blocks)
+    rows, lens = native.unescape_frames(pays)
+    rows = np.ascontiguousarray(rows)
+    rng = np.random.default_rng(n_blocks)
+    rows[5, :lens[5]] = rng.integers(0, 256, lens[5])
+    lens[4] //= 3
+    rt, lt = torch.from_numpy(rows).to(dev), torch.from_numpy(lens).to(dev)
+    recs, status = ER.decode_records(rt, lt, n_blocks, 64 * n_blocks)
+    counts = status[:, 1].clone()
+    counts[0] = 0
+    counts[1] = recs.shape[1] + 5
+    dirty = torch.full((7, n_blocks, 64), 0x5A5A, dtype=torch.int16,
+                       device=dev)
+    del dirty                    # the caching allocator hands it to X
+    got = ER.expand_records(recs, counts, n_blocks)
+    want = ER.expand_records_plain(recs, counts, n_blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not got[0].any() and got[2:].any()
+
+
+@pytest.mark.parametrize("n", [1, 7, 33, 32 * 1000 + 1])
+def test_fdct_kernel_edges(dev, n):
+    """Kernel F's both entries at block counts that are not a whole CTA
+    step (32 blocks), and on an offset view 8 bytes past a 16-byte
+    boundary (the least alignment the wrapper takes); a view 4 bytes past
+    one is refused."""
+    rng = np.random.default_rng(n)
+    buf = torch.from_numpy(rng.integers(0, 256, n * 64 + 16).astype(
+        np.uint8)).to(dev)
+    pt = buf[8:8 + n * 64].view(n, 64)
+    assert pt.data_ptr() % 16 == 8
+    zz = torch.as_tensor(ZIGZAG, device=dev).long()
+    for qscale in (1, 2):
+        q = encoder_qmat(qscale)
+        want = F.fdct_quantize_plain(pt, q)
+        got_raster = F.fdct_quantize(pt.view(-1, 8, 8), q)
+        got_zz = F.fdct_quant_blocks(pt, q)
+        torch.cuda.synchronize()
+        assert torch.equal(got_raster, want)
+        assert torch.equal(got_zz, want[:, zz])
+    with pytest.raises(ValueError, match="aligned"):
+        F.fdct_quant_blocks(buf[4:4 + n * 64].view(n, 64), q)

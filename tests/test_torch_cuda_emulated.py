@@ -186,24 +186,41 @@ def fdct_lib(tmp_path_factory):
     return emulated("fdct.cu", str(tmp_path_factory.mktemp("emu")))
 
 
-@pytest.mark.parametrize("qscale,zigzag", [(1, True), (2, False), (31, True)])
-def test_fdct_source_matches_plain(fdct_lib, qscale, zigzag):
+@pytest.mark.parametrize("qscale,zigzag,n,skip", [
+    pytest.param(1, True, 400, 0, id="1-True"),
+    pytest.param(2, False, 400, 0, id="2-False"),
+    pytest.param(31, True, 400, 0, id="31-True"),
+    pytest.param(1, False, 400, 8, id="1-False-8-byte-aligned"),
+    pytest.param(2, True, 0, 0, id="n0"),
+    pytest.param(2, False, 1, 0, id="n1"),
+    pytest.param(2, True, 7, 8, id="n7-8-byte-aligned"),
+    pytest.param(1, True, 33, 0, id="n33-zigzag"),
+    pytest.param(1, False, 33, 8, id="n33-raster-8-byte-aligned")])
+def test_fdct_source_matches_plain(fdct_lib, qscale, zigzag, n, skip):
     """Kernel F, the FDCT and the quantizer of dct.cuh that kernels T and V
     share, on the CPU: random pixels and the extremes (flat 0 and 255, and
-    a checkerboard of both, whose products wrap at qscale 1), a block
-    count that is not a whole CTA, raster and zigzag out."""
+    a checkerboard of both, whose products wrap at qscale 1), raster and
+    zigzag out; block counts of 0, 1, 7 (a CTA's step part full), one past
+    a whole CTA step (33) and 400 (each of the emulator's two CTAs takes
+    several steps), and pixels that are 8-byte but not 16-byte aligned
+    (the least the wrapper accepts)."""
     rng = np.random.default_rng(qscale)
-    pix = rng.integers(0, 256, (400, 64)).astype(np.uint8)
-    pix[0], pix[1] = 0, 255
-    pix[2] = np.where(np.add.outer(np.arange(8), np.arange(8)) % 2, 255,
+    src = rng.integers(0, 256, (max(n, 3), 64)).astype(np.uint8)
+    src[0], src[1] = 0, 255
+    src[2] = np.where(np.add.outer(np.arange(8), np.arange(8)) % 2, 255,
                       0).reshape(64)
+    buf = np.zeros(n * 64 + 32, np.uint8)
+    base = (-buf.ctypes.data) % 16 + skip
+    pix = buf[base:base + n * 64].reshape(n, 64)
+    pix[:] = src[:n]
+    assert pix.ctypes.data % 16 == skip
     q = encoder_qmat(qscale)
-    out = np.zeros((400, 64), np.int16)
+    out = _aligned((n, 64), np.int16, 0x5A5A)
     rc = fdct_lib.amv_fdct_quant(pix.ctypes.data,
                                  np.ascontiguousarray(q, np.int32).ctypes.data,
-                                 out.ctypes.data, 400, int(zigzag), None)
+                                 out.ctypes.data, n, int(zigzag), None)
     assert rc == 0
-    want = F.fdct_quantize_plain(torch.from_numpy(pix), q)
+    want = F.fdct_quantize_plain(torch.from_numpy(pix.copy()), q)
     if zigzag:
         want = want[:, torch.as_tensor(F.ZIGZAG).long()]
     np.testing.assert_array_equal(out, want.numpy())
@@ -307,7 +324,7 @@ def test_record_decode_source_matches_plain(decode_lib, expand_lib, scans,
         assert (status[:4, 0] == 480).all()
     else:
         assert (status[:, 1] == t_rows).all()
-    levels = np.zeros((9, 480, 64), np.int16)
+    levels = _aligned((9, 480, 64), np.int16, 0x5A5A)
     counts = np.ascontiguousarray(status[:, 1])
     rc = expand_lib.amv_expand_records(recs.ctypes.data, t_rows,
                                        counts.ctypes.data, 9, 480,
@@ -315,6 +332,76 @@ def test_record_decode_source_matches_plain(decode_lib, expand_lib, scans,
     assert rc == 0
     want = ER.expand_records_plain(want_r, want_s[:, 1].contiguous(), 480)
     np.testing.assert_array_equal(levels, want.numpy())
+
+
+def _record(level, is_dc, write, wpos):
+    """One record of kernel R's IR as an int32."""
+    v = (level & 0xFFFF) << 16 | is_dc << 7 | write << 6 | wpos
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def _frame_records(rng, n_gen, kind):
+    """The records of a frame of n_gen blocks: per block a DC record, then
+    (kind "mixed") up to 11 ACs at increasing slots, some after a ZRL,
+    most blocks ended by an EOB; (kind "dc") nothing else, so a tile of
+    records covers as many blocks; (kind "zrl") 300 records that write
+    nothing (ZRLs), so a window of blocks covers many tiles."""
+    recs = []
+    for _ in range(n_gen):
+        recs.append(_record(int(rng.integers(-2048, 2048)), 1, 1, 0))
+        if kind == "dc":
+            continue
+        if kind == "zrl":
+            recs += [_record(0, 0, 0, 63)] * 300
+            recs.append(_record(int(rng.integers(-9, 9)), 0, 1, 63))
+            continue
+        k = int(rng.integers(0, 12))
+        for pos in np.sort(rng.choice(np.arange(1, 64), k, replace=False)):
+            if rng.random() < 0.1:
+                recs.append(_record(0, 0, 0, int(pos)))          # a ZRL
+            recs.append(_record(int(rng.integers(-1023, 1024)), 0, 1,
+                                int(pos)))
+        if rng.random() < 0.8:
+            recs.append(_record(0, 0, 0, 63))                   # an EOB
+    return recs
+
+
+@pytest.mark.parametrize("case,n_frames,n_blocks,t_rows", [
+    ("mixed", 5, 480, 30720), ("dc", 3, 1800, 2048), ("zrl", 3, 480, 4096),
+    ("counts", 5, 480, 6144), ("past", 3, 480, 8192),
+    ("mixed", 3, 1200, 20480), ("mixed", 3, 1800, 30720),
+    ("unaligned", 3, 480, 6003)])
+def test_record_expand_source_matches_plain(expand_lib, case, n_frames,
+                                            n_blocks, t_rows):
+    """Kernel X on the CPU, on records made to stress its windows of
+    blocks: frames of DC records only (a tile reaches many windows), runs
+    of ZRLs (a window holds many tiles), counts of 0, negative and above
+    T, records whose block passes n_blocks, n_blocks of 1,200 and 1,800
+    (not a multiple of the window), a row length that is not a multiple
+    of 4 records (no 16-byte loads), and frame counts of 3 and 5; the
+    records past each frame's count and the levels start as garbage."""
+    rng = np.random.default_rng(len(case) * 7 + n_blocks)
+    recs = _aligned((n_frames, t_rows), np.int32, 0x5A5A5A5A)
+    counts = np.zeros(n_frames, np.int32)
+    for f in range(n_frames):
+        n_gen = {"past": n_blocks + 100, "dc": n_blocks}.get(
+            case, n_blocks - 7 * f)
+        fr = _frame_records(rng, n_gen, "mixed" if case in (
+            "counts", "past", "unaligned") else case)[:t_rows]
+        recs[f, :len(fr)] = fr
+        counts[f] = len(fr)
+    if case == "counts":
+        recs[1, counts[1]:] = 0               # read to T: no writes
+        counts[:4] = [0, t_rows + 50, -3, counts[3] // 2]
+    levels = _aligned((n_frames, n_blocks, 64), np.int16, 0x5A5A)
+    rc = expand_lib.amv_expand_records(recs.ctypes.data, t_rows,
+                                       counts.ctypes.data, n_frames,
+                                       n_blocks, levels.ctypes.data, None)
+    assert rc == 0
+    want = ER.expand_records_plain(torch.from_numpy(recs),
+                                   torch.from_numpy(counts), n_blocks)
+    np.testing.assert_array_equal(levels, want.numpy())
+    assert want.numpy().any()
 
 
 def test_record_decode_source_cuts_on_boundaries(decode_lib, scans):
