@@ -57,15 +57,19 @@ def check_decoded(ok: torch.Tensor, order: np.ndarray) -> None:
                          "decoder rejected them")
 
 
+def used_words(bits) -> int:
+    """The word budget kernel E packs at: the longest frame's 32-bit words
+    (at least one) from bits [F], a tensor or an array."""
+    return max(1, (int(bits.max()) + 31) // 32) if len(bits) else 1
+
+
 def pack_levels(levels: torch.Tensor):
     """Kernel E at a word budget that never truncates: levels int16
     [F, n_blocks, 64] (slot 0 = absolute DC) -> (words int32 [F, w_used],
     bits int32 [F]) for `native.escape_frames`.  Kernel E's count entry
-    gives every frame's bits first; the pack then runs once, at w_used,
-    the longest frame's word count, so no unused words reach the host."""
-    bits = count_bits(levels)
-    w_used = max(1, (int(bits.max()) + 31) // 32) if bits.numel() else 1
-    words, bits, _ = encode_levels(levels, w_used)
+    gives every frame's bits first; the pack then runs once, at w_used
+    (`used_words`), so no unused words reach the host."""
+    words, bits, _ = encode_levels(levels, used_words(count_bits(levels)))
     return words, bits
 
 

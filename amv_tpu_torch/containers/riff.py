@@ -138,6 +138,10 @@ def mux(video_chunks, audio_chunks, *, width, height, fps, sample_rate=22050,
         audio_bit_rate=None, video_bit_rate=0, streamed=False) -> bytes:
     """Mux pre-encoded AMV video frames + ADPCM audio chunks into a .amv file.
 
+    The chunks are sequences of bytes-like payloads: `bytes`, or
+    memoryviews into one buffer, such as `native.escape_packed`'s frames,
+    which are written from that buffer with no copy of their own.
+
     Interleaving follows amv_interleave_packet (amvenc.c:378-406): strict
     alternation starting with video (last_stream_index initialized to 1,
     amvenc.c:124).  Back-patching of sizes, frame counts and duration follows

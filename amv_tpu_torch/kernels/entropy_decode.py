@@ -27,8 +27,6 @@ from ..codecs.jpeg_tables import device_table
 from . import _build
 
 LAUNCHES = 0
-# the sync rounds of each frame in the kernel's last launch, int32 [F]
-LAST_ROUNDS = None
 
 
 def _check(rows, lens, n_blocks):
@@ -52,14 +50,16 @@ def token_budget(lens: torch.Tensor, n_blocks: int,
 
 
 def decode_scans(rows: torch.Tensor, lens: torch.Tensor, n_blocks: int, *,
-                 budget: torch.Tensor | None = None):
+                 budget: torch.Tensor | None = None, rounds: bool = False):
     """rows uint8 [F, stride] unescaped scans, lens int64 [F] valid bytes
     per row -> (levels int16 [F, n_blocks, 64] zigzag with slot 0 = DC
     difference, ok uint8 [F]).  budget int64 [F] replaces
-    `token_budget`."""
+    `token_budget`.  rounds=True appends this launch's sync rounds per
+    frame, int32 [F] (None from the plain version, which has none)."""
     _check(rows, lens, n_blocks)
     if rows.device.type == "cpu" and lens.device.type == "cpu":
-        return decode_scans_plain(rows, lens, n_blocks, budget=budget)
+        out = decode_scans_plain(rows, lens, n_blocks, budget=budget)
+        return (*out, None) if rounds else out
     _build.require_cuda(rows, lens)
     rows, lens = rows.contiguous(), lens.contiguous()
     f, stride = rows.shape
@@ -70,7 +70,7 @@ def decode_scans(rows: torch.Tensor, lens: torch.Tensor, n_blocks: int, *,
     levels = torch.zeros((f, n_blocks, 64), dtype=torch.int16,
                          device=rows.device)
     ok = torch.empty(f, dtype=torch.uint8, device=rows.device)
-    rounds = torch.empty(f, dtype=torch.int32, device=rows.device)
+    n_rounds = torch.empty(f, dtype=torch.int32, device=rows.device)
     tables = device_table("DEC_FAST", rows.device)
     # the longest scans first: they take the most sync rounds
     order = torch.argsort(lens, descending=True, stable=True).to(torch.int32)
@@ -78,12 +78,11 @@ def decode_scans(rows: torch.Tensor, lens: torch.Tensor, n_blocks: int, *,
         rc = _build.library().amv_decode_scans(
             rows.data_ptr(), stride, lens.data_ptr(), order.data_ptr(), f,
             n_blocks, tables.data_ptr(), budget.data_ptr(), levels.data_ptr(),
-            ok.data_ptr(), rounds.data_ptr(), _build.stream())
+            ok.data_ptr(), n_rounds.data_ptr(), _build.stream())
     _build.check(rc, "amv_decode_scans")
-    global LAUNCHES, LAST_ROUNDS
+    global LAUNCHES
     LAUNCHES += 1
-    LAST_ROUNDS = rounds
-    return levels, ok
+    return (levels, ok, n_rounds) if rounds else (levels, ok)
 
 
 def decode_scans_plain(rows: torch.Tensor, lens: torch.Tensor,

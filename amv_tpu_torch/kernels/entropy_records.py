@@ -42,8 +42,6 @@ from .record_pack import M32, pack_records
 
 RECORD_LAUNCHES = 0      # kernel R
 EXPAND_LAUNCHES = 0      # kernel X
-# the sync rounds of each frame in kernel R's last launch, int32 [F]
-LAST_ROUNDS = None
 TROW = 256               # JAX's record rows a grid step: T's granule
 WIN_O = 128              # JAX's word-window rows: encode_scans_async's w_out
 
@@ -86,22 +84,25 @@ def _check_rows(rows, lens, n_blocks):
 
 
 def decode_records(rows: torch.Tensor, lens: torch.Tensor, n_blocks: int,
-                   t_max: int):
+                   t_max: int, *, rounds: bool = False):
     """rows uint8 [F, stride] unescaped scans, lens int64 [F] -> (records
     int32 [F, T], status int32 [F, 2] = (blocks done, records)), T =
     record_rows(t_max).  Records past a frame's last token are 0; a frame
-    with blocks done < n_blocks ran out of records (or of a sane stream)."""
+    with blocks done < n_blocks ran out of records (or of a sane stream).
+    rounds=True appends this launch's sync rounds per frame, int32 [F]
+    (None from the plain version, which has none)."""
     _check_rows(rows, lens, n_blocks)
     if t_max <= 0:
         raise ValueError(f"t_max must be positive, got {t_max}")
     if rows.device.type == "cpu" and lens.device.type == "cpu":
-        return decode_records_plain(rows, lens, n_blocks, t_max)
+        out = decode_records_plain(rows, lens, n_blocks, t_max)
+        return (*out, None) if rounds else out
     _build.require_cuda(rows, lens)
     rows, lens = rows.contiguous(), lens.contiguous()
     f, t = rows.shape[0], record_rows(t_max)
     recs = torch.empty((f, t), dtype=torch.int32, device=rows.device)
     status = torch.empty((f, 2), dtype=torch.int32, device=rows.device)
-    rounds = torch.empty(f, dtype=torch.int32, device=rows.device)
+    n_rounds = torch.empty(f, dtype=torch.int32, device=rows.device)
     tables = device_table("REC_FAST", rows.device)
     # the longest scans first: they take the most sync rounds
     order = torch.argsort(lens, descending=True, stable=True).to(torch.int32)
@@ -109,12 +110,11 @@ def decode_records(rows: torch.Tensor, lens: torch.Tensor, n_blocks: int,
         rc = _build.library().amv_decode_records(
             rows.data_ptr(), rows.shape[1], lens.data_ptr(), order.data_ptr(),
             f, n_blocks, tables.data_ptr(), t, recs.data_ptr(),
-            status.data_ptr(), rounds.data_ptr(), _build.stream())
+            status.data_ptr(), n_rounds.data_ptr(), _build.stream())
     _build.check(rc, "amv_decode_records")
-    global RECORD_LAUNCHES, LAST_ROUNDS
+    global RECORD_LAUNCHES
     RECORD_LAUNCHES += 1
-    LAST_ROUNDS = rounds
-    return recs, status
+    return (recs, status, n_rounds) if rounds else (recs, status)
 
 
 def decode_records_plain(rows: torch.Tensor, lens: torch.Tensor,

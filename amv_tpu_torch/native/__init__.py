@@ -32,9 +32,8 @@ _SIGNATURES = {   # name -> (restype, argtypes)
     "amv_unescape_frames": (ctypes.c_int64, [
         ctypes.c_char_p, _P64, _P64, ctypes.c_int, _P8, ctypes.c_int64,
         _P64]),
-    "amv_escape_frames": (ctypes.c_int64, [
-        _P32, ctypes.c_int64, _P64, ctypes.c_int, _P8, ctypes.c_int64,
-        _P64]),
+    "amv_escape_packed": (ctypes.c_int64, [
+        _P32, ctypes.c_int64, _P32, ctypes.c_int, _P8, _P64, _P64]),
     "amv_ref_decode_frame": (ctypes.c_int, [
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P8,
         _P8, _P8]),
@@ -93,34 +92,73 @@ def unescape_frames(payloads: list[bytes]):
     payloads)."""
     if not payloads:
         return np.zeros((0, 0), np.uint8), np.zeros(0, np.int64)
+    rows = np.zeros(len(payloads) * row_stride(payloads), np.uint8)
+    rows, lens = unescape_into(payloads, rows, np.zeros(len(payloads),
+                                                        np.int64))
+    return rows[:, :(int(lens.max()) + 3) & ~3], lens
+
+
+def row_stride(payloads: list[bytes]) -> int:
+    """The row stride `unescape_into` lays the payloads' scans out with:
+    the longest payload rounded up to a multiple of 4 bytes."""
+    return (max(map(len, payloads), default=0) + 3) & ~3
+
+
+def unescape_into(payloads: list[bytes], rows: np.ndarray,
+                  lens: np.ndarray):
+    """`unescape_frames` into the caller's buffers (pinned host memory,
+    say): rows uint8 with room for F x row_stride(payloads) bytes, lens
+    int64 with room for F.  Returns (rows as a C-contiguous view [F,
+    row_stride], lens [F]).  Bytes of a row past its scan keep what the
+    buffer held (kernel D reads nothing past lens)."""
+    f, stride = len(payloads), row_stride(payloads)
+    if rows.dtype != np.uint8 or not rows.flags.c_contiguous or \
+            rows.size < f * stride or lens.dtype != np.int64 or \
+            not lens.flags.c_contiguous or lens.size < f:
+        raise ValueError(f"unescape_into needs C-contiguous uint8 rows of "
+                         f">= {f * stride} bytes and int64 lens of >= {f}")
+    rows, lens = rows.reshape(-1)[:f * stride].reshape(f, stride), lens[:f]
+    if not payloads:
+        return rows, lens
     blob, offsets, sizes = _blob(payloads)
-    stride = (int(sizes.max()) + 3) & ~3
-    rows = np.zeros((len(payloads), stride), np.uint8)
-    lens = np.zeros(len(payloads), np.int64)
     rc = library().amv_unescape_frames(
-        blob, offsets.ctypes.data_as(_P64), sizes.ctypes.data_as(_P64),
-        len(payloads), rows.ctypes.data_as(_P8), stride,
-        lens.ctypes.data_as(_P64))
+        blob, offsets.ctypes.data_as(_P64), sizes.ctypes.data_as(_P64), f,
+        rows.ctypes.data_as(_P8), stride, lens.ctypes.data_as(_P64))
     if rc < 0:
         raise ValueError(f"native unescape failed (rc={rc})")
-    return rows[:, :(int(rc) + 3) & ~3], lens
+    return rows, lens
+
+
+def escape_packed(words: np.ndarray, bits: np.ndarray):
+    """(words int32 [F, w_out] big-endian scan words, bits [F]) -> framed
+    '00dc' payloads (1-pad + 0xFF00 escape + SOI/EOI) back to back in one
+    buffer: (buf uint8 [n], offsets int64 [F], lens int64 [F]), frame f
+    being buf[offsets[f]:offsets[f] + lens[f]]."""
+    words = np.ascontiguousarray(words, np.int32)
+    bits32 = np.ascontiguousarray(bits, np.int32)
+    f, w_out = words.shape
+    if bits32.shape != (f,):
+        raise ValueError(f"bits must be [{f}], got {bits32.shape}")
+    # a frame escapes to at most 2 bytes a scan byte + SOI and EOI
+    buf = np.empty(2 * int(((bits32.astype(np.int64) + 7) >> 3).sum())
+                   + 4 * f, np.uint8)
+    offsets = np.empty(f, np.int64)
+    lens = np.empty(f, np.int64)
+    rc = library().amv_escape_packed(
+        words.ctypes.data_as(_P32), w_out, bits32.ctypes.data_as(_P32), f,
+        buf.ctypes.data_as(_P8), offsets.ctypes.data_as(_P64),
+        lens.ctypes.data_as(_P64))
+    if rc < 0:
+        raise ValueError(f"native escape failed (rc={rc})")
+    return buf[:rc], offsets, lens
 
 
 def escape_frames(words: np.ndarray, bits: np.ndarray) -> list[bytes]:
     """(words int32 [F, w_out] big-endian scan words, bits [F]) -> framed
     '00dc' payload bytes per frame (1-pad + 0xFF00 escape + SOI/EOI)."""
-    words = np.ascontiguousarray(words, np.int32)
-    bits64 = np.ascontiguousarray(bits, np.int64)
-    f, w_out = words.shape
-    stride = w_out * 4 * 2 + 8  # worst case: every byte escapes
-    dst = np.zeros((f, stride), np.uint8)
-    lens = np.zeros(f, np.int64)
-    rc = library().amv_escape_frames(
-        words.ctypes.data_as(_P32), w_out, bits64.ctypes.data_as(_P64), f,
-        dst.ctypes.data_as(_P8), stride, lens.ctypes.data_as(_P64))
-    if rc != 0:
-        raise ValueError(f"native escape failed (rc={rc})")
-    return [dst[i, :lens[i]].tobytes() for i in range(f)]
+    buf, offsets, lens = escape_packed(words, bits)
+    return [buf[o:o + n].tobytes() for o, n in zip(offsets.tolist(),
+                                                   lens.tolist())]
 
 
 def ref_decode_frame(payload: bytes, width: int, height: int):

@@ -3,7 +3,7 @@
  * chain and the single-core C reference oracles, for the AMV
  * MJPEG-variant and IMA-ADPCM codecs.
  *
- *  - amv_unescape_frames / amv_escape_frames: SOI/EOI framing and 0xFF00
+ *  - amv_unescape_frames / amv_escape_packed: SOI/EOI framing and 0xFF00
  *    stuffing, the host stages of every video path;
  *  - amv_ref_decode_frame / amv_ref_encode_frame / adpcm_ref_decode: the
  *    full scalar decode and encode (entropy + integer DCT + assembly),
@@ -359,33 +359,55 @@ API int64_t amv_unescape_frames(const uint8_t *payload_blob,
  * per-frame big-endian scan words + bit counts (bits beyond the count
  * are zero), applies the 1-bit stuffing pad (mjpegenc
  * ff_mjpeg_encode_stuffing), 0xFF00 escaping (escape_FF) and SOI/EOI
- * framing.  Returns 0 or -(frame+1) on row overflow. */
-API int64_t amv_escape_frames(const int32_t *words, int64_t w_out,
-                              const int64_t *bits, int n_frames,
-                              uint8_t *dst, int64_t dst_stride,
+ * framing, and writes the frames back to back from dst: frame f is
+ * dst[out_offsets[f] .. + out_lens[f]).  A frame takes at most
+ * 2 * ceil(bits / 8) + 4 bytes, so a dst of the frames' sum of those
+ * needs no clearing and the loop no bound check.  Returns the bytes
+ * written, or -(frame+1) when a frame's bits are negative or exceed its
+ * w_out words. */
+API int64_t amv_escape_packed(const int32_t *words, int64_t w_out,
+                              const int32_t *bits, int n_frames,
+                              uint8_t *dst, int64_t *out_offsets,
                               int64_t *out_lens) {
+    int64_t j = 0;
     for (int f = 0; f < n_frames; f++) {
         const int32_t *w = words + (size_t)f * w_out;
         int64_t nbits = bits[f];
         int64_t nbytes = (nbits + 7) >> 3;
-        if (nbytes > w_out * 4) return -(f + 1);
-        uint8_t *d = dst + (size_t)f * dst_stride;
-        int64_t j = 0;
-        d[j++] = 0xFF; d[j++] = 0xD8;                    /* SOI */
-        for (int64_t i = 0; i < nbytes; i++) {
+        if (nbits < 0 || nbytes > w_out * 4) return -(f + 1);
+        out_offsets[f] = j;
+        dst[j++] = 0xFF; dst[j++] = 0xD8;                /* SOI */
+        int64_t i = 0;
+        /* whole words before the last byte (which takes the pad), a word
+         * at a time while it holds no 0xFF byte (0xFF is ~1/256 of scan
+         * bytes); a word holding one goes byte by byte */
+        for (; i + 4 < nbytes; i += 4) {
+            uint32_t v = (uint32_t)w[i >> 2];
+            if (((~v) - 0x01010101u) & v & 0x80808080u) {
+                for (int k = 24; k >= 0; k -= 8) {
+                    uint8_t b = (uint8_t)(v >> k);
+                    dst[j++] = b;
+                    if (b == 0xFF) dst[j++] = 0x00;      /* escape_FF */
+                }
+            } else {
+                uint32_t be = __builtin_bswap32(v);
+                memcpy(dst + j, &be, 4);
+                j += 4;
+            }
+        }
+        for (; i < nbytes; i++) {
             uint8_t b = (uint8_t)(((uint32_t)w[i >> 2]) >> (24 - 8 * (i & 3)));
             if (i == nbytes - 1) {
                 int pad = (int)((8 - (nbits & 7)) & 7);
                 b |= (uint8_t)((1u << pad) - 1);         /* 1-stuffing */
             }
-            if (j + 4 > dst_stride) return -(f + 1);
-            d[j++] = b;
-            if (b == 0xFF) d[j++] = 0x00;                /* escape_FF */
+            dst[j++] = b;
+            if (b == 0xFF) dst[j++] = 0x00;              /* escape_FF */
         }
-        d[j++] = 0xFF; d[j++] = 0xD9;                    /* EOI */
-        out_lens[f] = j;
+        dst[j++] = 0xFF; dst[j++] = 0xD9;                /* EOI */
+        out_lens[f] = j - out_offsets[f];
     }
-    return 0;
+    return j;
 }
 
 /* ------------------------------------------------------------------ */

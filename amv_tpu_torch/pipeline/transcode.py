@@ -1,10 +1,12 @@
 """The complete AMV->AMV transcode (the port's main path).
 
 `transcode_bytes` is the counterpart of `amv_tpu/pipeline/transcode.py:
-transcode_bytes`: host C unescape, a length sort, the device chain
-(`transcode_complete`: Huffman decode, DC prediction, block transcode,
-Huffman encode), the unsort, host C escape/framing and the RIFF mux.
-Audio chunks pass through untouched.
+transcode_bytes`: the RIFF demux, the video through
+`serving.AsyncTranscoder` (host C unescape into pinned memory, the device
+chain on CUDA streams: Huffman decode, DC prediction, block transcode,
+Huffman encode; host C escape/framing into one buffer) and the RIFF mux.
+Audio chunks pass through untouched.  `transcode_scans` is the chain up
+to the entropy encoder, which runs with no host sync.
 
 `transcode_complete(enc=...)` picks the entropy encoder, as
 `transcode_complete_async` does: "async" is kernel E; "record" the
@@ -21,22 +23,22 @@ on the device, then kernel V (`reencode_planes`).  It carries
 quant="q60" and odd picture sizes.
 
 The chain runs in frame-major layout ([F, n_blocks, 64]); the TPU's slab
-layout, lane tiles, segmentation (`segs`, `segs_dec`, `pick_segments`)
-and the serving hand-over existed for TPU VMEM and dispatch limits and
-are not carried over: one thread per frame has no VMEM cap, and a whole
-frame escaped by `escape_frames` is byte-identical to its segments spliced
-by `concat_escape_frames`.
+layout, lane tiles and segmentation (`segs`, `segs_dec`, `pick_segments`)
+existed for TPU VMEM limits and are not carried over: a thread block per
+frame has no VMEM cap, and a whole frame escaped by `escape_frames` is
+byte-identical to its segments spliced by `concat_escape_frames`.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import os
+
 import torch
 
 from .. import native
-from ..codecs.amv_video import (QUANTS, check_decoded, decode_planes,
-                                encode_planes, encoder_qmat, pack_levels,
-                                resolve_dc)
+from ..codecs.amv_video import (QUANTS, decode_planes, encode_planes,
+                                encoder_qmat, pack_levels, resolve_dc,
+                                used_words)
 from ..containers import riff
 from ..kernels.entropy_decode import decode_scans
 from ..kernels.entropy_parallel import (FITTING_WINDOWS,
@@ -99,7 +101,7 @@ def encode_route(lv2: torch.Tensor, w_first: int, enc: str):
     if enc == "async":
         return pack_levels(lv2)
     words, bits, _ = ROUTES[enc](lv2, w_first)
-    w_used = max(1, (int(bits.max()) + 31) // 32) if bits.numel() else 1
+    w_used = used_words(bits)
     if w_used > w_first:
         words, bits, _ = ROUTES[enc](lv2, w_used)
     return words[:, :w_used].contiguous(), bits
@@ -118,6 +120,26 @@ def reencode_planes(levels: torch.Tensor, dc: torch.Tensor, size, qmat,
     return encode_planes(*planes, qmat, quant)
 
 
+def transcode_scans(scans: torch.Tensor, lens: torch.Tensor, n_mcu: int,
+                    qmat, size=None, quant: str = "ffmpeg"):
+    """The device chain before the entropy encoder, with no host sync:
+    unescaped scans uint8 [F, stride] + lens int64 [F] -> (re-quantized
+    zigzag levels int16 [F, 6 n_mcu, 64], slot 0 the absolute DC; ok uint8
+    [F], 0 for a frame kernel D rejected).  Kernel D, the DC prediction,
+    then kernel T for quant="ffmpeg" at the sizes it takes (`takes_size`),
+    else `reencode_planes` (kernels U, V); arguments as
+    `transcode_complete`."""
+    if quant not in QUANTS:
+        raise ValueError(f"quant must be one of {QUANTS}, got {quant!r}")
+    levels, ok = decode_scans(scans, lens, n_mcu * 6)
+    dc = resolve_dc(levels.reshape(-1, n_mcu, 6, 64)).reshape(-1)
+    if quant == "ffmpeg" and takes_size(size):
+        return transcode_blocks(levels.reshape(-1, 64), dc,
+                                encoder_qmat(qmat),
+                                size).reshape(levels.shape), ok
+    return reencode_planes(levels, dc, size, qmat, quant), ok
+
+
 def transcode_complete(scans: torch.Tensor, lens: torch.Tensor, n_mcu: int,
                        qmat, size=None, enc: str = "async",
                        quant: str = "ffmpeg"):
@@ -133,17 +155,17 @@ def transcode_complete(scans: torch.Tensor, lens: torch.Tensor, n_mcu: int,
     rejected.  The encoder's words never truncate (`encode_route`)."""
     if enc not in ENCODERS:
         raise ValueError(f"enc must be one of {ENCODERS}, got {enc!r}")
-    if quant not in QUANTS:
-        raise ValueError(f"quant must be one of {QUANTS}, got {quant!r}")
-    levels, ok = decode_scans(scans, lens, n_mcu * 6)
-    dc = resolve_dc(levels.reshape(-1, n_mcu, 6, 64)).reshape(-1)
-    if quant == "ffmpeg" and takes_size(size):
-        lv2 = transcode_blocks(levels.reshape(-1, 64), dc, encoder_qmat(qmat),
-                               size).reshape(levels.shape)
-    else:
-        lv2 = reencode_planes(levels, dc, size, qmat, quant)
+    lv2, ok = transcode_scans(scans, lens, n_mcu, qmat, size, quant)
     words, bits = encode_route(lv2, word_budget(scans), enc)
     return words, bits, ok.bool()
+
+
+# The served route's batch: 1,024 frames with 4 in flight, where the JAX
+# class's default is 4,096 (one compiled shape on the TPU).  On the H100
+# the host stages bind, and at 1,024 frames the escape of earlier batches
+# runs beside the unescape of later ones on more of the file (PERF.md
+# section 6: 1,024 x 4 against 4,096 x 4 in `tools/time_serving.py`).
+SERVE_BATCH_FRAMES = 1024
 
 
 def transcode_bytes(data: bytes, *, qscale: int = 2, quant: str = "ffmpeg",
@@ -153,26 +175,28 @@ def transcode_bytes(data: bytes, *, qscale: int = 2, quant: str = "ffmpeg",
     pass through).  Byte-identical to
     `amv_tpu.pipeline.transcode.transcode_bytes`.  A frame whose scan the
     Huffman decoder rejects raises ValueError naming it, as the JAX
-    package's host route raises there."""
+    package's host route raises there.
+
+    The video goes through `serving.AsyncTranscoder`: a file of up to
+    AMV_SERVE_THRESHOLD video frames (default 8,192, the JAX package's
+    variable) as one batch, a longer one in batches of SERVE_BATCH_FRAMES
+    with 4 in flight, as the JAX package routes it.  Both routes give the
+    same bytes."""
+    from .serving import AsyncTranscoder
     dev = resolve_device(device)
     s = riff.demux(data)
     w, h = s.info.width, s.info.height
-
-    def mux(vchunks):
-        return riff.mux(vchunks, s.audio_chunks, width=w, height=h,
-                        fps=s.info.fps_num, sample_rate=s.info.sample_rate)
-
-    if not s.video_chunks:
-        return mux([])
-    n_mcu = ((w + 15) // 16) * ((h + 15) // 16)
-    rows, lens = native.unescape_frames(s.video_chunks)
-    order = np.argsort(np.array([len(p) for p in s.video_chunks]),
-                       kind="stable")
-    inv = np.argsort(order)
-    words, bits, ok = transcode_complete(
-        torch.from_numpy(rows[order]).to(dev),
-        torch.from_numpy(lens[order]).to(dev), n_mcu, qscale, (w, h),
-        quant=quant)
-    check_decoded(ok, order)
-    return mux(native.escape_frames(words.cpu().numpy()[inv],
-                                    bits.cpu().numpy()[inv]))
+    n = len(s.video_chunks)
+    serve = n > int(os.environ.get("AMV_SERVE_THRESHOLD", "8192"))
+    tr = AsyncTranscoder(((w + 15) // 16) * ((h + 15) // 16), qscale,
+                         batch_frames=SERVE_BATCH_FRAMES if serve else
+                         max(1, n), depth=4 if serve else 1,
+                         w_bytes=native.row_stride(s.video_chunks),
+                         size=(w, h), quant=quant, device=dev)
+    video = []
+    for buf, offsets, lens in tr.batches(s.video_chunks):
+        mv = memoryview(buf)
+        video += [mv[o:o + k] for o, k in zip(offsets.tolist(),
+                                              lens.tolist())]
+    return riff.mux(video, s.audio_chunks, width=w, height=h,
+                    fps=s.info.fps_num, sample_rate=s.info.sample_rate)

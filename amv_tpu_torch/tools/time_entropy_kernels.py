@@ -126,7 +126,10 @@ def main(reps: int = 20) -> None:
            "pack_levels": cuda_ms(lambda: pack(lv2), reps)}
     if hasattr(E, "count_bits"):
         out["E_count"] = cuda_ms(lambda: E.count_bits(lv2), reps)
-    rounds = getattr(D, "LAST_ROUNDS", None)
+    if "rounds" in inspect.signature(D.decode_scans).parameters:
+        rounds = D.decode_scans(r, ln, nb, rounds=True)[2]
+    else:                        # a tree from before the per-call rounds
+        rounds = getattr(D, "LAST_ROUNDS", None)
     if rounds is not None:
         out["D_rounds_mean"] = float(rounds.float().mean())
         out["D_rounds_max"] = int(rounds.max())

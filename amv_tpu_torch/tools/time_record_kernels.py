@@ -32,6 +32,7 @@ command.
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 
@@ -100,10 +101,14 @@ def main(reps: int = 20) -> None:
     for key, fn in fns.items():
         out[key] = cuda_ms(fn, reps)
         out[f"{key}_device"] = tk.device_ms(fn, reps)
-    D.decode_scans(r, ln, nb)
-    R.decode_records(r, ln, nb, t_rec)
-    for key, mod in (("D", D), ("R", R)):
-        rounds = getattr(mod, "LAST_ROUNDS", None)
+    for key, mod, fn, args in (("D", D, D.decode_scans, (r, ln, nb)),
+                               ("R", R, R.decode_records,
+                                (r, ln, nb, t_rec))):
+        if "rounds" in inspect.signature(fn).parameters:
+            rounds = fn(*args, rounds=True)[2]
+        else:                    # a tree from before the per-call rounds
+            fn(*args)
+            rounds = getattr(mod, "LAST_ROUNDS", None)
         if rounds is not None:
             out[f"{key}_rounds_mean"] = float(rounds.float().mean())
             out[f"{key}_rounds_max"] = int(rounds.max())

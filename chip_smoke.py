@@ -2,7 +2,8 @@
 """Start the PyTorch/CUDA port (amv_tpu_torch) on one NVIDIA GPU and check
 its paths end to end: the complete AMV->AMV transcode (with each of its
 entropy encoders), the record-IR decode, the AMV decode (video and audio),
-the AMV encode, the q60 quantizer and odd picture sizes.
+the AMV encode, the q60 quantizer, odd picture sizes and the served
+transcode on CUDA streams.
 
     python3 chip_smoke.py
 
@@ -82,7 +83,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     transcode and encode equal to the port's CPU route;
 10. 256 frames at 320x240 through transcode_bytes and through the
     transcode's device chain with each entropy encoder, byte-identical to
-    C.
+    C;
+11. serving: AsyncTranscoder (batches of 1,024 frames, 4 in flight, each
+    on its own CUDA stream) over the corpus, byte-identical to C, its
+    issue stage run under torch.cuda.set_sync_debug_mode("error") so any
+    host sync there fails, D, T and E launched; its frames/s and the
+    device's idle share (torch.profiler); cli.main on the corpus twice over
+    (9,600 frames, over AMV_SERVE_THRESHOLD) through the served route and,
+    with the threshold above the file, the whole-file route, byte-identical
+    to C, with both frames/s; the whole-file route's stages one by one
+    with the pinned copies and the packed escape.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -149,7 +159,9 @@ def import_port() -> SimpleNamespace:
     from amv_tpu_torch.kernels import record_pack as RP
     from amv_tpu_torch.kernels import transcode as T
     from amv_tpu_torch.pipeline import decode, encode
+    from amv_tpu_torch.pipeline import serving as S
     from amv_tpu_torch.pipeline import transcode as P
+    from amv_tpu_torch.tools import time_serving as tools_s
     from amv_tpu_torch.tools import time_transcode_kernel as tools_t
     from amv_tpu_torch.verify import fixtures, ref_adpcm
     return SimpleNamespace(**locals())
@@ -426,6 +438,133 @@ def psnr(a, b) -> float:
     return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
 
 
+def serving_phase(m, dev, pays, want, audio, data, paths) -> None:
+    """Phase 11: AsyncTranscoder over the corpus (batches of 1,024 frames,
+    4 in flight; issue under set_sync_debug_mode("error")), its frames/s
+    and the device's idle share; cli.main on the corpus twice over through
+    the served and the whole-file routes; the whole-file route's stages
+    with the pinned copies and the packed escape."""
+    import torch
+    cuda = dev.type == "cuda"
+    n_mcu = ((W + 15) // 16) * ((H + 15) // 16)
+
+    def server():
+        return m.S.AsyncTranscoder(n_mcu, QSCALE, batch_frames=1024,
+                                   depth=4, size=(W, H), device=dev)
+
+    tr = server()
+    issue = tr.issue
+
+    def strict_issue(chunk):
+        """issue with any host sync an error"""
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return issue(chunk)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    tr.issue = strict_issue
+    torch.cuda.synchronize()
+    reset_launches(m)
+    got = tr.transcode(pays)
+    paths["serving"] = launches(m)
+    assert got == want, "served payloads differ from the C reference"
+    assert all(paths["serving"][k] > 0 for k in "DTE") and \
+        paths["serving"]["U"] == paths["serving"]["V"] == 0, paths
+    walls_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        assert server().transcode(pays) == want
+        walls_s.append(time.perf_counter() - t0)
+    wall_s = statistics.median(walls_s)
+    idle, wall_p = m.tools_s.idle_share(lambda: server().transcode(pays),
+                                        dev)
+    log(f"serving: AsyncTranscoder(batch_frames=1024, depth=4) over "
+        f"{N_FRAMES} frames: byte-identical to the C reference, issue under "
+        f"set_sync_debug_mode('error'); launches {paths['serving']}; "
+        f"{', '.join(f'{t:.3f}' for t in walls_s)} s, median {wall_s:.3f} s"
+        f" = {N_FRAMES / wall_s:.1f} frames/s; device idle share "
+        f"{idle:.1%} of a profiled pass of {wall_p:.3f} s (torch.profiler: "
+        "1 - the union of the device's kernel, copy and memset intervals "
+        "over the wall)")
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "long.amv")
+        dst = os.path.join(tmp, "out.amv")
+        with open(src, "wb") as f:
+            f.write(m.riff.mux(pays + pays, audio + audio, width=W, height=H,
+                               fps=FPS, sample_rate=RATE))
+        argv = ["-i", src, "-f", "amv", dst, "--device", str(dev)]
+        fps_route = {}
+        for route, threshold in (("served", None),
+                                 ("whole-file", str(4 * N_FRAMES))):
+            if threshold is None:
+                os.environ.pop("AMV_SERVE_THRESHOLD", None)
+            else:
+                os.environ["AMV_SERVE_THRESHOLD"] = threshold
+            m.cli.main(argv)                                     # warm-up
+            torch.cuda.synchronize()
+            reset_launches(m)
+            wall_r, walls_r = timed_cli(m, argv)
+            paths[f"transcode {route}"] = launches(m)
+            with open(dst, "rb") as f:
+                out = m.riff.demux(f.read())
+            assert out.video_chunks == want + want, route
+            assert out.audio_chunks == audio + audio, route
+            assert all(paths[f"transcode {route}"][k] > 0 for k in "DTE")
+            fps_route[route] = 2 * N_FRAMES / wall_r
+            log(f"transcode {route}: cli.main x3 on {2 * N_FRAMES} frames "
+                f"(AMV_SERVE_THRESHOLD {threshold or 'unset: 8192'}) in "
+                f"{', '.join(f'{t:.3f}' for t in walls_r)} s, median "
+                f"{wall_r:.3f} s = {fps_route[route]:.1f} frames/s; "
+                f"byte-identical to the C reference; launches "
+                f"{paths[f'transcode {route}']}")
+        os.environ.pop("AMV_SERVE_THRESHOLD", None)
+    log(f"transcode of {2 * N_FRAMES} frames: served "
+        f"{fps_route['served']:.1f} frames/s, whole-file "
+        f"{fps_route['whole-file']:.1f} frames/s")
+    # the whole-file route's stages one by one: the pinned copies and the
+    # packed escape (phase 5's split ran the pageable copies and the
+    # per-frame escape)
+    split = {}
+    s = staged(split, "demux", lambda: m.riff.demux(data))
+    n_v, stride = len(s.video_chunks), m.native.row_stride(s.video_chunks)
+    rows_h, lens_h = staged(split, "pinned_alloc", lambda: (
+        torch.empty(n_v * stride, dtype=torch.uint8, pin_memory=cuda),
+        torch.empty(n_v, dtype=torch.int64, pin_memory=cuda)))
+    staged(split, "unescape", lambda: m.native.unescape_into(
+        s.video_chunks, rows_h.numpy(), lens_h.numpy()))
+    r_t, l_t = staged(split, "to_device", lambda: (
+        rows_h.view(n_v, stride).to(dev, non_blocking=True),
+        lens_h.to(dev, non_blocking=True)))
+
+    def chain():
+        lv2, ok = m.P.transcode_scans(r_t, l_t, n_mcu, QSCALE, (W, H))
+        bits = m.E.count_bits(lv2)
+        assert bool(ok.all())
+        w_used = m.amv_video.used_words(bits.cpu())
+        return m.E.encode_levels(lv2, w_used)[0], bits
+
+    words, bits = staged(split, "device_chain", chain)
+    w_h = torch.empty(words.shape, dtype=torch.int32, pin_memory=cuda)
+    b_h = torch.empty(bits.shape, dtype=torch.int32, pin_memory=cuda)
+    staged(split, "to_host", lambda: (w_h.copy_(words, non_blocking=True),
+                                      b_h.copy_(bits, non_blocking=True)))
+    buf, offsets, lens_e = staged(split, "escape", lambda: (
+        m.native.escape_packed(w_h.numpy(), b_h.numpy())))
+
+    def mux():
+        mv = memoryview(buf)
+        return m.riff.mux([mv[o:o + k] for o, k in zip(offsets.tolist(),
+                                                      lens_e.tolist())],
+                          s.audio_chunks, width=W, height=H, fps=FPS,
+                          sample_rate=RATE)
+
+    staged_out = staged(split, "mux", mux)
+    assert m.riff.demux(staged_out).video_chunks == want
+    log_split("transcode (pinned copies, packed escape)", split,
+              f"; words copied to the host {tuple(words.shape)}")
+
+
 def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -530,7 +669,7 @@ def main() -> int:
             f"({int((rounds == 0).sum())} of {N_FRAMES} frames in step at "
             "once)")
 
-    log_rounds("D", m.D.LAST_ROUNDS)
+    log_rounds("D", m.D.decode_scans(rows_a, lens_a, nb, rounds=True)[2])
     dc_a = m.amv_video.resolve_dc(
         lv_a.reshape(N_FRAMES, n_mcu, 6, 64)).reshape(-1)
     lvf = lv_a.reshape(-1, 64)
@@ -630,7 +769,8 @@ def main() -> int:
         4 * got[0].numel() + 8 * N_FRAMES,
         lambda got: OPS_TOKEN * int(got[1][:, 1].sum()))
     assert (st_a[:, 0] == nb).all() and recs_a.is_contiguous()
-    log_rounds("R", m.R.LAST_ROUNDS)
+    log_rounds("R", m.R.decode_records(rows_a, lens_a, nb, t_rec,
+                                       rounds=True)[2])
     cnt_a = st_a[:, 1].contiguous()
     n_dec = int(cnt_a.sum())
     (lv_x,) = check(
@@ -787,11 +927,11 @@ def main() -> int:
         rt_c = torch.from_numpy(r_c).to(dev)
         lt_c = torch.from_numpy(l_c).to(dev)
         kw = {} if b_c is None else {"budget": b_c.to(dev)}
-        got = m.D.decode_scans(rt_c, lt_c, nb, **kw)
+        *got, rounds_c = m.D.decode_scans(rt_c, lt_c, nb, rounds=True, **kw)
         extra(f"D {name}", zip(got, m.D.decode_scans_plain(rt_c, lt_c, nb,
                                                            **kw)),
               f"{N_PAD} corpus scans, {name} (ok {int(got[1].sum())} of "
-              f"{N_PAD}; sync rounds max {int(m.D.LAST_ROUNDS.max())})")
+              f"{N_PAD}; sync rounds max {int(rounds_c.max())})")
         if name.startswith("fail") or name == "budget":
             assert not got[1][::2].any() and got[1][1::2].all(), name
     t_def = m.R.default_t_max(nb, rows_t.shape[1])
@@ -1067,6 +1207,7 @@ def main() -> int:
             "events): " + ", ".join(f"{k} {v:.2f} ms"
                                     for k, v in stage.items()))
         del lv_c, dc_c, lv2_c
+        want_c = want                   # phase 11 serves the corpus again
         del want, words, r_t, l_t
 
         # ---- 6. the decode through the CLI ----------------------------
@@ -1365,6 +1506,12 @@ def main() -> int:
     log(f"320x240: 256 frames (payloads up to {max(len(p) for p in big)} "
         "bytes) byte-identical to the C reference, with each entropy "
         "encoder")
+    log(f"phases 9-10 done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 11. serving ------------------------------------------------
+    t11 = time.perf_counter()
+    serving_phase(m, dev, pays, want_c, audio, data, paths)
+    log(f"phase 11 took {time.perf_counter() - t11:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s after the imports")
 
     kernels = []

@@ -33,6 +33,7 @@ from amv_tpu_torch.kernels import record_pack as RP  # noqa: E402
 from amv_tpu_torch.kernels import transcode as T  # noqa: E402
 from amv_tpu_torch.pipeline import decode as PD  # noqa: E402
 from amv_tpu_torch.pipeline import encode as PE  # noqa: E402
+from amv_tpu_torch.pipeline import serving as S  # noqa: E402
 from amv_tpu_torch.pipeline import transcode as P  # noqa: E402
 from amv_tpu_torch.verify import fixtures, ref_adpcm  # noqa: E402
 
@@ -161,11 +162,11 @@ def test_decode_kernel_subsequence_cases_match_plain(dev, case):
         D_CASES.index(case)))
     rt, lt = torch.from_numpy(rows).to(dev), torch.from_numpy(lens).to(dev)
     kw = {} if budget is None else {"budget": budget.to(dev)}
-    got = D.decode_scans(rt, lt, 480, **kw)
+    *got, rounds = D.decode_scans(rt, lt, 480, rounds=True, **kw)
     want = D.decode_scans_plain(rt, lt, 480, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert D.LAST_ROUNDS.shape == (12,)
+    assert rounds.shape == (12,)
     if case in ("fail_first", "fail_last", "budget"):
         assert not got[1][::2].any() and got[1][1::2].all()
 
@@ -471,7 +472,8 @@ def test_record_decode_kernel_edges_320x240(dev, t_max):
     dirty = torch.full((11, t_rows), 0x5A5A5A5A, dtype=torch.int32,
                        device=dev)
     del dirty                    # the caching allocator hands it to R
-    recs, status = ER.decode_records(rt, lt, 1800, t_max)
+    recs, status, rounds = ER.decode_records(rt, lt, 1800, t_max,
+                                             rounds=True)
     want_r, want_s = ER.decode_records_plain(rt, lt, 1800, t_max)
     lv = ER.expand_records(recs, status[:, 1].contiguous(), 1800)
     want_lv = ER.expand_records_plain(want_r, want_s[:, 1], 1800)
@@ -479,7 +481,7 @@ def test_record_decode_kernel_edges_320x240(dev, t_max):
     assert recs.is_contiguous() and recs.shape == (11, t_rows)
     assert torch.equal(status, want_s) and torch.equal(recs, want_r)
     assert torch.equal(lv, want_lv)
-    rounds = ER.LAST_ROUNDS.cpu()
+    rounds = rounds.cpu()
     assert (rounds >= 0).all() and rounds[:6].max() > 0
     if t_max > 1000:
         assert (status[:6, 0] == 1800).all()
@@ -837,3 +839,108 @@ def test_fdct_kernel_edges(dev, n):
         assert torch.equal(got_zz, want[:, zz])
     with pytest.raises(ValueError, match="aligned"):
         F.fdct_quant_blocks(buf[4:4 + n * 64].view(n, 64), q)
+
+
+def _c_transcode(pays, w, h):
+    return [native.ref_encode_frame(*native.ref_decode_frame(p, w, h), 2)
+            for p in pays]
+
+
+@pytest.fixture(scope="module")
+def served_clip():
+    """48 rotozoom frames of 160x120 and their C reference transcode."""
+    pays = _payloads(48, 120, 160, seed=9)
+    return pays, _c_transcode(pays, 160, 120)
+
+
+@pytest.mark.parametrize("batch_frames", [16, 20])
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_serving_cuda_matches_whole_file(dev, served_clip, batch_frames,
+                                         depth):
+    """AsyncTranscoder on CUDA streams gives the whole-file route's bytes
+    (transcode_bytes, one batch) and C's, at depths 1, 2 and 4 and at
+    batch sizes that divide the 48 frames (16) and that do not (20)."""
+    pays, want = served_clip
+    data = riff.mux(pays, [], width=160, height=120, fps=16)
+    assert riff.demux(P.transcode_bytes(data, device="cuda")).video_chunks \
+        == want
+    tr = S.AsyncTranscoder(80, batch_frames=batch_frames, depth=depth,
+                           size=(160, 120), device=dev)
+    assert tr.transcode(pays) == want
+
+
+@pytest.mark.parametrize("quant", ["ffmpeg", "q60"])
+def test_serving_cuda_two_stage_route(dev, quant):
+    """The served two-stage route (kernels D, U, V, E) at an odd size,
+    with each quantizer, equals the port's CPU route."""
+    pays = _payloads(10, 25, 33, seed=4)
+    kw = {"batch_frames": 4, "depth": 2, "size": (33, 25), "quant": quant}
+    got = S.AsyncTranscoder(6, device=dev, **kw).transcode(pays)
+    assert got == S.AsyncTranscoder(6, device="cpu", **kw).transcode(pays)
+    if quant == "ffmpeg":
+        assert got == _c_transcode(pays, 33, 25)
+
+
+def test_serving_issue_never_syncs(dev, served_clip):
+    """Stage 1 (`issue`: unescape into pinned memory, upload, kernels D, T
+    and E's count, the copies of bits and ok) waits on nothing: three
+    batches issued under torch.cuda.set_sync_debug_mode("error"), then
+    packed and drained outside it."""
+    pays, want = served_clip
+    tr = S.AsyncTranscoder(80, batch_frames=16, depth=3, size=(160, 120),
+                           w_bytes=native.row_stride(pays), device=dev)
+    tr.transcode(pays)                   # warm: library, buffers, tables
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batches = [tr.issue(pays[16 * k:16 * (k + 1)]) for k in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = []
+    for batch in batches:
+        buf, offsets, lens = tr.drain(batch)
+        got += [buf[o:o + n].tobytes() for o, n in zip(offsets, lens)]
+    assert got == want
+
+
+@pytest.mark.parametrize("kernel", ["D", "R"])
+def test_decode_rounds_per_call_on_two_streams(dev, kernel):
+    """Two batches of different frames (160x120 and 320x240) decoded at
+    once on two streams each get their own levels and sync rounds back,
+    the same as each decoded alone."""
+    inputs = []
+    for n, (h, w) in ((12, (120, 160)), (7, (240, 320))):
+        rows, lens = native.unescape_frames(_payloads(n, h, w, seed=n))
+        nb = 6 * ((w + 15) // 16) * ((h + 15) // 16)
+        inputs.append((torch.from_numpy(rows).to(dev),
+                       torch.from_numpy(lens).to(dev), nb))
+
+    def run(r, ln, nb):
+        if kernel == "D":
+            return D.decode_scans(r, ln, nb, rounds=True)
+        return ER.decode_records(r, ln, nb, 64 * nb, rounds=True)
+
+    alone = [run(*x) for x in inputs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in inputs]
+    got = []
+    for st, x in zip(streams, inputs):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            got.append(run(*x))
+    torch.cuda.synchronize()
+    for g, a in zip(got, alone):
+        assert all(torch.equal(u, v) for u, v in zip(g, a))
+    assert got[0][2].shape == (12,) and got[1][2].shape == (7,)
+
+
+def test_serving_cuda_malformed_frame_in_batch_two(dev, served_clip):
+    """A frame kernel D rejects in the second batch raises ValueError
+    naming its index in the stream; the transcoder serves again after."""
+    pays = list(served_clip[0][:40])
+    pays[21] = b"\xff\xd8" + b"\xff\x00" * 40 + b"\xff\xd9"
+    tr = S.AsyncTranscoder(80, batch_frames=16, depth=2, size=(160, 120),
+                           device=dev)
+    with pytest.raises(ValueError, match=r"frame\(s\) \[21\] of the stream"):
+        tr.transcode(pays)
+    tr.w_bytes = None
+    assert tr.transcode(served_clip[0]) == served_clip[1]

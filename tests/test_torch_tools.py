@@ -62,3 +62,27 @@ def test_attribute_walks_the_inline_chain():
         "        /*0000*/                   EXIT ;"])
     assert tool.attribute(text, parts) == {
         "zigzag": {"total": 4, "dequant": 2, "body": 1, "IDCT": 1}}
+
+
+def test_time_serving_runs_on_the_cpu_at_a_tiny_size():
+    """amv_tpu_torch/tools/time_serving.py end to end on the CPU: every
+    configuration of the sweep and both transcode_bytes routes give the
+    same payloads (the tool asserts it), the idle share is not measured
+    there, and the parent's escape (this tree's, loaded as a second
+    module) gives the change's bytes."""
+    import os
+
+    from amv_tpu_torch.tools import time_serving
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = time_serving.main(["--frames", "64", "--size", "32x32",
+                             "--batches", "16", "--depths", "1", "2",
+                             "--reps", "1", "--device", "cpu",
+                             "--parent", root])
+    assert out["card"] == "cpu" and out["frames"] == 64
+    assert set(out["sweep"]) == {"16x1", "16x2"}
+    assert all(v["idle_share"] is None and v["frames_s"] > 0
+               for v in out["sweep"].values())
+    assert set(out["transcode_bytes"]) == {"served_16", "whole"}
+    assert set(out["staged_escape_s"]) == {
+        f"{k}_{s}" for k in ("change", "parent")
+        for s in ("escape", "escape_mux")}
