@@ -3,15 +3,19 @@
   python -m amv_tpu_torch -i in.amv -f amv out.amv              # transcode
   python -m amv_tpu_torch -i in.amv out.yuv                     # decode video
   python -m amv_tpu_torch -i in.amv out.wav                     # decode audio
+  python -m amv_tpu_torch -i in.amv out.avi                     # to I420 AVI
+  python -m amv_tpu_torch -i in.avi -f amv -r 16 -s 160x120 -ac 1 \\
+      -ar 22050 out.amv                                         # encode AVI
   python -m amv_tpu_torch -i in.yuv -i in.wav -f amv -s 160x120 -r 16 \\
       -ar 22050 out.amv                                         # encode
+  python -m amv_tpu_torch -i in.amv -f amv -s 96x72 -psnr out.amv
   ... --device cpu                                              # plain versions
 
 Every route runs on the GPU (`--device cuda`, the default) unless the
-caller asks for the CPU.  The flags are `amv_tpu.cli`'s for these routes;
-every other route of that CLI (AVI/BMP/JPEG/RGB outputs, AVI input,
-rescaling, audio resampling, -acodec copy, -trellis, -psnr, G.729A/ACT,
-probes) is not yet ported and exits non-zero saying so.
+caller asks for the CPU.  The flags are `amv_tpu.cli`'s.  Still refused,
+each naming the `amv_tpu` module it waits for: -trellis, -acodec copy,
+-vcodec mjpeg|copy, .rgb/.raw (-pix_fmt), .bmp and .jpg outputs, MJPEG
+AVI input, G.729A/ACT, --info and --compare.
 """
 
 from __future__ import annotations
@@ -23,22 +27,30 @@ import sys
 import numpy as np
 
 _USE_JAX = "(use python -m amv_tpu)"
+_SWS = ["bilinear", "bicubic", "point", "area", "lanczos", "gauss", "sinc",
+        "spline", "experimental", "bicublin"]
 
 
-def _not_ported(what: str):
-    raise SystemExit(f"{what} is not yet ported {_USE_JAX}")
+def _not_ported(what: str, module: str):
+    raise SystemExit(f"{what} is not yet ported: it needs {module} "
+                     f"{_USE_JAX}")
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="amv_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("-i", dest="inputs", action="append", default=[],
-                   help="input file (.amv, or .yuv and .wav to encode)")
+                   help="input file (.amv, .avi, or .yuv and .wav to encode)")
     p.add_argument("-f", dest="format", default=None, help="force format (amv)")
     p.add_argument("-r", dest="fps", type=int, default=16, help="frame rate")
     p.add_argument("-s", dest="size", default=None,
-                   help="WxH frame size (required for raw .yuv input)")
-    p.add_argument("-ar", dest="sample_rate", type=int, default=22050)
+                   help="WxH frame size (required for raw .yuv input; "
+                        "rescales AVI and AMV input)")
+    p.add_argument("-sws_flags", dest="sws_flags", default="bicubic",
+                   choices=_SWS, help="rescale filter (libswscale's SWS_* "
+                                      "set; default bicubic like ffmpeg)")
+    p.add_argument("-ar", dest="sample_rate", type=int, default=22050,
+                   help="audio rate (other input rates are resampled)")
     p.add_argument("-ac", dest="channels", type=int, default=1)
     p.add_argument("-qscale", dest="qscale", type=int, default=2)
     p.add_argument("-amv_quant", dest="amv_quant", choices=["ffmpeg", "q60"],
@@ -47,13 +59,21 @@ def main(argv=None) -> int:
                         "encoder's (MPEG-1 matrix x qscale, bit-exact); q60 "
                         "= the decoder's own sp5x Q60 tables (>=30 dB round "
                         "trips)")
+    p.add_argument("-vcodec", dest="vcodec", default="rawvideo",
+                   choices=["rawvideo", "mjpeg", "copy"],
+                   help="AVI output video codec (mjpeg and copy are not yet "
+                        "ported)")
     p.add_argument("-acodec", dest="acodec", choices=["pcm", "copy"],
                    default="pcm", help="WAV output codec (copy is not yet "
                                        "ported)")
+    p.add_argument("-pix_fmt", dest="pix_fmt", default=None,
+                   help="packed pixel format of .rgb/.raw output (not yet "
+                        "ported)")
     p.add_argument("-trellis", dest="trellis", action="store_true",
                    help="Viterbi ADPCM quantizer (not yet ported)")
     p.add_argument("-psnr", dest="psnr", action="store_true",
-                   help="print encode PSNR (not yet ported)")
+                   help="after encoding, print the mean Y/U/V/All PSNR of "
+                        "the output against the encoded planes")
     p.add_argument("--max-frames", type=int, default=None)
     p.add_argument("-t", dest="duration", type=float, default=None,
                    help="limit output duration in seconds (frames = t * "
@@ -72,13 +92,17 @@ def main(argv=None) -> int:
     if args.channels != 1:
         raise SystemExit("-ac must be 1: AMV audio is mono "
                          "(IMA-ADPCM AMV, adpcm.c mono guard)")
-    for flag, on in (("-trellis", args.trellis), ("-psnr", args.psnr),
-                     ("-acodec copy", args.acodec == "copy")):
-        if on:
-            _not_ported(flag)
+    if args.trellis:
+        _not_ported("-trellis", "amv_tpu/codecs/adpcm_trellis.py")
+    if args.acodec == "copy":
+        _not_ported("-acodec copy", "amv_tpu/containers/wav.py:"
+                                    "write_adpcm_raw")
 
     src_ext = os.path.splitext(args.inputs[0])[1].lower()
     out_ext = os.path.splitext(args.output)[1].lower()
+    if ".act" in (src_ext, out_ext) or args.format == "act":
+        _not_ported("G.729A/ACT", "amv_tpu/codecs/g729a.py, "
+                    "g729a_encoder.py and amv_tpu/containers/act.py")
     if args.duration is not None and args.max_frames is None:
         fps = args.fps
         if src_ext == ".amv":
@@ -88,12 +112,13 @@ def main(argv=None) -> int:
         args.max_frames = max(1, int(args.duration * fps))
 
     if args.format == "amv" or out_ext == ".amv":
-        if len(args.inputs) == 1 and src_ext == ".amv" and not args.size:
+        if len(args.inputs) == 1 and src_ext == ".amv" and not args.size \
+                and not args.psnr:
             return _transcode(args)
         return _encode(args)
     if args.format is not None or src_ext != ".amv":
-        _not_ported(f"the route {src_ext or 'raw'} -> "
-                    f"{args.format or out_ext}")
+        raise SystemExit(f"unsupported route {src_ext or 'raw'} -> "
+                         f"{args.format or out_ext}")
     return _decode(args, out_ext)
 
 
@@ -114,15 +139,30 @@ def _transcode(args) -> int:
     return 0
 
 
+_OUTPUTS_NOT_PORTED = {
+    ".bmp": "amv_tpu/cli.py:_write_bmp (over kernels/color.py)",
+    ".jpg": "amv_tpu/bitstream/jpeg_tables.py:canned_jpeg_header",
+    ".jpeg": "amv_tpu/bitstream/jpeg_tables.py:canned_jpeg_header",
+    ".rgb": "amv_tpu/kernels/yuv2rgb_dither.py",
+    ".raw": "amv_tpu/kernels/yuv2rgb_dither.py"}
+_VCODECS_NOT_PORTED = {"mjpeg": "amv_tpu/codecs/mjpeg.py",
+                       "copy": "amv_tpu/bitstream/jpeg_tables.py"}
+
+
 def _decode(args, ext: str) -> int:
-    """AMV -> PCM WAV (kernel A) or raw yuv420p frames (kernels D, U)."""
+    """AMV -> PCM WAV (kernel A), raw yuv420p frames (kernels D, U), or an
+    AVI of I420 frames and PCM (all three)."""
     from .containers import wav
     from .pipeline.decode import decode_file
-    if ext not in (".wav", ".yuv"):
-        _not_ported(f"the decode output {ext or args.output!r}")
-    dec = decode_file(args.inputs[0], video=ext == ".yuv", audio=ext == ".wav",
-                      max_frames=args.max_frames, start_frame=args.seek,
-                      device=args.device)
+    if ext in _OUTPUTS_NOT_PORTED:
+        _not_ported(f"{ext} output", _OUTPUTS_NOT_PORTED[ext])
+    if ext == ".avi" and args.vcodec != "rawvideo":
+        _not_ported(f"-vcodec {args.vcodec}", _VCODECS_NOT_PORTED[args.vcodec])
+    if ext not in (".wav", ".yuv", ".avi"):
+        raise SystemExit(f"unsupported output format: {ext}")
+    dec = decode_file(args.inputs[0], video=ext != ".wav",
+                      audio=ext != ".yuv", max_frames=args.max_frames,
+                      start_frame=args.seek, device=args.device)
     if ext == ".wav":
         wav.write_pcm(args.output, dec.pcm, dec.info.sample_rate,
                       dec.info.channels)
@@ -130,6 +170,15 @@ def _decode(args, ext: str) -> int:
               f"{dec.info.sample_rate} Hz (device {args.device})")
         return 0
     f = dec.y.shape[0]
+    if ext == ".avi":
+        from .containers import avi
+        with open(args.output, "wb") as fh:
+            fh.write(avi.mux(dec.y, dec.cb, dec.cr, dec.pcm,
+                             fps=dec.info.fps_num,
+                             sample_rate=dec.info.sample_rate))
+        print(f"wrote {args.output}: {f} frames I420 + PCM (device "
+              f"{args.device})")
+        return 0
     planes = [p.reshape(f, -1) for p in (dec.y, dec.cb, dec.cr)]
     with open(args.output, "wb") as fh:
         fh.write(np.concatenate(planes, axis=1).tobytes())
@@ -152,52 +201,115 @@ def _read_yuv(path: str, w: int, h: int, max_frames):
     return y, cb, cr
 
 
+def _rescale(args, planes, src_wh, wh, dev):
+    from .kernels.scale import resize_yuv420
+    from .pipeline import upload
+    print(f"rescaling {src_wh[0]}x{src_wh[1]} -> {wh[0]}x{wh[1]} "
+          f"({args.sws_flags})")
+    return resize_yuv420(*(upload(p, dev) for p in planes), wh[1], wh[0],
+                         filt=args.sws_flags)
+
+
+def _resample(pcm, rate: int, args, dev):
+    from .kernels.resample import resample_pcm
+    print(f"resampling audio {rate} -> {args.sample_rate} Hz")
+    return resample_pcm(pcm, rate, args.sample_rate, device=dev)
+
+
 def _encode(args) -> int:
-    """Raw .yuv (+ .wav) -> AMV (kernels V, E and Q), or AMV -> AMV through
-    the full decode and re-encode when -s is given."""
+    """AVI, raw .yuv (+ .wav) or AMV -> AMV (kernels V, E and Q): AVI video
+    unpacked on the device, -s rescaling and -ar resampling there, AMV input
+    through the full decode first."""
     from .containers import wav
+    from .pipeline import resolve_device
     from .pipeline.encode import encode_to_file
-    w = h = None
-    if args.size:
-        w, h = map(int, args.size.lower().split("x"))
-    exts = [os.path.splitext(s)[1].lower() for s in args.inputs]
-    unknown = [e for e in exts if e not in (".yuv", ".wav", ".amv")]
-    if unknown or len(args.inputs) > 2:
-        _not_ported(f"encoding from {', '.join(unknown or exts)}")
-    src = dict(zip(exts, args.inputs))
+    dev = resolve_device(args.device)
+    wh = tuple(map(int, args.size.lower().split("x"))) if args.size else None
+    src = {}
+    for path in args.inputs:
+        ext = os.path.splitext(path)[1].lower()
+        src[ext if ext in (".wav", ".avi", ".amv") else ".yuv"] = path
     pcm = None
     if ".amv" in src:
         from .pipeline.decode import decode_file
         dec = decode_file(src[".amv"], max_frames=args.max_frames,
-                          start_frame=args.seek, device=args.device)
-        if (dec.info.width, dec.info.height) != (w or dec.info.width,
-                                                 h or dec.info.height):
-            _not_ported("rescaling (-s other than the input's size)")
-        w, h = dec.info.width, dec.info.height
+                          start_frame=args.seek, device=dev)
         y, cb, cr, pcm = dec.y, dec.cb, dec.cr, dec.pcm
-        if len(pcm) and dec.info.sample_rate != args.sample_rate:
-            _not_ported("audio resampling (-ar other than the input's rate)")
+        src_wh = (dec.info.width, dec.info.height)
+        wh = wh or src_wh
+        if src_wh != wh:
+            y, cb, cr = _rescale(args, (y, cb, cr), src_wh, wh, dev)
+        if dec.info.sample_rate != args.sample_rate and len(pcm):
+            pcm = _resample(pcm, dec.info.sample_rate, args, dev)
+    elif ".avi" in src:
+        from .containers import avi
+        streams = avi.read(src[".avi"])
+        vst = next((st for st in streams if st.kind == "video"), None)
+        ast = next((st for st in streams if st.kind == "audio"), None)
+        if vst is None:
+            raise SystemExit("AVI input has no video stream")
+        if args.seek:
+            # index-based seek: back up to the nearest keyframe
+            start = avi.seek_frame(vst, args.seek)
+            vst.chunks, vst.index = vst.chunks[start:], vst.index[start:]
+        if args.max_frames:
+            vst.chunks = vst.chunks[:args.max_frames]
+        y, cb, cr = avi.extract_yuv420(vst, device=dev)
+        src_wh = (vst.width, vst.height)
+        if wh and src_wh != wh:
+            y, cb, cr = _rescale(args, (y, cb, cr), src_wh, wh, dev)
+        # only PCM audio is taken from an AVI, as in the JAX package
+        if ast is not None and ast.codec == b"\x01\x00":
+            pcm = avi.extract_pcm(ast, device=dev)
+            rate = ast.sample_rate or args.sample_rate
+            if rate != args.sample_rate:
+                pcm = _resample(pcm, rate, args, dev)
     elif ".yuv" in src:
-        if w is None:
+        if wh is None:
             raise SystemExit("raw YUV encode requires -s WxH")
-        y, cb, cr = _read_yuv(src[".yuv"], w, h, args.max_frames)
+        y, cb, cr = _read_yuv(src[".yuv"], wh[0], wh[1], args.max_frames)
     else:
-        raise SystemExit("encode requires a raw .yuv input")
+        raise SystemExit("encode requires a raw .yuv or .avi input")
     if pcm is None and ".wav" in src:
-        pcm, rate = wav.read_pcm(src[".wav"])
-        if pcm.ndim > 1:
-            pcm = pcm.mean(axis=1).astype(np.int16)
+        from .codecs.wav_audio import downmix
+        pcm, rate = wav.read_pcm(src[".wav"], device=dev)
+        if pcm.dim() > 1:
+            pcm = downmix(pcm)
         if rate != args.sample_rate:
-            _not_ported(f"audio resampling ({rate} -> {args.sample_rate} "
-                        "Hz)")
+            pcm = _resample(pcm, rate, args, dev)
+    n = y.shape[0]
     if pcm is None:
-        pcm = np.zeros(y.shape[0] * args.sample_rate // args.fps, np.int16)
+        pcm = np.zeros(n * args.sample_rate // args.fps, np.int16)
     size = encode_to_file(args.output, y, cb, cr, pcm, fps=args.fps,
                           sample_rate=args.sample_rate, qscale=args.qscale,
-                          quant=args.amv_quant, device=args.device)
-    print(f"wrote {args.output}: {size} bytes, {y.shape[0]} frames "
-          f"(device {args.device})")
+                          quant=args.amv_quant, device=dev)
+    print(f"wrote {args.output}: {size} bytes, {n} frames (device "
+          f"{args.device})")
+    if args.psnr:
+        _print_psnr(args.output, (y, cb, cr), dev)
     return 0
+
+
+def _print_psnr(path: str, planes, dev):
+    """The mean Y/U/V/All PSNR of the file's decoded planes against the
+    encoded ones (CODEC_FLAG_PSNR's summary, mpegvideo_enc.c)."""
+    import torch
+
+    from .pipeline.decode import decode_file
+    dec = decode_file(path, audio=False, device=dev)
+    want = [p.cpu().numpy() if isinstance(p, torch.Tensor) else p
+            for p in planes]
+    sse = [float(np.sum((p.astype(np.int64) - q.astype(np.int64)) ** 2))
+           for p, q in zip((dec.y, dec.cb, dec.cr), want)]
+    cnt = [float(p.size) for p in want]
+
+    def db(s, n):
+        return 99.99 if s == 0 else min(
+            99.99, 10 * np.log10(255.0 * 255.0 * n / s))
+
+    print(f"PSNR Mean Y:{db(sse[0], cnt[0]):2.2f} "
+          f"U:{db(sse[1], cnt[1]):2.2f} V:{db(sse[2], cnt[2]):2.2f} "
+          f"All:{db(sum(sse), sum(cnt)):2.2f}")
 
 
 if __name__ == "__main__":

@@ -79,7 +79,8 @@ def encode_stream(samples: np.ndarray, frame_size: int,
     trellis=True (the Viterbi quantizer) is not yet ported."""
     if trellis:
         raise NotImplementedError(
-            "trellis=True is not yet ported (ROADMAP queue 1, item 7)")
+            "trellis=True is not yet ported: it needs "
+            "amv_tpu/codecs/adpcm_trellis.py")
     ns, starts, padded, reset = stream_layout(
         np.asarray(samples, dtype=np.int16), frame_size, sample_rate)
     if not ns:

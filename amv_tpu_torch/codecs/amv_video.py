@@ -127,13 +127,15 @@ def encode_transform(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
 
 def encode_frames(y, cb, cr, qscale: int = 2, quant: str = "ffmpeg", *,
                   device) -> list[bytes]:
-    """Encode YUV420 frames (uint8 arrays [F, H, W], [F, H/2, W/2] x2) into
-    AMV '00dc' payloads on `device`.  quant "ffmpeg" is byte-identical to
-    the C reference encoder; "q60" quantizes with the decoder's Q60 tables
+    """Encode YUV420 frames (uint8 arrays or tensors [F, H, W], [F, H/2,
+    W/2] x2; tensors already on `device` stay there) into AMV '00dc'
+    payloads on `device`.  quant "ffmpeg" is byte-identical to the C
+    reference encoder; "q60" quantizes with the decoder's Q60 tables
     (`encode_transform`), packed by the same mjpegenc rules."""
     dev = torch.device(device)
-    planes = [torch.as_tensor(np.ascontiguousarray(p, np.uint8)).to(dev)
-              for p in (y, cb, cr)]
+    planes = [(p if isinstance(p, torch.Tensor) else torch.as_tensor(
+        np.ascontiguousarray(p, np.uint8))).to(dev, torch.uint8)
+        for p in (y, cb, cr)]
     levels = encode_planes(*planes, qscale, quant)
     words, bits = pack_levels(levels)
     return native.escape_frames(words.cpu().numpy(), bits.cpu().numpy())

@@ -1,13 +1,15 @@
-"""WAV import/export of 16-bit PCM (the counterpart of `amv_tpu/
-containers/wav.py`'s `write_pcm` and the 16-bit PCM route of its
-`read_pcm`).  Any other format tag or sample width is not yet ported and
-raises."""
+"""WAV import/export: the counterpart of `amv_tpu/containers/wav.py`'s
+`write_pcm` and `read_pcm` (its `write_adpcm_raw`, for `-acodec copy`, is
+not yet ported).  `read_pcm` decodes every format the reference's WAV
+ingest accepts on a device, through `codecs/wav_audio.py`."""
 
 from __future__ import annotations
 
 import struct
 
 import numpy as np
+
+from ..codecs.wav_audio import decode_pcm_bytes
 
 
 def write_pcm(path: str, pcm: np.ndarray, sample_rate: int,
@@ -23,8 +25,10 @@ def write_pcm(path: str, pcm: np.ndarray, sample_rate: int,
         f.write(hdr + data)
 
 
-def read_pcm(path: str):
-    """16-bit PCM WAV -> (pcm int16 [n] or [n, channels], sample rate)."""
+def read_pcm(path: str, *, device):
+    """WAV -> (pcm int16 tensor [n] or [n, channels] on `device`, sample
+    rate): PCM u8/s16/s24/s32, A-law, mu-law (pcm.c:380-470), IMA-ADPCM-WAV
+    (tag 0x11) and MS-ADPCM (tag 0x02) blocks (adpcm.c:983-1106)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:4] != b"RIFF" or data[8:12] != b"WAVE":
@@ -42,15 +46,8 @@ def read_pcm(path: str):
         pos += 8 + size + (size & 1)
     if fmt is None or pcm is None:
         raise ValueError("missing fmt/data chunk")
-    audio_fmt, channels, rate, _, _, bits = fmt
+    audio_fmt, channels, rate, _, block_align, bits = fmt
     if channels < 1:
         raise ValueError("WAV fmt declares zero channels")
-    if audio_fmt != 1 or bits != 16:
-        raise NotImplementedError(
-            f"WAV format tag {audio_fmt} with {bits}-bit samples is not yet "
-            "ported: only 16-bit PCM (ROADMAP queue 1, item 7)")
-    samples = np.frombuffer(pcm[:len(pcm) & ~1], dtype="<i2")
-    samples = samples[:len(samples) // channels * channels]
-    if channels > 1:
-        samples = samples.reshape(-1, channels)
-    return samples, rate
+    return decode_pcm_bytes(pcm, audio_fmt, bits, channels, block_align,
+                            device=device), rate

@@ -22,6 +22,9 @@
 `repeat=R` is the wrap entries' contract: output row i reads input row
 i % C, as over an input tiled R times, without the tiled copy.
 
+`decode_ms_nibbles` is the MS-ADPCM decode of WAV input, torch ops over
+lanes on any device (no kernel: no Pallas kernel carries it in JAX).
+
 On a CUDA tensor the wrappers launch the kernel; on a CPU tensor they run
 the plain version.  Arithmetic: adpcm.c:716-740 (expand) and :219-227
 (compress), as `amv_tpu/verify/ref_adpcm.py`.
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from ..verify.ref_adpcm import STEP_TABLE
+from ..verify.ref_wav_audio import MS_ADAPTATION_TABLE
 from . import _build
 
 DECODE_LAUNCHES = 0   # kernel A
@@ -249,3 +253,35 @@ def encode_streams_plain(samples: torch.Tensor, reset: torch.Tensor,
     out[rows, cols] = packed[half]
     sidx_even[rows, cols] = before[:, 0::2].to(torch.uint8)[half]
     return out.repeat(repeat, 1), sidx_even.repeat(repeat, 1)
+
+
+# --------------------------------------------------- MS-ADPCM decode (WAV)
+
+def decode_ms_nibbles(nibbles: torch.Tensor, coeff1: torch.Tensor,
+                      coeff2: torch.Tensor, idelta: torch.Tensor,
+                      sample1: torch.Tensor, sample2: torch.Tensor
+                      ) -> torch.Tensor:
+    """MS-ADPCM expand (adpcm.c:743-756) of nibble streams int32 [B, n] in
+    emit order, lane-parallel on their device: a loop over the n samples,
+    each step torch ops over the B lanes, as `amv_tpu.kernels.adpcm.
+    decode_ms_nibbles`' lax.scan.  The state vectors (int32 [B], from the
+    block headers) stay int32, so idelta's growth wraps as C's `int` does;
+    C's `/ 256` truncates toward zero.  -> int16 [B, n] (the header's two
+    samples are the caller's)."""
+    dev = nibbles.device
+    adapt = torch.as_tensor(MS_ADAPTATION_TABLE, dtype=torch.int32,
+                            device=dev)
+    c1, c2 = coeff1.to(torch.int32), coeff2.to(torch.int32)
+    s1, s2 = sample1.to(torch.int32), sample2.to(torch.int32)
+    idl = idelta.to(torch.int32)
+    nib = nibbles.to(torch.int32)
+    signed = torch.where(nib >= 8, nib - 16, nib)
+    scale = adapt[nib]
+    out = torch.empty(nib.shape, dtype=torch.int16, device=dev)
+    for t in range(nib.shape[1]):
+        pred = s1 * c1 + s2 * c2
+        pred = (pred + ((pred >> 31) & 255)) >> 8
+        s1, s2 = (pred + signed[:, t] * idl).clamp(-32768, 32767), s1
+        idl = torch.clamp((scale[:, t] * idl) >> 8, min=16)
+        out[:, t] = s1
+    return out

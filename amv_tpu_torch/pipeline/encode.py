@@ -13,6 +13,7 @@ amvenc.c:276-281).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..codecs import amv_audio, amv_video
 from ..containers import riff
@@ -24,17 +25,21 @@ def av_rescale_near(a: int, b: int, c: int) -> int:
     return (2 * a * b + c) // (2 * c)
 
 
-def encode_to_bytes(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
-                    pcm: np.ndarray, *, fps: int = 16,
+def encode_to_bytes(y, cb, cr, pcm, *, fps: int = 16,
                     sample_rate: int = 22050, qscale: int = 2,
                     quant: str = "ffmpeg", device) -> bytes:
     """Encode video frames + PCM into a complete .amv file on `device`;
-    byte-identical to `amv_tpu.pipeline.encode.encode_to_bytes`."""
+    byte-identical to `amv_tpu.pipeline.encode.encode_to_bytes`.  The
+    planes (uint8 [F, H, W], [F, H/2, W/2] x2) and the PCM (int16 [n]) are
+    numpy arrays or tensors: planes already on the device go to kernel V
+    from there."""
     dev = resolve_device(device)
     _, h, w = y.shape
     video_chunks = amv_video.encode_frames(y, cb, cr, qscale=qscale,
                                            quant=quant, device=dev)
     frame_size = av_rescale_near(sample_rate, 1, fps)
+    if isinstance(pcm, torch.Tensor):
+        pcm = pcm.cpu().numpy()
     audio_chunks = amv_audio.encode_stream(
         np.asarray(pcm, np.int16), frame_size, sample_rate, device=dev)
     return riff.mux(video_chunks, audio_chunks, width=w, height=h, fps=fps,

@@ -2,8 +2,9 @@
 """Start the PyTorch/CUDA port (amv_tpu_torch) on one NVIDIA GPU and check
 its paths end to end: the complete AMV->AMV transcode (with each of its
 entropy encoders), the record-IR decode, the AMV decode (video and audio),
-the AMV encode, the q60 quantizer, odd picture sizes and the served
-transcode on CUDA streams.
+the AMV encode, the q60 quantizer, odd picture sizes, the served
+transcode on CUDA streams, and the encode's ingest (AVI input, -s
+rescaling, -ar resampling, every WAVE format).
 
     python3 chip_smoke.py
 
@@ -92,7 +93,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     (9,600 frames, over AMV_SERVE_THRESHOLD) through the served route and,
     with the threshold above the file, the whole-file route, byte-identical
     to C, with both frames/s; the whole-file route's stages one by one
-    with the pinned copies and the packed escape.
+    with the pinned copies and the packed escape;
+12. ingest: a 5-minute AVI (4,800 frames of 320x240 I420 from 160 seeded
+    pictures, tiled, and 44,100 Hz mono s16 PCM, 0.58 GB) through the
+    reference's canonical `cli.main -i in.avi -f amv -r 16 -s 160x120 -ac 1
+    -ar 22050` x3, frames/s: video byte-identical to the C encoder of the
+    CPU route's scaled planes, audio to the ADPCM oracle of its resampled
+    PCM, the card's scaled planes and PCM equal to the CPU route's, V, E
+    and Q launched; the stages one by one (read, demux, host staging,
+    host->device, unpack, scale, audio extract, resample, V, E count, E,
+    device->host, escape, audio layout and copies, Q, mux); 64 frames of
+    each raw AVI format (BGR24 and a colour pal8 at 330x240: padded rows)
+    and each -sws_flags value on the card against the CPU route; 300 s of
+    44,100 Hz stereo in each WAVE format (u8, s16, s24, s32, A-law, mu-law,
+    IMA-WAV and MS-ADPCM at block_align 2,048) decoded on the card against
+    the CPU route and, on the first 64 blocks, the scalar oracles, with
+    Msamples/s; kernel A launched for IMA-WAV; MS-ADPCM's lane loop timed
+    alone.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -139,6 +156,27 @@ OPS_SCATTER = 8      # a record expanded (record_expand.cu)
 OPS_RECORD = 12      # a record packed (record_pack.cu: its length in the
                      # scan, the code's mask and shifts, one or two ORs)
 
+# phase 12, ingest: a 5-minute capture of 320x240 I420 frames and 44,100 Hz
+# PCM through the reference's canonical `-s 160x120 -ar 22050`
+AVI_W, AVI_H, AVI_RATE = 320, 240, 44100
+N_UNIQUE = 160       # distinct seeded pictures, tiled to N_FRAMES
+N_FMT = 64           # frames of each raw AVI format, each -sws_flags value
+WAV_S = 300.0        # seconds of 44,100 Hz stereo in each WAVE format
+WAV_BLOCK = 2048     # IMA-WAV's and MS-ADPCM's block_align
+INGEST_FORMATS = (   # (fourcc, bits, width, colour palette, RGB16 masks)
+    (b"I420", 12, 320, False, None), (b"IYUV", 12, 320, False, None),
+    (b"YV12", 12, 320, False, None), (b"YUY2", 16, 320, False, None),
+    (b"YUYV", 16, 320, False, None), (b"V422", 16, 320, False, None),
+    (b"YUNV", 16, 320, False, None), (b"UYVY", 16, 320, False, None),
+    (b"Y422", 16, 320, False, None), (b"UYNV", 16, 320, False, None),
+    (b"Y800", 8, 320, False, None), (b"GREY", 8, 320, False, None),
+    (b"DIB ", 8, 320, False, None), (b"DIB ", 8, 330, True, None),
+    (b"DIB ", 16, 320, False, None),
+    (b"DIB ", 16, 320, False, (0xF800, 0x07E0, 0x001F)),
+    (b"DIB ", 24, 330, False, None), (b"DIB ", 32, 320, False, None))
+SWS_FLAGS = ("bilinear", "bicubic", "point", "area", "lanczos", "gauss",
+             "sinc", "spline", "experimental", "bicublin")
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -148,8 +186,10 @@ def import_port() -> SimpleNamespace:
     """The port's modules this script drives; nothing of JAX or amv_tpu."""
     from amv_tpu_torch import cli, native
     from amv_tpu_torch.codecs import amv_audio, amv_video, jpeg_tables
-    from amv_tpu_torch.containers import riff, wav
+    from amv_tpu_torch.codecs import wav_audio
+    from amv_tpu_torch.containers import avi, riff, wav
     from amv_tpu_torch.kernels import _build, adpcm, fdct, idct
+    from amv_tpu_torch.kernels import color, resample, scale
     from amv_tpu_torch.kernels import decode_fused as U
     from amv_tpu_torch.kernels import encode_fused as V
     from amv_tpu_torch.kernels import entropy_decode as D
@@ -163,7 +203,7 @@ def import_port() -> SimpleNamespace:
     from amv_tpu_torch.pipeline import transcode as P
     from amv_tpu_torch.tools import time_serving as tools_s
     from amv_tpu_torch.tools import time_transcode_kernel as tools_t
-    from amv_tpu_torch.verify import fixtures, ref_adpcm
+    from amv_tpu_torch.verify import fixtures, ref_adpcm, ref_wav_audio
     return SimpleNamespace(**locals())
 
 
@@ -564,6 +604,273 @@ def serving_phase(m, dev, pays, want, audio, data, paths) -> None:
     log_split("transcode (pinned copies, packed escape)", split,
               f"; words copied to the host {tuple(words.shape)}")
 
+
+def wav_streams(seconds, rng):
+    """{name: (format tag, bits, block_align, bytes)}: `seconds` of 44,100
+    Hz stereo in each WAVE format the ingest decodes, from seeded random
+    bytes (every byte pattern is a valid sample or nibble); the ADPCM
+    blocks' headers are set in range (IMA step index 0-99, MS predictor
+    0-6 and idelta -200-4,000)."""
+    n = int(seconds * AVI_RATE) * 2                 # both channels' samples
+    out = {name: (fmt, bits, bits // 4, rng.integers(
+        0, 256, n * bits // 8, dtype=np.uint8).tobytes())
+        for name, fmt, bits in (("u8", 1, 8), ("s16", 1, 16), ("s24", 1, 24),
+                                ("s32", 1, 32), ("alaw", 6, 8),
+                                ("mulaw", 7, 8))}
+    ima = rng.integers(0, 256, (-(-n // (2 * (WAV_BLOCK - 8))), WAV_BLOCK),
+                       dtype=np.uint8)
+    ima[:, [2, 6]] = rng.integers(0, 100, (len(ima), 2))
+    ima[:, [3, 7]] = 0
+    out["ima"] = (0x11, 4, WAV_BLOCK, ima.tobytes())
+    ms = rng.integers(0, 256, (-(-n // (2 * (WAV_BLOCK - 14) + 4)),
+                               WAV_BLOCK), dtype=np.uint8)
+    ms[:, :2] = rng.integers(0, 7, (len(ms), 2))
+    ms[:, 2:6] = rng.integers(-200, 4000, (len(ms), 2)).astype(
+        "<i2").view(np.uint8)
+    out["ms"] = (2, 4, WAV_BLOCK, ms.tobytes())
+    return out
+
+
+def wav_oracle(m, fmt, bits, ba, data, n_blocks):
+    """The port's scalar oracles on a stream's first n_blocks blocks (of
+    block_align bytes for ADPCM; of WAV_BLOCK stereo samples for PCM):
+    int16 [samples, 2]."""
+    if fmt in (2, 0x11):
+        return m.ref_wav_audio.decode_blocks(
+            data[:n_blocks * ba], 2, ba, "ima" if fmt == 0x11 else "ms")
+    w = bits // 8
+    b = np.frombuffer(data, np.uint8, min(len(data) // (2 * w),
+                                          n_blocks * WAV_BLOCK) * 2 * w)
+    if fmt in (6, 7):
+        table = m.ref_wav_audio.ALAW_TABLE if fmt == 6 else \
+            m.ref_wav_audio.ULAW_TABLE
+        return table[b].reshape(-1, 2)
+    if bits == 8:                                  # pcm.c: (x - 128) << 8
+        return ((b.astype(np.int16) - 128) << 8).reshape(-1, 2)
+    # pcm.c decode_to16: the top 16 bits of each sample
+    return b.reshape(-1, w)[:, w - 2:].copy().view("<i2").reshape(-1, 2)
+
+
+def ingest_phase(m, dev, paths, card, n_frames=N_FRAMES, n_unique=N_UNIQUE,
+                 n_fmt=N_FMT, wav_s=WAV_S) -> None:
+    """Phase 12: an AVI of n_frames 320x240 I420 frames (n_unique seeded
+    pictures, tiled) and mono s16 PCM at 44,100 Hz through the canonical
+    `-f amv -r 16 -s 160x120 -ac 1 -ar 22050` (cli.main x3): video equal to
+    the C encoder on the CPU route's scaled planes, audio to the ADPCM
+    oracle on its resampled PCM, the card's planes and PCM equal to the
+    CPU route's, V, E and Q launched; the stages one by one; each raw AVI
+    format and each -sws_flags value on the card against the CPU route;
+    each WAVE format's decode against the CPU route and the scalar
+    oracles, with its Msamples/s."""
+    import torch
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t12 = time.perf_counter()
+    pics = pictures(m, n_unique, AVI_H, AVI_W, seed=3)
+    reps = -(-n_frames // n_unique)
+    tiled = [np.concatenate([p] * reps)[:n_frames] for p in pics]
+    pcm_in = m.fixtures.audiogen(n_frames / FPS, AVI_RATE, seed=3)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in.avi"), os.path.join(tmp, "out.amv")
+        with open(src, "wb") as f:
+            f.write(m.avi.mux(*tiled, pcm_in, fps=FPS, sample_rate=AVI_RATE))
+        size = os.path.getsize(src)
+        del tiled
+        warm = os.path.join(tmp, "warm.avi")
+        with open(warm, "wb") as f:
+            f.write(m.avi.mux(*(p[:16] for p in pics), pcm_in[:AVI_RATE],
+                              fps=FPS, sample_rate=AVI_RATE))
+        log(f"ingest input: {n_frames} frames {AVI_W}x{AVI_H} I420 ({n_unique}"
+            f" seeded pictures tiled) + {len(pcm_in)} samples of 44,100 Hz "
+            f"mono s16, muxed by avi.mux: {size} bytes; "
+            f"{time.perf_counter() - t12:.1f} s")
+        argv = ["-i", src, "-f", "amv", "-r", str(FPS), "-s", f"{W}x{H}",
+                "-ac", "1", "-ar", str(RATE), dst, "--device", dev.type]
+        m.cli.main(["-i", warm, *argv[2:-3], os.path.join(tmp, "w.amv"),
+                    "--device", dev.type])                         # warm-up
+        sync()
+        reset_launches(m)
+        wall, walls = timed_cli(m, argv)
+        paths["ingest"] = launches(m)
+        assert all(paths["ingest"][k] > 0 for k in ("V", "E", "E count",
+                                                    "Q")), paths
+        with open(dst, "rb") as f:
+            out = m.riff.demux(f.read())
+        log(f"{card}: ingest, cli.main -i in.avi -f amv -r 16 -s 160x120 -ac "
+            f"1 -ar 22050 x3, {n_frames} frames in "
+            f"{', '.join(f'{t:.3f}' for t in walls)} s, median {wall:.3f} s "
+            f"= {n_frames / wall:.1f} frames/s; launches {paths['ingest']}")
+
+        # the CPU route's planes and PCM, and the card's, by the same calls
+        vst, ast = m.avi.read(src)
+        cpu = torch.device("cpu")
+
+        def route(d):
+            planes = m.scale.resize_yuv420(
+                *m.avi.extract_yuv420(vst, device=d), H, W)
+            pcm = m.resample.resample_pcm(m.avi.extract_pcm(ast, device=d),
+                                          AVI_RATE, RATE, device=d)
+            return [t.cpu() for t in (*planes, pcm)]
+
+        want = route(cpu)
+        assert all(torch.equal(a, b) for a, b in zip(route(dev), want)), \
+            "the card's planes or PCM differ from the CPU route's"
+        y, cb, cr, pcm = (t.numpy() for t in want)
+        uniq = [m.native.ref_encode_frame(y[i], cb[i], cr[i], QSCALE)
+                for i in range(min(n_unique, n_frames))]
+        assert all(np.array_equal(p[i], p[i % n_unique]) for p in (y, cb, cr)
+                   for i in range(n_frames))
+        assert out.video_chunks == [uniq[i % n_unique]
+                                    for i in range(n_frames)], \
+            "ingest video differs from the C encoder"
+        frame_size = m.encode.av_rescale_near(RATE, 1, FPS)
+        t0 = time.perf_counter()
+        assert out.audio_chunks == m.ref_adpcm.encode(pcm, frame_size, RATE),\
+            "ingest audio differs from the ADPCM oracle"
+        log(f"ingest: video byte-identical to the C encoder of the CPU "
+            f"route's scaled planes ({n_unique} distinct), {len(pcm)} "
+            f"resampled samples and {len(out.audio_chunks)} audio chunks "
+            f"equal to the oracle's (which took "
+            f"{time.perf_counter() - t0:.1f} s); the card's planes and PCM "
+            "equal the CPU route's")
+
+        # the stages one by one, each with a synchronize after it
+        split = {}
+        fb = AVI_W * AVI_H * 3 // 2
+        host = torch.empty((n_frames, fb), dtype=torch.uint8, pin_memory=cuda)
+
+        def read():
+            with open(src, "rb") as f:
+                return f.read()
+
+        data = staged(split, "read", read)
+        vst, ast = staged(split, "demux", lambda: m.avi.demux(data))
+
+        def stage_host():
+            hv = host.numpy()
+            for i, c in enumerate(vst.chunks):
+                hv[i] = np.frombuffer(c, np.uint8, fb)
+
+        staged(split, "host staging (pinned)", stage_host)
+        buf = staged(split, "host->device", lambda: host.to(
+            dev, non_blocking=True))
+        planes = staged(split, "device unpack", lambda: [
+            t.clone() for t in m.avi._unpack("i420", buf, vst, None)])
+        scaled = staged(split, "device scale", lambda: m.scale.resize_yuv420(
+            *planes, H, W))
+        pcm_d = staged(split, "audio extract", lambda: m.avi.extract_pcm(
+            ast, device=dev))
+        pcm_r = staged(split, "device resample", lambda: (
+            m.resample.resample_pcm(pcm_d, AVI_RATE, RATE, device=dev)))
+        lv = staged(split, "device V", lambda: m.V.encode_planes(*scaled,
+                                                                 QSCALE))
+        bits = staged(split, "device E count", lambda: m.E.count_bits(lv))
+        words, bits, _ = staged(split, "device E", lambda: m.E.encode_levels(
+            lv, m.amv_video.used_words(bits)))
+        w_np, b_np = staged(split, "device->host words", lambda: (
+            words.cpu().numpy(), bits.cpu().numpy()))
+        vch = staged(split, "escape", lambda: m.native.escape_frames(w_np,
+                                                                     b_np))
+        pcm_h = staged(split, "device->host pcm", lambda: pcm_r.cpu().numpy())
+        lay = staged(split, "audio layout", lambda: (
+            m.amv_audio.stream_layout(pcm_h, frame_size, RATE)))
+        tq = staged(split, "audio to device", lambda: [
+            torch.from_numpy(a[None]).to(dev) for a in lay[2:]])
+        staged(split, "device Q", lambda: m.adpcm.encode_streams(
+            *tq, torch.zeros(1, dtype=torch.int32, device=dev)))
+        achunks = m.amv_audio.encode_stream(pcm_h, frame_size, RATE,
+                                            device=dev)
+        staged(split, "mux", lambda: m.riff.mux(
+            vch, achunks, width=W, height=H, fps=FPS, sample_rate=RATE))
+        assert vch == out.video_chunks and achunks == out.audio_chunks
+        log_split(f"{card}: ingest", split,
+                  f"; {n_frames} frames, all at once (the CLI unpacks and "
+                  "scales in batches of 1,024)")
+        del host, buf, planes, scaled, lv, words, data, vst, ast
+
+    # each raw AVI format on the card against the CPU route
+    rng = np.random.default_rng(12)
+    fmt_ms = {}
+    for codec, bits, w, pal, masks in INGEST_FORMATS:
+        kw = dict(codec=codec, bits=bits, width=w, height=AVI_H)
+        if pal:
+            kw["palette"] = rng.integers(0, 256, (256, 4), dtype=np.uint8)
+        if masks:
+            kw["bitmasks"] = masks
+        fb = m.avi._layout(m.avi.AviStream("video", **kw))[1]
+        raw = rng.integers(0, 256, (n_fmt, fb), dtype=np.uint8)
+        st = m.avi.AviStream("video", chunks=[r.tobytes() for r in raw], **kw)
+        got = staged(fmt_ms, f"{codec.decode().strip() or 'BI_RGB'}/{bits}"
+                     f"{'/565' if masks else ''}{'/pal' if pal else ''}"
+                     f"/{w}", lambda: m.avi.extract_yuv420(st, device=dev))
+        want = m.avi.extract_yuv420(st, device=cpu)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)), codec
+    log(f"{card}: {n_fmt} frames of each raw AVI format unpacked on the card"
+        " equal to the CPU route; ms (host clock, one call after a "
+        "synchronize): " + ", ".join(f"{k} {v * 1e3:.2f}"
+                                     for k, v in fmt_ms.items()))
+
+    # each -sws_flags value on the I420 file's first frames
+    first = [torch.from_numpy(np.ascontiguousarray(p[:n_fmt])) for p in pics]
+    sws_ms = {}
+    for filt in SWS_FLAGS:
+        on = [t.to(dev) for t in first]
+        got = staged(sws_ms, filt, lambda: m.scale.resize_yuv420(
+            *on, H, W, filt=filt))
+        want = m.scale.resize_yuv420(*first, H, W, filt=filt)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)), filt
+    log(f"{card}: each -sws_flags value, {n_fmt} frames {AVI_W}x{AVI_H} -> "
+        f"{W}x{H} on the card equal to the CPU route; ms (host clock): " +
+        ", ".join(f"{k} {v * 1e3:.2f}" for k, v in sws_ms.items()))
+
+    # each WAVE format: the card against the CPU route and the oracles
+    a0 = m.adpcm.DECODE_LAUNCHES
+    rates = {}
+    for name, (fmt, bits, ba, data) in wav_streams(wav_s, rng).items():
+        def dec(d=dev):
+            return m.wav_audio.decode_pcm_bytes(data, fmt, bits, 2, ba,
+                                                device=d)
+
+        a1 = m.adpcm.DECODE_LAUNCHES
+        dec()
+        sync()
+        launched = m.adpcm.DECODE_LAUNCHES - a1
+        assert (launched > 0) == (name == "ima"), (name, launched)
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = dec()
+            sync()
+            ts.append(time.perf_counter() - t0)
+        want = dec(cpu)
+        assert torch.equal(got.cpu(), want), name
+        head = wav_oracle(m, fmt, bits, ba, data, 64)
+        assert np.array_equal(want[:len(head)].numpy(), head), name
+        t = statistics.median(ts)
+        rates[name] = (want.numel() / t / 1e6, t)
+        if name == "ms":
+            lanes = m.wav_audio._lanes(data, 2, ba, 14, m.wav_audio._ms_lanes)
+            tl = [torch.from_numpy(a).to(dev) for a in lanes[1]]
+
+            def loop():
+                return m.adpcm.decode_ms_nibbles(*tl)
+
+            if cuda:
+                ms_loop = cuda_ms(loop, 3)[0]
+            else:
+                one = {}
+                staged(one, "loop", loop)
+                ms_loop = one["loop"] * 1e3
+    paths["wav ima"] = {"A": m.adpcm.DECODE_LAUNCHES - a0}
+    log(f"{card}: WAVE decodes of {wav_s:.0f} s of 44,100 Hz stereo, on the "
+        "card equal to the CPU route and (first 64 blocks) the scalar "
+        "oracles; Msamples/s (both channels, median of 3, host clock): " +
+        ", ".join(f"{k} {r:.1f} ({t * 1e3:.1f} ms)"
+                  for k, (r, t) in rates.items()) +
+        f"; kernel A launched {paths['wav ima']['A']} times for IMA-WAV" +
+        f"; MS-ADPCM's decode_ms_nibbles loop alone {ms_loop:.1f} ms "
+        f"(CUDA events) of its {rates['ms'][1] * 1e3:.1f} ms")
+    log(f"phase 12 took {time.perf_counter() - t12:.1f} s")
 
 def main() -> int:
     smi = subprocess.run(
@@ -1230,7 +1537,8 @@ def main() -> int:
                          raw[:, :W * H].reshape(-1, H, W),
                          raw[:, W * H:W * H * 5 // 4].reshape(-1, H // 2, W // 2),
                          raw[:, W * H * 5 // 4:].reshape(-1, H // 2, W // 2))
-        got_pcm, rate = m.wav.read_pcm(wavp)
+        got_pcm, rate = m.wav.read_pcm(wavp, device="cpu")
+        got_pcm = got_pcm.numpy()
         assert rate == RATE
         pos = 0
         for i in range(len(audio)):
@@ -1512,6 +1820,9 @@ def main() -> int:
     t11 = time.perf_counter()
     serving_phase(m, dev, pays, want_c, audio, data, paths)
     log(f"phase 11 took {time.perf_counter() - t11:.1f} s")
+
+    # ---- 12. ingest -------------------------------------------------
+    ingest_phase(m, dev, paths, smi)
     log(f"total {time.perf_counter() - t_start:.1f} s after the imports")
 
     kernels = []

@@ -10,6 +10,8 @@ file imports only the port (its own copies of the host layer and the
 oracles), so it runs where `amv_tpu` cannot be built.
 """
 
+import struct
+
 import numpy as np
 import pytest
 
@@ -944,3 +946,158 @@ def test_serving_cuda_malformed_frame_in_batch_two(dev, served_clip):
         tr.transcode(pays)
     tr.w_bytes = None
     assert tr.transcode(served_clip[0]) == served_clip[1]
+
+
+# ------------------------------------------------ ingest: AVI, WAV, -s, -ar
+
+_INGEST_FORMATS = [(b"I420", 12, None), (b"YV12", 12, None),
+                   (b"YUY2", 16, None), (b"UYVY", 16, None),
+                   (b"Y800", 8, None), (b"DIB ", 8, "pal"),
+                   (b"DIB ", 16, None), (b"DIB ", 16, (0xF800, 0x7E0, 0x1F)),
+                   (b"DIB ", 24, None), (b"DIB ", 32, None)]
+
+
+@pytest.mark.parametrize("codec,bits,extra", _INGEST_FORMATS)
+def test_extract_yuv420_cuda_matches_cpu(dev, codec, bits, extra):
+    """Each raw AVI format unpacked on the card (batches of 2 frames: the
+    pinned slots reused) equals the CPU route, at 330 x 24 (BGR24 and pal8
+    rows padded)."""
+    from amv_tpu_torch.containers import avi
+    rng = np.random.default_rng(bits)
+    kw = dict(codec=codec, width=330, height=24, bits=bits)
+    if extra == "pal":
+        kw["palette"] = rng.integers(0, 256, (256, 4), dtype=np.uint8)
+    elif extra:
+        kw["bitmasks"] = extra
+    fb = avi._layout(avi.AviStream("video", **kw))[1]
+    kw["chunks"] = [bytes(rng.integers(0, 256, fb, dtype=np.uint8))
+                    for _ in range(5)]
+    old = avi.BATCH_FRAMES
+    avi.BATCH_FRAMES = 2
+    try:
+        got = avi.extract_yuv420(avi.AviStream("video", **kw), device=dev)
+    finally:
+        avi.BATCH_FRAMES = old
+    want = avi.extract_yuv420(avi.AviStream("video", **kw), device="cpu")
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("filt", ["bilinear", "bicubic", "point", "area",
+                                  "lanczos", "gauss", "sinc", "spline",
+                                  "experimental", "bicublin"])
+def test_scale_and_color_cuda_match_cpu(dev, filt):
+    from amv_tpu_torch.kernels import color, scale
+    rng = np.random.default_rng(3)
+    planes = [torch.from_numpy(rng.integers(0, 256, s, dtype=np.uint8))
+              for s in ((3, 240, 320), (3, 120, 160), (3, 120, 160))]
+    for dst in ((120, 160), (144, 176), (360, 480)):
+        got = scale.resize_yuv420(*(p.to(dev) for p in planes), *dst,
+                                  filt=filt)
+        want = scale.resize_yuv420(*planes, *dst, filt=filt)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    rgb = torch.from_numpy(rng.integers(0, 256, (2, 24, 30, 3),
+                                        dtype=np.uint8))
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(
+        color.rgb_to_yuv420_bt601(rgb.to(dev)),
+        color.rgb_to_yuv420_bt601(rgb)))
+    for mode in ("bt601", "amvlib"):
+        assert torch.equal(color.yuv420_to_rgb(
+            *(p.to(dev) for p in planes), mode=mode).cpu(),
+            color.yuv420_to_rgb(*planes, mode=mode))
+
+
+@pytest.mark.parametrize("rates", [(44100, 22050), (48000, 22050),
+                                   (8000, 22050), (22050, 8000)])
+def test_resample_cuda_matches_cpu(dev, rates):
+    from amv_tpu_torch.kernels import resample
+    x = np.random.default_rng(1).integers(-32768, 32768, 100003).astype(
+        np.int16)
+    x[:300] = 32767
+    x[300:600:2] = -32768
+    assert torch.equal(resample.resample_pcm(x, *rates, device=dev).cpu(),
+                       resample.resample_pcm(x, *rates, device="cpu"))
+
+
+def _wav_payload(fmt, ch, rng, blocks=40):
+    """(bits, block_align, bytes) of a seeded stream in WAVE format fmt."""
+    if fmt == 0x11:
+        ba = 2048
+        body = b"".join(
+            b"".join(struct.pack("<hBB", int(rng.integers(-32768, 32768)),
+                                 int(rng.integers(0, 100)), 0)
+                     for _ in range(ch)) +
+            bytes(rng.integers(0, 256, ba - 4 * ch, dtype=np.uint8))
+            for _ in range(blocks))
+        return 4, ba, body + body[:ba // 3]          # a short last block
+    if fmt == 2:
+        ba = 2048
+        body = b""
+        for _ in range(blocks):
+            hdr = bytes(int(rng.integers(0, 7)) for _ in range(ch))
+            hdr += b"".join(struct.pack("<h", int(rng.integers(-200, 4000)))
+                            for _ in range(ch))
+            hdr += b"".join(struct.pack("<h", int(rng.integers(-32768, 32768)))
+                            for _ in range(2 * ch))
+            body += hdr + bytes(rng.integers(0, 256, ba - 7 * ch,
+                                             dtype=np.uint8))
+        return 4, ba, body + body[:ba // 3]
+    bits = {1: 16, 6: 8, 7: 8}.get(fmt, 8)
+    return bits, ch * bits // 8, bytes(rng.integers(0, 256, 40001,
+                                                    dtype=np.uint8))
+
+
+@pytest.mark.parametrize("fmt,bits", [(1, 8), (1, 16), (1, 24), (1, 32),
+                                      (6, 8), (7, 8), (0x11, 4), (2, 4)])
+@pytest.mark.parametrize("ch", [1, 2])
+def test_wav_decodes_cuda_match_cpu(dev, fmt, bits, ch):
+    """Each WAVE format decoded on the card equals the CPU route and the
+    port's scalar oracle on its first blocks; IMA-WAV launches kernel A."""
+    from amv_tpu_torch.codecs import wav_audio
+    from amv_tpu_torch.verify import ref_wav_audio
+    rng = np.random.default_rng(fmt * 3 + ch)
+    _, ba, data = _wav_payload(fmt, ch, rng)
+    if fmt == 1:
+        ba = ch * bits // 8
+    a0 = AQ.DECODE_LAUNCHES
+    got = wav_audio.decode_pcm_bytes(data, fmt, bits, ch, ba, device=dev)
+    assert (AQ.DECODE_LAUNCHES > a0) == (fmt == 0x11)
+    want = wav_audio.decode_pcm_bytes(data, fmt, bits, ch, ba, device="cpu")
+    assert torch.equal(got.cpu(), want)
+    if fmt in (0x11, 2):
+        head = ref_wav_audio.decode_blocks(data[:8 * ba], ch, ba,
+                                           "ima" if fmt == 0x11 else "ms")
+        n = head.shape[0]
+        assert np.array_equal(want.reshape(-1, ch)[:n].numpy(), head)
+
+
+def test_cli_avi_route_cuda_matches_cpu(dev, tmp_path):
+    """The canonical `-i in.avi -f amv -r 16 -s 160x120 -ac 1 -ar 22050` on
+    the card: the same bytes as the CPU route, with V, E and Q launched,
+    and the video equal to the C encoder on the CPU route's planes."""
+    from amv_tpu_torch import cli
+    from amv_tpu_torch.containers import avi
+    from amv_tpu_torch.kernels import resample, scale
+    y, cb, cr = fixtures.videogen(20, 240, 320, seed=4)
+    pcm = fixtures.audiogen(20 / 16, 44100, seed=4)
+    src = tmp_path / "in.avi"
+    src.write_bytes(avi.mux(y, cb[:, :120, :160], cr[:, :120, :160], pcm,
+                            fps=16, sample_rate=44100))
+    argv = ["-i", str(src), "-f", "amv", "-r", "16", "-s", "160x120", "-ac",
+            "1", "-ar", "22050"]
+    launches = (V.LAUNCHES, E.LAUNCHES, AQ.ENCODE_LAUNCHES)
+    assert cli.main([*argv, str(tmp_path / "gpu.amv"), "--device", "cuda"]) \
+        == 0
+    assert all(b > a for a, b in zip(launches, (V.LAUNCHES, E.LAUNCHES,
+                                                AQ.ENCODE_LAUNCHES)))
+    assert cli.main([*argv, str(tmp_path / "cpu.amv"), "--device", "cpu"]) \
+        == 0
+    got = (tmp_path / "gpu.amv").read_bytes()
+    assert got == (tmp_path / "cpu.amv").read_bytes()
+    planes = scale.resize_yuv420(*(torch.from_numpy(np.ascontiguousarray(p))
+                                   for p in (y, cb[:, :120, :160],
+                                             cr[:, :120, :160])), 120, 160)
+    s = riff.demux(got)
+    assert s.video_chunks == [native.ref_encode_frame(
+        *(p[i].numpy() for p in planes), 2) for i in range(20)]
+    want_pcm = resample.resample_pcm(pcm, 44100, 22050, device="cpu")
+    assert s.audio_chunks == ref_adpcm.encode(want_pcm.numpy(), 1378, 22050)

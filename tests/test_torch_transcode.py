@@ -174,6 +174,10 @@ def test_port_never_imports_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert len(mods) > 20 and "amv_tpu_torch.pipeline.serving" in mods
+    assert {"amv_tpu_torch.containers.avi", "amv_tpu_torch.kernels.color",
+            "amv_tpu_torch.kernels.scale", "amv_tpu_torch.kernels.resample",
+            "amv_tpu_torch.codecs.wav_audio",
+            "amv_tpu_torch.verify.ref_wav_audio"} <= set(mods)
     pat = re.compile(r"^\s*(import amv_tpu\b|from amv_tpu(\.|\s+import\b))",
                      re.M)
     hits = [f for f in _port_sources() if pat.search(open(f).read())]
