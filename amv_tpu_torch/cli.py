@@ -9,13 +9,19 @@
   python -m amv_tpu_torch -i in.yuv -i in.wav -f amv -s 160x120 -r 16 \\
       -ar 22050 out.amv                                         # encode
   python -m amv_tpu_torch -i in.amv -f amv -s 96x72 -psnr out.amv
+  python -m amv_tpu_torch -i cam_mjpg.avi -f amv -r 16 -s 160x120 -ac 1 \
+      -ar 22050 -trellis out.amv                                # MJPG in
+  python -m amv_tpu_torch -i in.amv -vcodec mjpeg out.avi       # MJPG out
+  python -m amv_tpu_torch -i in.amv -vcodec copy out.avi        # AMV scans
+  python -m amv_tpu_torch -i in.amv frames/f_%04d.jpg           # AMV scans
+  python -m amv_tpu_torch -i in.amv -acodec copy out.wav        # raw ADPCM
   ... --device cpu                                              # plain versions
 
 Every route runs on the GPU (`--device cuda`, the default) unless the
 caller asks for the CPU.  The flags are `amv_tpu.cli`'s.  Still refused,
-each naming the `amv_tpu` module it waits for: -trellis, -acodec copy,
--vcodec mjpeg|copy, .rgb/.raw (-pix_fmt), .bmp and .jpg outputs, MJPEG
-AVI input, G.729A/ACT, --info and --compare.
+each naming the `amv_tpu` module it waits for: .rgb/.raw (-pix_fmt) and
+.bmp outputs, progressive and lossless MJPEG input, G.729A/ACT, --info
+and --compare.
 """
 
 from __future__ import annotations
@@ -61,16 +67,21 @@ def main(argv=None) -> int:
                         "trips)")
     p.add_argument("-vcodec", dest="vcodec", default="rawvideo",
                    choices=["rawvideo", "mjpeg", "copy"],
-                   help="AVI output video codec (mjpeg and copy are not yet "
-                        "ported)")
+                   help="AVI output video codec: rawvideo (I420), mjpeg "
+                        "(baseline JPEG frames with full headers) or copy "
+                        "(the AMV scans under the canned JPEG header, "
+                        "sp5xdec.c:50-88; bottom-up as stored)")
     p.add_argument("-acodec", dest="acodec", choices=["pcm", "copy"],
-                   default="pcm", help="WAV output codec (copy is not yet "
-                                       "ported)")
+                   default="pcm",
+                   help="WAV output codec: pcm (decode) or copy (the raw "
+                        "IMA-ADPCM chunks with a fact header, "
+                        "AMVDec.c:447-530)")
     p.add_argument("-pix_fmt", dest="pix_fmt", default=None,
                    help="packed pixel format of .rgb/.raw output (not yet "
                         "ported)")
     p.add_argument("-trellis", dest="trellis", action="store_true",
-                   help="Viterbi ADPCM quantizer (not yet ported)")
+                   help="Viterbi ADPCM quantizer (kernel L; lower audio "
+                        "distortion)")
     p.add_argument("-psnr", dest="psnr", action="store_true",
                    help="after encoding, print the mean Y/U/V/All PSNR of "
                         "the output against the encoded planes")
@@ -92,11 +103,6 @@ def main(argv=None) -> int:
     if args.channels != 1:
         raise SystemExit("-ac must be 1: AMV audio is mono "
                          "(IMA-ADPCM AMV, adpcm.c mono guard)")
-    if args.trellis:
-        _not_ported("-trellis", "amv_tpu/codecs/adpcm_trellis.py")
-    if args.acodec == "copy":
-        _not_ported("-acodec copy", "amv_tpu/containers/wav.py:"
-                                    "write_adpcm_raw")
 
     src_ext = os.path.splitext(args.inputs[0])[1].lower()
     out_ext = os.path.splitext(args.output)[1].lower()
@@ -141,48 +147,99 @@ def _transcode(args) -> int:
 
 _OUTPUTS_NOT_PORTED = {
     ".bmp": "amv_tpu/cli.py:_write_bmp (over kernels/color.py)",
-    ".jpg": "amv_tpu/bitstream/jpeg_tables.py:canned_jpeg_header",
-    ".jpeg": "amv_tpu/bitstream/jpeg_tables.py:canned_jpeg_header",
     ".rgb": "amv_tpu/kernels/yuv2rgb_dither.py",
     ".raw": "amv_tpu/kernels/yuv2rgb_dither.py"}
-_VCODECS_NOT_PORTED = {"mjpeg": "amv_tpu/codecs/mjpeg.py",
-                       "copy": "amv_tpu/bitstream/jpeg_tables.py"}
+
+
+def _export_jpeg(path: str, payload: bytes, width: int, height: int):
+    """One AMV frame as a canonical JPEG (sp5xdec.c:50-88): the canned
+    header, the stored scan, EOI.  The picture stays upside down, as
+    stored (the AMV flip lives in the decoders)."""
+    from .codecs.jpeg_tables import canned_jpeg_header
+    with open(path, "wb") as f:
+        f.write(canned_jpeg_header(width, height))
+        f.write(payload[2:len(payload) - 2])
+        f.write(b"\xFF\xD9")
 
 
 def _decode(args, ext: str) -> int:
-    """AMV -> PCM WAV (kernel A), raw yuv420p frames (kernels D, U), or an
-    AVI of I420 frames and PCM (all three)."""
-    from .containers import wav
+    """AMV -> PCM WAV (kernel A) or the raw ADPCM chunks (-acodec copy),
+    raw yuv420p frames (kernels D, U), an AVI of I420, MJPEG (kernels V, E)
+    or copied AMV scans and PCM, or JPEG files of the stored scans."""
+    from .containers import riff, wav
     from .pipeline.decode import decode_file
     if ext in _OUTPUTS_NOT_PORTED:
         _not_ported(f"{ext} output", _OUTPUTS_NOT_PORTED[ext])
-    if ext == ".avi" and args.vcodec != "rawvideo":
-        _not_ported(f"-vcodec {args.vcodec}", _VCODECS_NOT_PORTED[args.vcodec])
-    if ext not in (".wav", ".yuv", ".avi"):
+    if ext not in (".wav", ".yuv", ".avi", ".jpg", ".jpeg"):
         raise SystemExit(f"unsupported output format: {ext}")
-    dec = decode_file(args.inputs[0], video=ext != ".wav",
-                      audio=ext != ".yuv", max_frames=args.max_frames,
-                      start_frame=args.seek, device=args.device)
+    src, out = args.inputs[0], args.output
+    if ext == ".wav" and args.acodec == "copy":
+        s = riff.read(src)
+        chunks = s.audio_chunks[args.seek:]
+        if args.max_frames:
+            chunks = chunks[:args.max_frames]
+        wav.write_adpcm_raw(out, chunks, s.info.sample_rate)
+        print(f"wrote {out}: {len(chunks)} raw ADPCM chunks @ "
+              f"{s.info.sample_rate} Hz (stream copy)")
+        return 0
+    if ext in (".jpg", ".jpeg"):
+        s = riff.read(src)
+        n = len(s.video_chunks[:args.max_frames] if args.max_frames
+                else s.video_chunks)
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        for i in range(n if "%" in out else min(n, 1)):
+            _export_jpeg(out % i if "%" in out else out, s.video_chunks[i],
+                         s.info.width, s.info.height)
+        print(f"wrote {n if '%' in out else 1} JPEG frame(s)")
+        return 0
+    if ext == ".avi" and args.vcodec == "copy":
+        from .codecs.jpeg_tables import canned_jpeg_header
+        from .containers import avi
+        s = riff.read(src)
+        vchunks = s.video_chunks[args.seek:]
+        if args.max_frames:
+            vchunks = vchunks[:args.max_frames]
+        hdr = canned_jpeg_header(s.info.width, s.info.height)
+        chunks = [hdr + c[2:len(c) - 2] + b"\xFF\xD9" for c in vchunks]
+        dec = decode_file(src, video=False, max_frames=args.max_frames,
+                          start_frame=args.seek, device=args.device)
+        geom = np.broadcast_to(np.uint8(0), (len(chunks), s.info.height,
+                                             s.info.width))   # shape only
+        with open(out, "wb") as fh:
+            fh.write(avi.mux(geom, geom, geom, dec.pcm, fps=s.info.fps_num,
+                             sample_rate=s.info.sample_rate,
+                             video_chunks=chunks))
+        print(f"wrote {out}: {len(chunks)} frames MJPG (stream copy) + PCM")
+        return 0
+    dec = decode_file(src, video=ext != ".wav", audio=ext != ".yuv",
+                      max_frames=args.max_frames, start_frame=args.seek,
+                      device=args.device)
     if ext == ".wav":
-        wav.write_pcm(args.output, dec.pcm, dec.info.sample_rate,
-                      dec.info.channels)
-        print(f"wrote {args.output}: {len(dec.pcm)} samples @ "
+        wav.write_pcm(out, dec.pcm, dec.info.sample_rate, dec.info.channels)
+        print(f"wrote {out}: {len(dec.pcm)} samples @ "
               f"{dec.info.sample_rate} Hz (device {args.device})")
         return 0
     f = dec.y.shape[0]
     if ext == ".avi":
         from .containers import avi
-        with open(args.output, "wb") as fh:
+        chunks = None
+        if args.vcodec == "mjpeg":
+            from .codecs.mjpeg import encode_mjpeg_frames
+            chunks = encode_mjpeg_frames(dec.y, dec.cb, dec.cr,
+                                         qscale=args.qscale or 2,
+                                         device=args.device)
+        with open(out, "wb") as fh:
             fh.write(avi.mux(dec.y, dec.cb, dec.cr, dec.pcm,
                              fps=dec.info.fps_num,
-                             sample_rate=dec.info.sample_rate))
-        print(f"wrote {args.output}: {f} frames I420 + PCM (device "
-              f"{args.device})")
+                             sample_rate=dec.info.sample_rate,
+                             video_chunks=chunks))
+        print(f"wrote {out}: {f} frames {'MJPG' if chunks else 'I420'} + "
+              f"PCM (device {args.device})")
         return 0
     planes = [p.reshape(f, -1) for p in (dec.y, dec.cb, dec.cr)]
-    with open(args.output, "wb") as fh:
+    with open(out, "wb") as fh:
         fh.write(np.concatenate(planes, axis=1).tobytes())
-    print(f"wrote {args.output}: {f} frames {dec.info.width}x"
+    print(f"wrote {out}: {f} frames {dec.info.width}x"
           f"{dec.info.height} yuv420p (device {args.device})")
     return 0
 
@@ -254,7 +311,10 @@ def _encode(args) -> int:
             vst.chunks, vst.index = vst.chunks[start:], vst.index[start:]
         if args.max_frames:
             vst.chunks = vst.chunks[:args.max_frames]
-        y, cb, cr = avi.extract_yuv420(vst, device=dev)
+        try:
+            y, cb, cr = avi.extract_yuv420(vst, device=dev)
+        except NotImplementedError as e:
+            raise SystemExit(f"{e} {_USE_JAX}") from None
         src_wh = (vst.width, vst.height)
         if wh and src_wh != wh:
             y, cb, cr = _rescale(args, (y, cb, cr), src_wh, wh, dev)
@@ -282,7 +342,8 @@ def _encode(args) -> int:
         pcm = np.zeros(n * args.sample_rate // args.fps, np.int16)
     size = encode_to_file(args.output, y, cb, cr, pcm, fps=args.fps,
                           sample_rate=args.sample_rate, qscale=args.qscale,
-                          quant=args.amv_quant, device=dev)
+                          trellis=args.trellis, quant=args.amv_quant,
+                          device=dev)
     print(f"wrote {args.output}: {size} bytes, {n} frames (device "
           f"{args.device})")
     if args.psnr:

@@ -9,7 +9,10 @@ AMVmuxer/ffmpeg/libavcodec/adpcm.c:
 * encode: chunk scheduling with odd-frame carry and second-boundary
   padding (adpcm.c:461-496), step_index carried across chunks,
   prev_sample reset to each chunk's first input sample; the whole stream
-  is one launch of kernel Q.
+  is one launch of kernel Q.  trellis=True (the reference's `-trellis`,
+  `amv_tpu/codecs/amv_audio.py:_encode_stream_trellis`) runs the Viterbi
+  quantizer of kernel L over the chunks, its chain started from kernel Q's
+  step indices at the chunk starts (`kernels.adpcm_trellis.encode_chain`).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 
 from ..kernels.adpcm import decode_chunks as _decode
 from ..kernels.adpcm import encode_streams
+from ..kernels.adpcm_trellis import encode_chain
 from ..verify.ref_adpcm import chunk_lengths
 
 
@@ -75,27 +79,33 @@ def encode_stream(samples: np.ndarray, frame_size: int,
                   sample_rate: int = 22050, init_step_index: int = 0,
                   trellis: bool = False, *, device) -> list[bytes]:
     """Encode an int16 PCM stream into AMV '01wb' chunk payloads on
-    `device`; byte-identical to `amv_tpu.verify.ref_adpcm.encode`.
-    trellis=True (the Viterbi quantizer) is not yet ported."""
-    if trellis:
-        raise NotImplementedError(
-            "trellis=True is not yet ported: it needs "
-            "amv_tpu/codecs/adpcm_trellis.py")
+    `device`; byte-identical to `amv_tpu.verify.ref_adpcm.encode`, or with
+    trellis=True (the Viterbi quantizer, kernel L) to the JAX package's
+    `encode_stream(trellis=True)`."""
     ns, starts, padded, reset = stream_layout(
         np.asarray(samples, dtype=np.int16), frame_size, sample_rate)
     if not ns:
         return []
     dev = torch.device(device)
+    x = torch.from_numpy(padded).to(dev)
     packed, sidx_even = encode_streams(
-        torch.from_numpy(padded[None]).to(dev),
-        torch.from_numpy(reset[None]).to(dev),
+        x[None], torch.from_numpy(reset[None]).to(dev),
         torch.tensor([init_step_index], dtype=torch.int32, device=dev))
-    packed = packed[0].cpu().numpy()
-    sidx_at = sidx_even[0].cpu().numpy()
+    starts_d = torch.from_numpy(starts).to(dev)
+    sidx_at = sidx_even[0, starts_d // 2]
+    if trellis:
+        # Q's step indices at the chunk starts are the chain's round-1
+        # guesses
+        packed, sidx_at, _ = encode_chain(
+            x, starts_d, torch.tensor(ns, dtype=torch.int32, device=dev),
+            init_step_index, sidx_at.to(torch.int32))
+    else:
+        packed = packed[0]
+    packed, sidx_at = packed.cpu().numpy(), sidx_at.cpu().numpy()
     chunks = []
     for k, n in enumerate(ns):
         s = int(starts[k])
-        header = struct.pack("<hHI", int(padded[s]), int(sidx_at[s // 2]),
+        header = struct.pack("<hHI", int(padded[s]), int(sidx_at[k]),
                              (n << 1) & 0xFFFFFFFF)
         chunks.append(header + packed[s // 2: s // 2 + n].tobytes())
     return chunks

@@ -9,6 +9,11 @@ The port's own copy of what it reads from `amv_tpu/bitstream/jpeg_tables.py`:
 * the MPEG-1 default intra matrix, the basis of the encoder's quantizer
   (mpeg12data.c, applied at mpegvideo_enc.c:2866-2876);
 * canonical code assignment and the flat 16-bit-peek decode table;
+* the headers written with these tables: the K.3 DHT segment (`DHT_K3`),
+  `canned_jpeg_header` (the one the reference's AMV decoder prepends,
+  `amv_tpu/bitstream/jpeg_tables.py:canned_jpeg_header`) and the
+  encoder's dequant matrix `encoder_quant_matrix` (the one an MJPEG header
+  carries);
 
 and the forms derived from them once, as numpy arrays, that the kernels
 read (the wrappers copy them to a device once per device, `device_table`):
@@ -185,6 +190,49 @@ QDC_CHROMA = int(SP5X_QUANT_CHROMA_ZZ[0])
 
 _HUFF = ((BITS_DC_LUMA, VALS_DC_LUMA), (BITS_DC_CHROMA, VALS_DC_CHROMA),
          (BITS_AC_LUMA, VALS_AC_LUMA), (BITS_AC_CHROMA, VALS_AC_CHROMA))
+
+
+UNZIGZAG = np.argsort(ZIGZAG).astype(np.int32)   # raster -> scan position
+
+
+def encoder_quant_matrix(qscale: int) -> np.ndarray:
+    """The encoder's quantizer matrix int32 [64], raster order: MPEG-1's
+    intra matrix x qscale / 8, clipped to 0..255, DC 8
+    (`amv_tpu.codecs.amv_video._encoder_quant_matrix`)."""
+    m = np.empty(64, dtype=np.int32)
+    m[0] = MPEG1_INTRA_MATRIX[0]
+    m[1:] = np.clip((MPEG1_INTRA_MATRIX[1:] * qscale) >> 3, 0, 255)
+    return m
+
+
+def _dht_k3() -> bytes:
+    """The payload of a DHT segment with the four K.3 tables (DC luma 0,
+    DC chroma 1, AC luma 0, AC chroma 1)."""
+    dht = bytearray()
+    for tclass, tid, (bits, vals) in zip((0, 0, 1, 1), (0, 1, 0, 1), _HUFF):
+        dht.append((tclass << 4) | tid)
+        dht += bytes(bits[1:].astype(np.uint8))
+        dht += bytes(vals.astype(np.uint8))
+    return b"\xFF\xC4" + (len(dht) + 2).to_bytes(2, "big") + bytes(dht)
+
+
+DHT_K3 = _dht_k3()
+
+
+def canned_jpeg_header(width: int, height: int) -> bytes:
+    """The canonical JPEG header the reference's AMV decoder prepends to
+    each frame (sp5xdec.c:50-74): SOI, DQT of the Q60 pair, the K.3 DHT,
+    SOF0 of a 4:2:0 picture and SOS."""
+    out = bytearray(b"\xFF\xD8\xFF\xDB\x00\x84\x00")
+    out += bytes(SP5X_QUANT_LUMA_ZZ.astype(np.uint8)) + b"\x01"
+    out += bytes(SP5X_QUANT_CHROMA_ZZ.astype(np.uint8))
+    out += DHT_K3
+    out += b"\xFF\xC0\x00\x11\x08"
+    out += int(height).to_bytes(2, "big") + int(width).to_bytes(2, "big")
+    out += b"\x03" + b"\x01\x22\x00" + b"\x02\x11\x01" + b"\x03\x11\x01"
+    out += b"\xFF\xDA\x00\x0C\x03" + b"\x01\x00" + b"\x02\x11" + b"\x03\x11"
+    out += b"\x00\x3F\x00"
+    return bytes(out)
 
 
 def encoder_qmat(qscale) -> np.ndarray:

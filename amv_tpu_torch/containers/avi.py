@@ -12,8 +12,11 @@ avi.py` (the reference pipeline's input and output).
   YUY2/YUYV/V422/YUNV, UYVY/Y422/UYNV, Y800/GREY, gray and colour pal8
   DIBs, RGB555 and BI_BITFIELDS RGB565, BGR24 (rows padded to 4 bytes)
   and BGRX32 (RGB DIBs are bottom-up), the RGB ones through
-  `kernels.color.rgb_to_yuv420_bt601`.  MJPG/JPEG streams are not yet
-  ported;
+  `kernels.color.rgb_to_yuv420_bt601`.  MJPG/JPEG streams decode
+  through `codecs.mjpeg` (baseline frames, BATCH_FRAMES a batch) and go
+  to 4:2:0 on the device: 4:4:4 chroma by the rounded 2x2 mean, 4:2:2 by
+  the rounded mean of row pairs (odd widths cropped to w/2), gray with
+  chroma 128, interlaced frames cropped to the container's height;
 * `extract_pcm`: the audio stream to mono int16 on the device
   (`codecs.wav_audio`);
 * mux: an AVI of I420 video and mono s16 PCM with an idx1 index (copied).
@@ -275,10 +278,6 @@ def _layout(st: AviStream):
     """(format, bytes a frame's unpacking reads) of a raw-video stream, in
     the JAX package's order of tests."""
     w, h, tag = st.width, st.height, bytes(st.codec).upper()
-    if tag.startswith((b"MJPG", b"JPEG")):
-        raise NotImplementedError(
-            f"AVI video {st.codec!r} is not yet ported: it needs "
-            "amv_tpu/codecs/mjpeg.py (with amv_tpu/bitstream/)")
     if tag.startswith((b"I420", b"IYUV")):
         return "i420", w * h * 3 // 2
     if tag.startswith(b"YV12"):
@@ -357,13 +356,58 @@ def _unpack(fmt: str, buf: torch.Tensor, st: AviStream, lut):
     return rgb_to_yuv420_bt601(rgb)
 
 
+def _downsample_chroma(c: torch.Tensor) -> torch.Tensor:
+    """Full-size chroma [F, H, W] -> 4:2:0 by the rounded 2x2 mean
+    (libswscale's default chroma reduction)."""
+    _, h, w = c.shape
+    c = c[:, :h & ~1, :w & ~1].to(torch.int32)
+    return ((c[:, 0::2, 0::2] + c[:, 0::2, 1::2] + c[:, 1::2, 0::2] +
+             c[:, 1::2, 1::2] + 2) >> 2).to(torch.uint8)
+
+
+def mjpeg_to_yuv420(y, cb, cr, w: int, h: int):
+    """Decoded MJPEG planes (`codecs.mjpeg.decode_mjpeg_frames`) -> 4:2:0
+    planes of a w x h stream (`amv_tpu.containers.avi.extract_yuv420`'s
+    MJPG branch): interlaced frames cropped to h rows, gray with chroma
+    128, 4:4:4 and 4:2:2 chroma reduced by rounded means."""
+    if y.shape[1] > h:
+        # interlaced: the coded height is 2 x the field height, which may
+        # pad past the container's height
+        ratio = 1 if cb is None else y.shape[1] // cb.shape[1]
+        y = y[:, :h]
+        if cb is not None:
+            cb, cr = cb[:, :h // ratio], cr[:, :h // ratio]
+    if cb is None:                                      # gray
+        gray = torch.full((y.shape[0], h // 2, w // 2), 128,
+                          dtype=torch.uint8, device=y.device)
+        return y, gray, gray.clone()
+    if tuple(cb.shape[1:]) == (h, w):                   # 4:4:4
+        return y, _downsample_chroma(cb), _downsample_chroma(cr)
+    if tuple(cb.shape[1:]) == (h, (w + 1) // 2):        # 4:2:2
+        # odd-width 4:2:2 chroma is (w + 1) // 2 wide: crop it to w // 2
+        h2 = h & ~1
+
+        def rows_mean(c):
+            c = c[:, :, :w // 2].to(torch.int32)
+            return ((c[:, 0:h2:2] + c[:, 1:h2:2] + 1) >> 1).to(torch.uint8)
+
+        return y, rows_mean(cb), rows_mean(cr)
+    return y, cb, cr
+
+
 def extract_yuv420(st: AviStream, *, device):
-    """Decode a raw-video AVI stream's chunks to (y, cb, cr) uint8 tensors
+    """Decode an AVI video stream's chunks to (y, cb, cr) uint8 tensors
     [F, H, W], [F, H/2, W/2] x2 on `device`, equal to the JAX package's
     planes.  Format breadth: libswscale's inputs (swscale.c
-    isSupportedIn), as listed in the module docstring."""
+    isSupportedIn) and baseline MJPEG, as listed in the module
+    docstring."""
     dev = resolve_device(device)
     w, h, n = st.width, st.height, len(st.chunks)
+    if n and bytes(st.codec).upper().startswith((b"MJPG", b"JPEG")):
+        from ..codecs.mjpeg import decode_mjpeg_frames
+        return mjpeg_to_yuv420(*decode_mjpeg_frames(
+            st.chunks, org_height=h, device=dev, batch_frames=BATCH_FRAMES),
+            w, h)
     planes = (torch.empty((n, h, w), dtype=torch.uint8, device=dev),
               torch.empty((n, h // 2, w // 2), dtype=torch.uint8, device=dev),
               torch.empty((n, h // 2, w // 2), dtype=torch.uint8, device=dev))

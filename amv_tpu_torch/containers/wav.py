@@ -1,7 +1,7 @@
 """WAV import/export: the counterpart of `amv_tpu/containers/wav.py`'s
-`write_pcm` and `read_pcm` (its `write_adpcm_raw`, for `-acodec copy`, is
-not yet ported).  `read_pcm` decodes every format the reference's WAV
-ingest accepts on a device, through `codecs/wav_audio.py`."""
+`write_pcm`, `write_adpcm_raw` (`-acodec copy`) and `read_pcm`.
+`read_pcm` decodes every format the reference's WAV ingest accepts on a
+device, through `codecs/wav_audio.py`."""
 
 from __future__ import annotations
 
@@ -20,6 +20,25 @@ def write_pcm(path: str, pcm: np.ndarray, sample_rate: int,
     hdr = b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVE"
     hdr += b"fmt " + struct.pack("<IHHIIHH", 16, 1, channels, sample_rate,
                                  sample_rate * block_align, block_align, 16)
+    hdr += b"data" + struct.pack("<I", len(data))
+    with open(path, "wb") as f:
+        f.write(hdr + data)
+
+
+def write_adpcm_raw(path: str, chunks: list[bytes], sample_rate: int,
+                    channels: int = 1):
+    """Raw IMA-ADPCM WAV with a fact header (AMVDec.c:447-530 layout): the
+    '01wb' payloads stream-copied, their 8-byte headers included, under
+    wFormatTag 0x11; the fact chunk sums the headers' sample counts."""
+    data = b"".join(chunks)
+    total_samples = sum(
+        struct.unpack_from("<I", c, 4)[0] for c in chunks if len(c) >= 8)
+    block_align = 2 * channels
+    hdr = b"RIFF" + struct.pack("<I", 4 + 26 + 12 + 8 + len(data)) + b"WAVE"
+    hdr += b"fmt " + struct.pack("<IHHIIHHHH", 18, 0x11, channels,
+                                 sample_rate, sample_rate // 2, block_align,
+                                 4, 0, 0)
+    hdr += b"fact" + struct.pack("<II", 4, total_samples)
     hdr += b"data" + struct.pack("<I", len(data))
     with open(path, "wb") as f:
         f.write(hdr + data)

@@ -47,6 +47,7 @@ _SIGNATURES = {
     "amv_adpcm_decode": [_P, _I64, _P, _P, _I64, _I64, _P, _P],
     "amv_adpcm_encode": [_P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P],
     "amv_adpcm_encode_scratch": [_I64, _I64, _I64],
+    "amv_trellis": [_P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
 }
 
 # entries that return something other than an int status

@@ -2,8 +2,10 @@
 
 The same Python signatures as `amv_tpu.native.entropy_native` for what the
 port uses: the host byte passes of the video paths (`unescape_frames`,
-`escape_frames`) and the single-core C reference oracles
-(`ref_decode_frame`, `ref_encode_frame`, `ref_adpcm_decode`).
+`escape_frames`), the baseline MJPEG scan decode with a frame's own tables
+(`decode_scans_custom`) and its K.3 scan pack (`pack_scans_generic`), and
+the single-core C reference oracles (`ref_decode_frame`,
+`ref_encode_frame`, `ref_adpcm_decode`).
 
 At first use gcc compiles entropy.c into build/amv_tpu_torch/ at the
 repository root (beside the CUDA library); the library is rebuilt when
@@ -42,6 +44,12 @@ _SIGNATURES = {   # name -> (restype, argtypes)
         ctypes.c_int64]),
     "adpcm_ref_decode": (ctypes.c_int64, [
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P16]),
+    "amv_decode_scans_custom": (ctypes.c_int, [
+        ctypes.c_char_p, _P64, _P64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, _P8, _P8, _P8, _P16]),
+    "amv_pack_scans_generic": (ctypes.c_int64, [
+        _P16, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P8, ctypes.c_int,
+        _P8, ctypes.c_int64, _P64, _P64]),
 }
 
 _lib = None
@@ -157,6 +165,90 @@ def escape_frames(words: np.ndarray, bits: np.ndarray) -> list[bytes]:
     """(words int32 [F, w_out] big-endian scan words, bits [F]) -> framed
     '00dc' payload bytes per frame (1-pad + 0xFF00 escape + SOI/EOI)."""
     buf, offsets, lens = escape_packed(words, bits)
+    return [buf[o:o + n].tobytes() for o, n in zip(offsets.tolist(),
+                                                   lens.tolist())]
+
+
+def decode_scans_custom(scans: list[bytes], n_mcu: int, huff: dict,
+                        tab_pairs: list, restart_interval: int = 0,
+                        out: np.ndarray | None = None) -> np.ndarray:
+    """Baseline-MJPEG scan decode with arbitrary parsed tables, any
+    interleaved sampling (blocks/MCU from len(tab_pairs)) and optional
+    restart markers (mjpegdec.c:533-548 RSTn resync).
+
+    scans: raw escaped scan byte strings (no SOI/EOI);
+    huff: {(class, id): (bits[17], vals[...])} as parsed from DHT;
+    tab_pairs: per MCU block b, (dc_id, ac_id) table ids — 6 entries
+        for 4:2:0, 4 for 4:2:2, 3 for 4:4:4, 1 for grayscale;
+    restart_interval: MCUs between RSTn markers (0 = none).  DC levels
+        stay raw differences; the caller's cumsum must reset per
+        restart segment.
+    Returns int16 [F, n_mcu, n_blk, 64] zigzag levels (slot 0 = DC diff),
+    into `out` when given (C-contiguous, that shape; pinned host memory,
+    say): the decoder writes every element.  A malformed table or scan
+    raises ValueError.
+    """
+    n_blk = len(tab_pairs)
+    bits8 = np.zeros((8, 17), np.uint8)
+    vals8 = np.zeros((8, 256), np.uint8)
+    for (cls, tid), (bits, vals) in huff.items():
+        # untrusted DHT data: bound-check before the C table build (which
+        # also validates the canonical Kraft bound itself)
+        if cls not in (0, 1) or not 0 <= tid <= 3:
+            raise ValueError(f"bad Huffman table id ({cls},{tid})")
+        if len(bits) != 17 or len(vals) > 256 or \
+                int(np.sum(bits[1:])) != len(vals):
+            raise ValueError(f"inconsistent DHT ({cls},{tid}): "
+                             f"{int(np.sum(bits[1:]))} codes, "
+                             f"{len(vals)} values")
+        slot = cls * 4 + tid
+        bits8[slot, :len(bits)] = bits
+        vals8[slot, :len(vals)] = vals
+    tab_ids = np.zeros((n_blk, 2), np.uint8)
+    for b, (dc_id, ac_id) in enumerate(tab_pairs):
+        if not (0 <= dc_id <= 3 and 0 <= ac_id <= 3):
+            raise ValueError(f"bad scan table selector ({dc_id},{ac_id})")
+        tab_ids[b] = (dc_id, 4 + ac_id)
+    blob, offsets, sizes = _blob(scans)
+    shape = (len(scans), n_mcu, n_blk, 64)
+    if out is None:
+        out = np.empty(shape, dtype=np.int16)
+    elif out.shape != shape or out.dtype != np.int16 or \
+            not out.flags.c_contiguous:
+        raise ValueError(f"out must be C-contiguous int16 {shape}")
+    rc = library().amv_decode_scans_custom(
+        blob, offsets.ctypes.data_as(_P64), sizes.ctypes.data_as(_P64),
+        len(scans), n_mcu, n_blk, restart_interval,
+        bits8.ctypes.data_as(_P8), vals8.ctypes.data_as(_P8),
+        tab_ids.ctypes.data_as(_P8), out.ctypes.data_as(_P16))
+    if rc != 0:
+        raise ValueError(f"native custom-table decode failed (rc={rc})")
+    return out
+
+
+def pack_scans_generic(levels: np.ndarray, comp_of,
+                       restart_interval: int = 0) -> list[bytes]:
+    """K.3 Huffman pack of zigzag levels int16 [F, n_mcu, n_blk, 64] (slot
+    0 the absolute DC; block b of component comp_of[b], luma tables for 0)
+    with RSTn markers and DC resets every restart_interval MCUs -> each
+    frame's escaped scan (no SOI/EOI), `amv_tpu.codecs.mjpeg.
+    _pack_scan_generic`'s bytes."""
+    lv = np.ascontiguousarray(levels, np.int16)
+    f, n_mcu, n_blk, _ = lv.shape
+    comp = np.ascontiguousarray(comp_of, np.uint8)
+    if comp.shape != (n_blk,):
+        raise ValueError(f"comp_of must have {n_blk} entries")
+    # a token takes at most 32 bits before escaping, escaping at most
+    # doubles the bytes, and each MCU may add a pad byte and a marker
+    cap = 2 * (4 * lv.size + 3 * f * n_mcu) + 16
+    buf = np.empty(cap, np.uint8)
+    offsets, lens = np.empty(f, np.int64), np.empty(f, np.int64)
+    rc = library().amv_pack_scans_generic(
+        lv.ctypes.data_as(_P16), f, n_mcu, n_blk, comp.ctypes.data_as(_P8),
+        restart_interval, buf.ctypes.data_as(_P8), cap,
+        offsets.ctypes.data_as(_P64), lens.ctypes.data_as(_P64))
+    if rc < 0:
+        raise ValueError(f"native scan pack overflowed (rc={rc})")
     return [buf[o:o + n].tobytes() for o, n in zip(offsets.tolist(),
                                                    lens.tolist())]
 

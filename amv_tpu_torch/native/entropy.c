@@ -7,7 +7,11 @@
  *    stuffing, the host stages of every video path;
  *  - amv_ref_decode_frame / amv_ref_encode_frame / adpcm_ref_decode: the
  *    full scalar decode and encode (entropy + integer DCT + assembly),
- *    the ground truth the port's outputs are held against.
+ *    the ground truth the port's outputs are held against;
+ *  - amv_decode_scans_custom / amv_pack_scans_generic: the baseline MJPEG
+ *    scan decode with a frame's own Huffman tables, any interleaved
+ *    sampling and restart markers (the host route of MJPEG input), and
+ *    the K.3 scan pack of the same layouts (mjpeg.py's generic encoder).
  *
  * The subset of amv_tpu/native/entropy.c that the port uses, copied so
  * that the port depends on nothing of amv_tpu; the two stay byte for
@@ -334,6 +338,109 @@ static int decode_scan_levels(const uint8_t *scan, size_t scan_len,
     return 0;
 }
 
+/* Generic-table variant for standard baseline MJPEG (mjpegdec.c with
+ * per-frame DHT), the port of amv_tpu/native/entropy.c:
+ * amv_decode_scans_custom: caller supplies up to 8 Huffman specs (slots
+ * 0-3 = DC classes id 0-3, slots 4-7 = AC id 0-3) and a per-block (dc,ac)
+ * slot map for the n_blk blocks of one interleaved MCU (6 for 4:2:0, 4 for
+ * 4:2:2, 3 for 4:4:4, 1 for grayscale).  restart_interval > 0 resyncs to
+ * the byte-aligned RSTn marker every that many MCUs (mjpegdec.c:533-548;
+ * DC prediction reset is the caller's segmented cumsum — levels here are
+ * raw differences).  Input rows are raw *escaped* scan bytes (no SOI/EOI
+ * framing).  Levels come out in zigzag order with slot 0 = DC difference.
+ * Untrusted input: the unescape reads sizes[f] bytes of the frame's row,
+ * the bit reader reads within the unescaped scan and zero-fills past it,
+ * a table whose code counts break the Kraft bound or whose selector is
+ * above 7 is refused, and every coefficient index is checked. */
+API int amv_decode_scans_custom(const uint8_t *scan_blob,
+                                const int64_t *offsets, const int64_t *sizes,
+                                int n_frames, int n_mcu, int n_blk,
+                                int restart_interval,
+                                const uint8_t *bits8 /* [8][17] */,
+                                const uint8_t *vals8 /* [8][256] */,
+                                const uint8_t *tab_ids /* [n_blk][2] */,
+                                int16_t *out_levels) {
+    DecTable *tabs = (DecTable *)malloc(8 * sizeof(DecTable));
+    if (!tabs) return -1000000;
+    EncTable scratch;
+    int bad[8];
+    for (int t = 0; t < 8; t++)
+        bad[t] = build_tables_one(&tabs[t], &scratch,
+                                  bits8 + t * 17, vals8 + t * 256) != 0;
+    for (int b = 0; b < n_blk; b++) {
+        int di = tab_ids[b * 2], ai = tab_ids[b * 2 + 1];
+        if (di > 7 || ai > 7 || bad[di] || bad[ai]) {
+            free(tabs);
+            return -7000000 - b;   /* malformed or unusable table */
+        }
+    }
+    size_t max_sz = 0;
+    for (int f = 0; f < n_frames; f++)
+        if ((size_t)sizes[f] > max_sz) max_sz = (size_t)sizes[f];
+    uint8_t *tmp = (uint8_t *)malloc(max_sz + 64);
+    if (!tmp) { free(tabs); return -1000000; }
+    int rc = 0;
+    for (int f = 0; f < n_frames && rc == 0; f++) {
+        size_t scan_len = unescape(scan_blob + offsets[f],
+                                   (size_t)sizes[f], tmp);
+        int16_t *out = out_levels + (size_t)f * n_mcu * n_blk * 64;
+        memset(out, 0, (size_t)n_mcu * n_blk * 64 * sizeof(int16_t));
+        BitReader br;
+        br_init(&br, tmp, scan_len);
+        for (int m = 0; m < n_mcu && rc == 0; m++) {
+            if (restart_interval > 0 && m > 0 && m % restart_interval == 0) {
+                br_skip(&br, br.bits & 7);        /* byte align */
+                uint32_t pk = br_peek16(&br);
+                if ((pk & 0xFFF8) == 0xFFD0) br_skip(&br, 16);
+                else { rc = -(int)(m * n_blk + 1) - 4000000; break; }
+            }
+            for (int b = 0; b < n_blk; b++) {
+                DecTable *dc = &tabs[tab_ids[b * 2]];
+                DecTable *ac = &tabs[tab_ids[b * 2 + 1]];
+                int16_t *blk = out + ((size_t)m * n_blk + b) * 64;
+                uint32_t peek = br_peek16(&br);
+                uint32_t ent = dc->e1[peek >> 8];
+                if (!ent) ent = dc->e[peek];
+                int len = (int)(ent & 31);
+                if (!len) { rc = -(int)(m * n_blk + b + 1) - 3000000; break; }
+                int sym = (int)(ent >> 5);
+                /* custom tables may map any 0..255 value here, but a DC
+                 * size > 15 is malformed (and would shift-overflow the
+                 * 64-bit xbits read) — mjpegdec.c rejects it the same */
+                if (sym > 15) { rc = -(int)(m * n_blk + b + 1) - 3000000; break; }
+                br_skip(&br, len);
+                blk[0] = sym ? (int16_t)br_get_xbits_nf(&br, sym) : 0;
+                int i = 0;
+                for (;;) {
+                    peek = br_peek16(&br);
+                    ent = ac->e1[peek >> 8];
+                    if (!ent) ent = ac->e[peek];
+                    len = (int)(ent & 31);
+                    if (!len) { rc = -(int)(m * n_blk + b + 1) - 3000000; break; }
+                    sym = (int)(ent >> 5);
+                    br_skip(&br, len);
+                    if (sym == 0x00) break;
+                    int run = sym >> 4, size = sym & 0xF;
+                    if (size == 0) {
+                        if (run != 15) { rc = -(int)(m * n_blk + b + 1) - 3000000; break; }
+                        i += 16;
+                        continue;
+                    }
+                    int32_t level = br_get_xbits_nf(&br, size);
+                    i += run + 1;
+                    if (i > 63) { rc = -(int)(m * n_blk + b + 1) - 3000000; break; }
+                    blk[i] = (int16_t)level;
+                    if (i == 63) break;
+                }
+                if (rc) break;
+            }
+        }
+    }
+    free(tmp);
+    free(tabs);
+    return rc;
+}
+
 /* Batch unescape + row packing for the device-side entropy decoder:
  * strips SOI/EOI framing, removes 0xFF00 stuffing, writes each scan
  * into a zero-padded row of dst (row_stride bytes).  Returns the
@@ -505,6 +612,110 @@ API int64_t amv_encode_frame(const int16_t *levels /* [n_mcu*6*64] zigzag */,
     out[j++] = 0xFF; out[j++] = 0xD9;
     free(scan);
     return j;
+}
+
+/* ------------------------------------------------------------------ */
+/* Generic baseline scan pack (standard MJPEG output)                  */
+/* ------------------------------------------------------------------ */
+
+/* A bit writer that escapes as it goes (escape_FF) into a byte budget:
+ * bytes past cap are counted, not written. */
+typedef struct {
+    uint8_t *buf;
+    int64_t cap, len;
+    uint64_t acc;
+    int bits;
+} EscWriter;
+
+static inline void ew_byte(EscWriter *w, uint8_t b) {
+    if (w->len < w->cap) w->buf[w->len] = b;
+    w->len++;
+}
+
+static inline void ew_put(EscWriter *w, int n, uint32_t v) {
+    w->acc = (w->acc << n) | (v & ((1u << n) - 1));
+    w->bits += n;
+    while (w->bits >= 8) {
+        w->bits -= 8;
+        uint8_t b = (uint8_t)(w->acc >> w->bits);
+        ew_byte(w, b);
+        if (b == 0xFF) ew_byte(w, 0x00);
+    }
+    w->acc &= (1ull << w->bits) - 1;
+}
+
+static inline void ew_pad(EscWriter *w) {     /* 1-bit stuffing */
+    int pad = (8 - (w->bits & 7)) & 7;
+    if (pad) ew_put(w, pad, (1u << pad) - 1);
+}
+
+/* amv_tpu/codecs/mjpeg.py:_pack_scan_generic for a batch: zigzag levels
+ * int16 [n_frames][n_mcu][n_blk][64] (slot 0 the absolute DC) packed with
+ * the K.3 tables, luma for blocks whose comp[b] is 0 and chroma otherwise,
+ * DC predictions from 128 per component; restart_interval > 0 pads to a
+ * byte with ones, writes RSTn (n = segment - 1 mod 8) and resets the
+ * predictions every that many MCUs.  Each frame's escaped scan (no
+ * SOI/EOI) goes to dst at offsets[f], lens[f] bytes, frames back to back.
+ * Returns the bytes written, or -1 if they pass cap (nothing past cap is
+ * written). */
+API int64_t amv_pack_scans_generic(const int16_t *levels, int n_frames,
+                                   int n_mcu, int n_blk, const uint8_t *comp,
+                                   int restart_interval, uint8_t *dst,
+                                   int64_t cap, int64_t *offsets,
+                                   int64_t *lens) {
+    ensure_tables();
+    EscWriter w = {dst, cap, 0, 0, 0};
+    for (int f = 0; f < n_frames; f++) {
+        offsets[f] = w.len;
+        int last_dc[3] = {128, 128, 128};
+        for (int m = 0; m < n_mcu; m++) {
+            if (restart_interval > 0 && m > 0 && m % restart_interval == 0) {
+                ew_pad(&w);
+                ew_byte(&w, 0xFF);
+                ew_byte(&w, (uint8_t)(0xD0 + ((m / restart_interval - 1) & 7)));
+                last_dc[0] = last_dc[1] = last_dc[2] = 128;
+            }
+            for (int b = 0; b < n_blk; b++) {
+                int c = comp[b] > 2 ? 2 : comp[b];
+                EncTable *dct = c ? &et_dc_c : &et_dc_l;
+                EncTable *act = c ? &et_ac_c : &et_ac_l;
+                const int16_t *blk =
+                    levels + (((size_t)f * n_mcu + m) * n_blk + b) * 64;
+                int diff = blk[0] - last_dc[c];
+                last_dc[c] = blk[0];
+                if (diff == 0) {
+                    ew_put(&w, dct->size[0], dct->code[0]);
+                } else {
+                    int mant = diff, val = diff;
+                    if (val < 0) { val = -val; mant--; }
+                    int n = bitlen((uint32_t)val);
+                    ew_put(&w, dct->size[n], dct->code[n]);
+                    ew_put(&w, n, (uint32_t)mant & ((1u << n) - 1));
+                }
+                int run = 0, wrote63 = 0;
+                for (int i = 1; i < 64; i++) {
+                    int val = blk[i];
+                    if (!val) { run++; continue; }
+                    while (run >= 16) {
+                        ew_put(&w, act->size[0xF0], act->code[0xF0]);
+                        run -= 16;
+                    }
+                    int mant = val;
+                    if (val < 0) { val = -val; mant--; }
+                    int n = bitlen((uint32_t)val);
+                    int code = (run << 4) | n;
+                    ew_put(&w, act->size[code], act->code[code]);
+                    ew_put(&w, n, (uint32_t)mant & ((1u << n) - 1));
+                    run = 0;
+                    if (i == 63) wrote63 = 1;
+                }
+                if (!wrote63) ew_put(&w, act->size[0], act->code[0]);
+            }
+        }
+        ew_pad(&w);
+        lens[f] = w.len - offsets[f];
+    }
+    return w.len > cap ? -1 : w.len;
 }
 
 /* ------------------------------------------------------------------ */

@@ -5,8 +5,8 @@ The counterpart of `amv_tpu/pipeline/encode.py`, the canonical reference
 invocation `ffmpeg -i in.avi -f amv -r 16 -s 160x120 -ac 1 -ar 22050
 out.amv` (AMVmuxer/Makefile:25-27): video through kernels V and E
 (`codecs.amv_video.encode_frames`), mono ADPCM audio through kernel Q
-(`codecs.amv_audio.encode_stream`) with a per-chunk sample budget that
-tracks the frame rate (frame_size = av_rescale(sample_rate, 1, fps),
+(`codecs.amv_audio.encode_stream`; trellis=True adds kernel L's Viterbi
+quantizer) with a per-chunk sample budget that tracks the frame rate (frame_size = av_rescale(sample_rate, 1, fps),
 amvenc.c:276-281).
 """
 
@@ -27,7 +27,8 @@ def av_rescale_near(a: int, b: int, c: int) -> int:
 
 def encode_to_bytes(y, cb, cr, pcm, *, fps: int = 16,
                     sample_rate: int = 22050, qscale: int = 2,
-                    quant: str = "ffmpeg", device) -> bytes:
+                    trellis: bool = False, quant: str = "ffmpeg",
+                    device) -> bytes:
     """Encode video frames + PCM into a complete .amv file on `device`;
     byte-identical to `amv_tpu.pipeline.encode.encode_to_bytes`.  The
     planes (uint8 [F, H, W], [F, H/2, W/2] x2) and the PCM (int16 [n]) are
@@ -41,7 +42,8 @@ def encode_to_bytes(y, cb, cr, pcm, *, fps: int = 16,
     if isinstance(pcm, torch.Tensor):
         pcm = pcm.cpu().numpy()
     audio_chunks = amv_audio.encode_stream(
-        np.asarray(pcm, np.int16), frame_size, sample_rate, device=dev)
+        np.asarray(pcm, np.int16), frame_size, sample_rate, trellis=trellis,
+        device=dev)
     return riff.mux(video_chunks, audio_chunks, width=w, height=h, fps=fps,
                     sample_rate=sample_rate)
 

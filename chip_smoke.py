@@ -3,14 +3,15 @@
 its paths end to end: the complete AMV->AMV transcode (with each of its
 entropy encoders), the record-IR decode, the AMV decode (video and audio),
 the AMV encode, the q60 quantizer, odd picture sizes, the served
-transcode on CUDA streams, and the encode's ingest (AVI input, -s
-rescaling, -ar resampling, every WAVE format).
+transcode on CUDA streams, the encode's ingest (AVI input, -s
+rescaling, -ar resampling, every WAVE format), the trellis quantizer
+(-trellis, kernel L) and baseline MJPEG in and out.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; nothing is caught):
  1. the card: nvidia-smi name and power limit, torch.cuda required;
- 2. build the twelve CUDA kernels from amv_tpu_torch/csrc (nvcc, sm_90a,
+ 2. build the thirteen CUDA kernels from amv_tpu_torch/csrc (nvcc, sm_90a,
     one nvcc per source, all started together), and log the registers,
     spills and shared memory ptxas gives kernels D, E, Q, V, T, A, X, P
     and F, and kernel T's SASS instructions (cuobjdump, static counts: one
@@ -109,7 +110,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     IMA-WAV and MS-ADPCM at block_align 2,048) decoded on the card against
     the CPU route and, on the first 64 blocks, the scalar oracles, with
     Msamples/s; kernel A launched for IMA-WAV; MS-ADPCM's lane loop timed
-    alone.
+    alone;
+13. trellis: the 300 s stream of phase 7 through cli.main -trellis x3
+    (V, E, Q and L launched), Msamples/s; kernel L against its plain
+    version on the card over all 4,800 chunks from the file's chunk
+    starts (bytes and final states), the chain at its fixed point
+    (each chunk's start the previous one's final), the rounds from kernel
+    Q's guesses and the chain's time, the first 32 chunks equal to the
+    numpy oracle (verify/ref_trellis.py), every chunk decoded by the C
+    ADPCM decoder (SNR beside the greedy encoder's);
+14. MJPEG ingest: a camera's 5-minute MJPG AVI (160 seeded 320x240
+    pictures encoded on the card by encode_mjpeg_frames in 4:2:2 with a
+    restart interval of 5 MCUs, F launched, tiled to 4,800 frames, and
+    44,100 Hz PCM) through `cli.main -i cam.avi -f amv -r 16 -s 160x120
+    -ac 1 -ar 22050 -trellis` x3, frames/s: every frame through the host
+    C scan decoder, I, V, E, Q and L launched; the card's decoded and
+    scaled planes of the first 160 frames equal the CPU route's, the
+    video C's encode of them, the audio the trellis encode of the
+    resampled PCM (first 8 chunks = the numpy oracle); F and I against
+    their plain versions at this path's shapes; the stages one by one
+    (read, demux, header parse, host C scan decode, dequant, I, assembly,
+    4:2:0, scale, V, E, escape, audio, mux); a 4:2:0 `-vcodec mjpeg` file
+    of the port decoded through kernel D; 64 frames of 4:2:0, 4:4:4 and
+    gray with restart intervals 0 and 1, bytes and planes card = CPU.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -155,6 +178,11 @@ OPS_COMPRESS = 25    # an ADPCM encode sample (adpcm_encode.cu compress)
 OPS_SCATTER = 8      # a record expanded (record_expand.cu)
 OPS_RECORD = 12      # a record packed (record_pack.cu: its length in the
                      # scan, the code's mask and shifts, one or two ORs)
+OPS_EDGE = 16        # a trellis in-edge (adpcm_trellis.cu: the predictor's
+                     # add and clip, the error and its square, the int64
+                     # sum, the unreachable test, the compare and 3 selects)
+EDGES = 1424         # in-edges of the 89 states a sample (89 x 16)
+N_ORACLE = 32        # trellis chunks held against the numpy oracle
 
 # phase 12, ingest: a 5-minute capture of 320x240 I420 frames and 44,100 Hz
 # PCM through the reference's canonical `-s 160x120 -ar 22050`
@@ -186,9 +214,11 @@ def import_port() -> SimpleNamespace:
     """The port's modules this script drives; nothing of JAX or amv_tpu."""
     from amv_tpu_torch import cli, native
     from amv_tpu_torch.codecs import amv_audio, amv_video, jpeg_tables
-    from amv_tpu_torch.codecs import wav_audio
+    from amv_tpu_torch.codecs import mjpeg, wav_audio
+    from amv_tpu_torch.bitstream import jpeg_parse
     from amv_tpu_torch.containers import avi, riff, wav
     from amv_tpu_torch.kernels import _build, adpcm, fdct, idct
+    from amv_tpu_torch.kernels import adpcm_trellis as L
     from amv_tpu_torch.kernels import color, resample, scale
     from amv_tpu_torch.kernels import decode_fused as U
     from amv_tpu_torch.kernels import encode_fused as V
@@ -203,7 +233,8 @@ def import_port() -> SimpleNamespace:
     from amv_tpu_torch.pipeline import transcode as P
     from amv_tpu_torch.tools import time_serving as tools_s
     from amv_tpu_torch.tools import time_transcode_kernel as tools_t
-    from amv_tpu_torch.verify import fixtures, ref_adpcm, ref_wav_audio
+    from amv_tpu_torch.verify import fixtures, ref_adpcm, ref_trellis
+    from amv_tpu_torch.verify import ref_wav_audio
     return SimpleNamespace(**locals())
 
 
@@ -372,6 +403,7 @@ def reset_launches(m):
     m.idct.LAUNCHES = m.fdct.LAUNCHES = m.U.LAUNCHES = m.V.LAUNCHES = 0
     m.adpcm.DECODE_LAUNCHES = m.adpcm.ENCODE_LAUNCHES = 0
     m.R.RECORD_LAUNCHES = m.R.EXPAND_LAUNCHES = m.RP.LAUNCHES = 0
+    m.L.LAUNCHES = 0
 
 
 def launches(m):
@@ -381,7 +413,7 @@ def launches(m):
             "U": m.U.LAUNCHES, "V": m.V.LAUNCHES,
             "A": m.adpcm.DECODE_LAUNCHES, "Q": m.adpcm.ENCODE_LAUNCHES,
             "R": m.R.RECORD_LAUNCHES, "X": m.R.EXPAND_LAUNCHES,
-            "P": m.RP.LAUNCHES}
+            "P": m.RP.LAUNCHES, "L": m.L.LAUNCHES}
 
 
 def route_bytes(m, pays, w, h, enc):
@@ -871,6 +903,331 @@ def ingest_phase(m, dev, paths, card, n_frames=N_FRAMES, n_unique=N_UNIQUE,
         f"; MS-ADPCM's decode_ms_nibbles loop alone {ms_loop:.1f} ms "
         f"(CUDA events) of its {rates['ms'][1] * 1e3:.1f} ms")
     log(f"phase 12 took {time.perf_counter() - t12:.1f} s")
+
+def trellis_phase(m, dev, paths, card, check, kern, pics, pcm, tmp,
+                  n_oracle=N_ORACLE) -> None:
+    """Phase 13: the 300 s stream of phase 7 through cli.main with -trellis
+    (x3): kernel L against its plain version on the card from the file's
+    chunk starts, the chain at its fixed point, the rounds from kernel Q's
+    guesses, the first n_oracle chunks against the numpy oracle, and every
+    chunk decoded by the C ADPCM decoder."""
+    import torch
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t13 = time.perf_counter()
+    n, h, w = pics[0].shape
+    yin, win, dst = (os.path.join(tmp, f) for f in ("t.yuv", "t.wav",
+                                                     "t.amv"))
+    np.concatenate([p.reshape(n, -1) for p in pics], axis=1).tofile(yin)
+    m.wav.write_pcm(win, pcm, RATE)
+    frame_size = m.encode.av_rescale_near(RATE, 1, FPS)
+    m.amv_audio.encode_stream(pcm[:RATE], frame_size, RATE, trellis=True,
+                              device=dev)                       # warm-up
+    sync()
+    reset_launches(m)
+    wall, walls = timed_cli(m, [
+        "-i", yin, "-i", win, "-f", "amv", "-s", f"{w}x{h}", "-r", str(FPS),
+        "-ar", str(RATE), "-trellis", dst, "--device", dev.type])
+    paths["trellis"] = launches(m)
+    assert all(paths["trellis"][k] > 0 for k in ("V", "E", "Q", "L")), paths
+    with open(dst, "rb") as f:
+        out = m.riff.demux(f.read())
+    log(f"{card}: trellis, cli.main -i .yuv -i .wav ... -trellis x3, {n} "
+        f"frames + {len(pcm)} samples in "
+        f"{', '.join(f'{t:.3f}' for t in walls)} s, median {wall:.3f} s "
+        f"= {len(pcm) / wall / 1e6:.3f} Msamples/s; launches "
+        f"{paths['trellis']}")
+
+    ns, starts, padded, reset = m.amv_audio.stream_layout(pcm, frame_size,
+                                                          RATE)
+    x = torch.from_numpy(padded).to(dev)
+    st = torch.from_numpy(starts).to(dev)
+    pairs = torch.tensor(ns, dtype=torch.int32, device=dev)
+    step = torch.tensor([int.from_bytes(c[2:4], "little")
+                         for c in out.audio_chunks], dtype=torch.int32,
+                        device=dev)
+    pred0 = x[st].to(torch.int32)
+    n_samp = len(padded)
+
+    def run(fn):
+        buf = torch.zeros(n_samp // 2, dtype=torch.uint8, device=dev)
+        return buf, fn(x, st, pairs, step, pred0, buf)
+
+    buf, final = check(
+        "L", lambda: run(m.L.trellis_chunks),
+        lambda: run(m.L.trellis_chunks_plain),
+        f"{len(ns)} chunks of {2 * ns[0]} samples from the file's starts",
+        n_samp * (89 + 2.5), n_samp * EDGES * OPS_EDGE)
+    assert torch.equal(step[1:], final[:-1]), "the chain is off its fixed point"
+    got = buf.cpu().numpy()
+    assert all(got[s // 2: s // 2 + k].tobytes() == c[8:] for s, k, c in
+               zip(starts.tolist(), ns, out.audio_chunks)), \
+        "kernel L's bytes from the file's starts differ from the file's"
+    # the path's rounds: round 1 from kernel Q's step indices
+    _, sidx_even = m.adpcm.encode_streams(
+        x[None], torch.from_numpy(reset[None]).to(dev),
+        torch.zeros(1, dtype=torch.int32, device=dev))
+    guess = sidx_even[0, st // 2].to(torch.int32)
+    sizes, launch = [], m.L.trellis_chunks
+
+    def counted(x, starts, *a):            # the chunks of each round
+        sizes.append(starts.shape[0])
+        return launch(x, starts, *a)
+
+    m.L.trellis_chunks = counted
+    try:
+        _, step2, _, rounds = m.L.encode_chain(x, st, pairs, 0, guess,
+                                               rounds=True)
+    finally:
+        m.L.trellis_chunks = launch
+    assert torch.equal(step2, step) and len(sizes) == rounds
+    chain_ms = cuda_ms(lambda: m.L.encode_chain(x, st, pairs, 0, guess), 3)[0]
+    kern["L"].update(rounds=rounds, chain_ms=chain_ms,
+                     chunks_a_round=sizes)
+    log(f"L: the chain from kernel Q's guesses took {rounds} rounds "
+        f"(chunks a round {sizes}) "
+        f"({int((guess[1:] != step[1:]).sum())} of {len(ns) - 1} guesses "
+        f"wrong), {paths['trellis']['L'] // 3} launches a pass; "
+        f"encode_chain {chain_ms:.3f} ms (median of 3, CUDA events), "
+        f"kernel L {kern['L']['ms']:.3f} ms a launch over all chunks")
+    t0 = time.perf_counter()
+    fin = final.cpu().numpy()
+    for k in range(min(n_oracle, len(ns))):
+        s, nk = int(starts[k]), ns[k]
+        nib, f_k = m.ref_trellis.trellis_encode_fast(
+            padded[s:s + 2 * nk], int(step[k]), int(padded[s]))
+        assert ((nib[0::2] << 4) | nib[1::2]).astype(np.uint8).tobytes() \
+            == out.audio_chunks[k][8:] and f_k == fin[k], f"chunk {k}"
+    t_oracle = time.perf_counter() - t0
+    greedy = m.amv_audio.encode_stream(pcm, frame_size, RATE, device=dev)
+    snr = []
+    for chunks in (out.audio_chunks, greedy):
+        dec = np.concatenate([m.native.ref_adpcm_decode(
+            c[8:], int.from_bytes(c[0:2], "little", signed=True),
+            min(int.from_bytes(c[2:4], "little"), 88)) for c in chunks])
+        assert len(dec) == n_samp
+        err = np.sum((dec.astype(np.int64) - padded) ** 2)
+        snr.append(10 * np.log10(np.sum(padded.astype(np.int64) ** 2) /
+                                 max(err, 1)))
+    log(f"trellis: bytes of kernel L from the file's starts equal the "
+        f"file's; the chain at its fixed point; the first {n_oracle} "
+        f"chunks equal the numpy oracle (which took {t_oracle:.1f} s); "
+        f"every chunk decodes (C ADPCM decoder): SNR {snr[0]:.3f} dB, the "
+        f"greedy encoder's {snr[1]:.3f} dB")
+    log(f"phase 13 took {time.perf_counter() - t13:.1f} s")
+
+
+def mjpeg_phase(m, dev, paths, card, check, amv_data, tmp,
+                n_frames=N_FRAMES, n_unique=N_UNIQUE, n_fmt=N_FMT) -> None:
+    """Phase 14: a camera's MJPG AVI (the port's own 4:2:2 encode with a
+    restart interval of 5 MCUs, n_unique seeded 320x240 pictures tiled to
+    n_frames, 44,100 Hz PCM) through the canonical `-f amv -r 16 -s
+    160x120 -ac 1 -ar 22050 -trellis` (cli.main x3): F launched by the
+    encode, I, V, E, Q and L by the conversion, every frame through the
+    host C scan decoder; the card's planes equal the CPU route's, the
+    video the C encoder's of them; the stages one by one; a 4:2:0
+    `-vcodec mjpeg` file of the port decoded through kernel D; 4:2:0,
+    4:4:4 and gray with restart intervals 0 and 1, card against CPU."""
+    import torch
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cpu = torch.device("cpu")
+    t14 = time.perf_counter()
+    pics = pictures(m, n_unique, AVI_H, AVI_W, seed=14)
+    c422 = [np.repeat(c, 2, axis=1) for c in pics[1:]]
+    f0 = m.fdct.LAUNCHES
+    pays = m.mjpeg.encode_mjpeg_frames(pics[0], *c422, QSCALE, "422", 5,
+                                       device=dev)
+    sync()
+    paths["mjpeg encode"] = {"F": m.fdct.LAUNCHES - f0}
+    assert paths["mjpeg encode"]["F"] > 0, paths
+    assert pays[:8] == m.mjpeg.encode_mjpeg_frames(
+        pics[0][:8], *(c[:8] for c in c422), QSCALE, "422", 5, device=cpu)
+    mb_w, mb_h = AVI_W // 16, AVI_H // 8
+    blocks = m.mjpeg.extract_blocks_topdown(
+        *(torch.from_numpy(p).to(dev) for p in (pics[0], *c422)), "422",
+        mb_w, mb_h).contiguous()
+    qmat = m.jpeg_tables.encoder_qmat(QSCALE)
+    check("F mjpeg", lambda: (m.fdct.fdct_quantize(blocks, qmat),),
+          lambda: (m.fdct.fdct_quantize_plain(
+              blocks.reshape(-1, 64), qmat).reshape(*blocks.shape[:-2], 64),),
+          f"{blocks.numel() // 64} blocks of {n_unique} 4:2:2 frames",
+          blocks.numel() * 3, blocks.numel() // 64 * OPS_FDCT)
+    del blocks
+    tiled = [pays[i % n_unique] for i in range(n_frames)]
+    pcm_in = m.fixtures.audiogen(n_frames / FPS, AVI_RATE, seed=14)
+    src, dst = os.path.join(tmp, "cam.avi"), os.path.join(tmp, "cam.amv")
+    warm = os.path.join(tmp, "cam_warm.avi")
+    for path, k, a in ((src, n_frames, pcm_in), (warm, 16, pcm_in[:AVI_RATE])):
+        geom = np.broadcast_to(np.uint8(0), (k, AVI_H, AVI_W))
+        with open(path, "wb") as f:
+            f.write(m.avi.mux(geom, geom, geom, a, fps=FPS,
+                              sample_rate=AVI_RATE, video_chunks=tiled[:k]))
+    log(f"mjpeg input: {n_frames} frames {AVI_W}x{AVI_H} MJPG 4:2:2, "
+        f"restart interval 5 ({n_unique} pictures encoded on the card by "
+        f"encode_mjpeg_frames, tiled; F launched "
+        f"{paths['mjpeg encode']['F']} times) + {len(pcm_in)} samples of "
+        f"44,100 Hz PCM: {os.path.getsize(src)} bytes; "
+        f"{time.perf_counter() - t14:.1f} s")
+    argv = ["-f", "amv", "-r", str(FPS), "-s", f"{W}x{H}", "-ac", "1",
+            "-ar", str(RATE), "-trellis"]
+    m.cli.main(["-i", warm, *argv, os.path.join(tmp, "w.amv"), "--device",
+                dev.type])                                      # warm-up
+    sync()
+    reset_launches(m)
+    h0 = m.mjpeg.HOST_FRAMES
+    wall, walls = timed_cli(m, ["-i", src, *argv, dst, "--device",
+                                dev.type])
+    paths["mjpeg ingest"] = launches(m)
+    host = m.mjpeg.HOST_FRAMES - h0
+    assert all(paths["mjpeg ingest"][k] > 0 for k in "IVEQL") and \
+        paths["mjpeg ingest"]["D"] == 0 and host == 3 * n_frames, \
+        (paths, host)
+    with open(dst, "rb") as f:
+        out = m.riff.demux(f.read())
+    log(f"{card}: mjpeg ingest, cli.main -i cam.avi -f amv -r 16 -s 160x120"
+        f" -ac 1 -ar 22050 -trellis x3, {n_frames} frames in "
+        f"{', '.join(f'{t:.3f}' for t in walls)} s, median {wall:.3f} s = "
+        f"{n_frames / wall:.1f} frames/s; {host} frames through the host C "
+        f"scan decoder; launches {paths['mjpeg ingest']}")
+
+    # the card's planes against the CPU route's, and the video against the
+    # C encoder of them
+    vst, ast = m.avi.read(src)
+    head = m.avi.AviStream("video", codec=vst.codec, width=vst.width,
+                           height=vst.height, chunks=vst.chunks[:n_unique])
+    planes = {}
+    for d in (dev, cpu):
+        dec = m.avi.extract_yuv420(head, device=d)
+        planes[d.type] = [t.cpu() for t in (*dec, *m.scale.resize_yuv420(
+            *dec, H, W))]
+    assert all(torch.equal(a, b) for a, b in zip(planes[dev.type],
+                                                 planes["cpu"])), \
+        "the card's MJPEG planes differ from the CPU route's"
+    y, cb, cr = (t.numpy() for t in planes["cpu"][3:])
+    uniq = [m.native.ref_encode_frame(y[i], cb[i], cr[i], QSCALE)
+            for i in range(n_unique)]
+    assert out.video_chunks == [uniq[i % n_unique] for i in range(n_frames)],\
+        "mjpeg ingest video differs from the C encoder"
+    pcm_r = m.resample.resample_pcm(m.avi.extract_pcm(ast, device=dev),
+                                    AVI_RATE, RATE, device=dev).cpu().numpy()
+    frame_size = m.encode.av_rescale_near(RATE, 1, FPS)
+    assert out.audio_chunks == m.amv_audio.encode_stream(
+        pcm_r, frame_size, RATE, trellis=True, device=dev)
+    ns, starts, padded, _ = m.amv_audio.stream_layout(pcm_r, frame_size, RATE)
+    for k in range(8):
+        s, nk = int(starts[k]), ns[k]
+        nib, _ = m.ref_trellis.trellis_encode_fast(
+            padded[s:s + 2 * nk], int.from_bytes(out.audio_chunks[k][2:4],
+                                                 "little"), int(padded[s]))
+        assert ((nib[0::2] << 4) | nib[1::2]).astype(np.uint8).tobytes() \
+            == out.audio_chunks[k][8:], f"audio chunk {k}"
+    log(f"mjpeg ingest: the card's decoded and scaled planes of the first "
+        f"{n_unique} frames equal the CPU route's; video byte-identical to "
+        "the C encoder of them; audio the trellis encode of the resampled "
+        "PCM, its first 8 chunks equal to the numpy oracle")
+
+    # the stages one by one, all frames at once, a synchronize after each
+    split = {}
+
+    def read():
+        with open(src, "rb") as f:
+            return f.read()
+
+    data = staged(split, "read", read)
+    vst, ast = staged(split, "demux", lambda: m.avi.demux(data))
+    frames = staged(split, "parse headers", lambda: [
+        m.jpeg_parse.parse_jpeg(c) for c in vst.chunks])
+    levels = staged(split, "scan decode (host C) + upload",
+                    lambda: m.mjpeg._scan_levels(frames, mb_w * mb_h, 4,
+                                                 "422", dev))
+    qm = np.stack([frames[0].quant[tq] for (_, _, _, tq) in
+                   frames[0].mcu_blocks()])
+    raster = staged(split, "device dequant + DC", lambda: (
+        m.mjpeg.dequantize(levels, qm, "422", 5)))
+    del levels
+    pix = staged(split, "device I (idct_put)",
+                 lambda: m.idct.idct_put(raster))
+    dec = staged(split, "device assembly", lambda: [t.clone() for t in (
+        m.mjpeg.assemble(pix, "422", mb_w, mb_h, AVI_W, AVI_H))])
+    p420 = staged(split, "device to 4:2:0", lambda: (
+        m.avi.mjpeg_to_yuv420(*dec, AVI_W, AVI_H)))
+    scaled = staged(split, "device scale", lambda: m.scale.resize_yuv420(
+        *p420, H, W))
+    lv = staged(split, "device V", lambda: m.V.encode_planes(*scaled,
+                                                             QSCALE))
+    bits = staged(split, "device E count", lambda: m.E.count_bits(lv))
+    words, bits, _ = staged(split, "device E", lambda: m.E.encode_levels(
+        lv, m.amv_video.used_words(bits)))
+    w_np, b_np = staged(split, "device->host words", lambda: (
+        words.cpu().numpy(), bits.cpu().numpy()))
+    vch = staged(split, "escape", lambda: m.native.escape_frames(w_np, b_np))
+    pcm_d = staged(split, "audio extract", lambda: m.avi.extract_pcm(
+        ast, device=dev))
+    pcm_h = staged(split, "device resample + to host", lambda: (
+        m.resample.resample_pcm(pcm_d, AVI_RATE, RATE,
+                                device=dev).cpu().numpy()))
+    achunks = staged(split, "audio trellis (Q, L)", lambda: (
+        m.amv_audio.encode_stream(pcm_h, frame_size, RATE, trellis=True,
+                                  device=dev)))
+    staged(split, "mux", lambda: m.riff.mux(
+        vch, achunks, width=W, height=H, fps=FPS, sample_rate=RATE))
+    assert vch == out.video_chunks and achunks == out.audio_chunks
+    log_split(f"{card}: mjpeg ingest", split,
+              f"; {n_frames} frames, all at once (the CLI decodes, "
+              "transforms and scales in batches of 1,024)")
+    batch = min(n_frames, m.avi.BATCH_FRAMES)
+    check("I mjpeg", lambda: (m.idct.idct_put(raster[:batch]),),
+          lambda: (m.idct.idct_put_plain(raster[:batch].reshape(-1, 64))
+                   .reshape(raster[:batch].shape),),
+          f"{raster[:batch].numel() // 64} blocks ({batch} frames of "
+          "4:2:2, the CLI's batch)", raster[:batch].numel() * 3,
+          raster[:batch].numel() // 64 * OPS_IDCT)
+    del raster, pix, dec, p420, scaled, lv, words, data, frames
+
+    # a 4:2:0 -vcodec mjpeg file written by the port decodes through D
+    amv_src, mj = os.path.join(tmp, "c.amv"), os.path.join(tmp, "rt.avi")
+    with open(amv_src, "wb") as f:
+        f.write(amv_data)
+    reset_launches(m)
+    assert m.cli.main(["-i", amv_src, "-vcodec", "mjpeg", "--max-frames",
+                       str(n_fmt), mj, "--device", dev.type]) == 0
+    paths["vcodec mjpeg"] = launches(m)
+    assert all(paths["vcodec mjpeg"][k] > 0 for k in "DUVE") and \
+        paths["vcodec mjpeg"]["F"] == 0, paths
+    chunks = m.avi.read(mj)[0].chunks
+    d0, h0 = m.D.LAUNCHES, m.mjpeg.HOST_FRAMES
+    got = m.mjpeg.decode_mjpeg_frames(chunks, device=dev)
+    assert m.D.LAUNCHES > d0 and m.mjpeg.HOST_FRAMES == h0
+    want = m.mjpeg.decode_mjpeg_frames(chunks, device=cpu)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    log(f"vcodec mjpeg: cli.main -i .amv -vcodec mjpeg, {n_fmt} frames "
+        f"(launches {paths['vcodec mjpeg']}); its 4:2:0 frames decode "
+        "through kernel D (no host frame) to the CPU route's planes")
+
+    # 4:2:0, 4:4:4 and gray with restart intervals 0 and 1, card vs CPU
+    y = pics[0][:n_fmt]
+    chroma = {"420": [c[:n_fmt] for c in pics[1:]],
+              "444": [np.repeat(np.repeat(c[:n_fmt], 2, 1), 2, 2)
+                      for c in pics[1:]], "gray": [None, None]}
+    ms = {}
+    for layout, ch in chroma.items():
+        for ri in (0, 1):
+            key = f"{layout}/{ri}"
+            pay = staged(ms, f"encode {key}", lambda: (
+                m.mjpeg.encode_mjpeg_frames(y, *ch, QSCALE, layout, ri,
+                                            device=dev)))
+            assert pay == m.mjpeg.encode_mjpeg_frames(
+                y, *ch, QSCALE, layout, ri, device=cpu), key
+            got = staged(ms, f"decode {key}", lambda: (
+                m.mjpeg.decode_mjpeg_frames(pay, device=dev)))
+            want = m.mjpeg.decode_mjpeg_frames(pay, device=cpu)
+            assert all((a is None and b is None) or torch.equal(a.cpu(), b)
+                       for a, b in zip(got, want)), key
+    log(f"{card}: {n_fmt} frames {AVI_W}x{AVI_H} of 4:2:0, 4:4:4 and gray "
+        "with restart intervals 0 and 1: bytes and planes on the card "
+        "equal the CPU route's; ms (host clock, one call): " +
+        ", ".join(f"{k} {v * 1e3:.1f}" for k, v in ms.items()))
+    log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
+
 
 def main() -> int:
     smi = subprocess.run(
@@ -1823,43 +2180,53 @@ def main() -> int:
 
     # ---- 12. ingest -------------------------------------------------
     ingest_phase(m, dev, paths, smi)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 13. trellis --------------------------------------------
+        trellis_phase(m, dev, paths, smi, check, kern, pics, pcm, tmp)
+        # ---- 14. MJPEG ingest ---------------------------------------
+        mjpeg_phase(m, dev, paths, smi, check, data, tmp)
     log(f"total {time.perf_counter() - t_start:.1f} s after the imports")
 
     kernels = []
-    for key, name, path, src, replaces in (
+    for key, name, path, src, replaces, timed in (
             ("D", "entropy_decode", "transcode", "entropy_decode.cu",
-             "entropy_async_pallas.py:829"),
+             "entropy_async_pallas.py:829", "D"),
             ("T", "transcode", "transcode", "transcode.cu",
-             "transcode_layout_pallas.py:207"),
+             "transcode_layout_pallas.py:207", "T"),
             ("E", "entropy_encode", "transcode", "entropy_encode.cu",
-             "entropy_encode_async_pallas.py:940"),
-            ("I", "idct", "decode video", "idct.cu",
-             "transcode_layout_pallas.py:136"),
-            ("F", "fdct_quant", "encode", "fdct.cu",
-             "transcode_layout_pallas.py:187"),
+             "entropy_encode_async_pallas.py:940", "E"),
+            ("I", "idct_put", "mjpeg ingest", "idct.cu",
+             "idct_pallas.py:80", "I mjpeg"),
+            ("F", "fdct_quantize", "mjpeg encode", "fdct.cu",
+             "fdct_pallas.py:94", "F mjpeg"),
             ("A", "adpcm_decode", "decode audio", "adpcm_decode.cu",
-             "adpcm_pallas.py:86"),
+             "adpcm_pallas.py:86", "A"),
             ("Q", "adpcm_encode", "encode", "adpcm_encode.cu",
-             "adpcm_encode_pallas.py:89"),
+             "adpcm_encode_pallas.py:89", "Q"),
             ("R", "decode_records", "record decode", "entropy_decode.cu",
-             "entropy_async_pallas.py:357"),
+             "entropy_async_pallas.py:357", "R"),
             ("X", "expand_records", "record decode", "record_expand.cu",
-             "entropy_async_pallas.py:435"),
+             "entropy_async_pallas.py:435", "X"),
             ("P", "pack_records", "transcode record", "record_pack.cu",
-             "entropy_encode_async_pallas.py:407"),
+             "entropy_encode_async_pallas.py:407", "P"),
             ("U", "decode_fused", "decode video", "decode_fused.cu",
-             "decode_fused_pallas.py:111"),
+             "decode_fused_pallas.py:111", "U"),
             ("V", "encode_fused", "encode", "encode_fused.cu",
-             "encode_fused_pallas.py:67")):
+             "encode_fused_pallas.py:67", "V"),
+            ("L", "adpcm_trellis", "trellis", "adpcm_trellis.cu",
+             None, "L")):
         err = max(v for k, v in errs.items() if k.split()[0] == key)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"amv_tpu_torch/csrc/{src}",
-            "replaces": f"amv_tpu/kernels/{replaces}",
+            "replaces": (f"amv_tpu/kernels/{replaces}" if replaces else
+                         "amv_tpu/codecs/adpcm_trellis.py:92 (numpy on the "
+                         "host; no TPU kernel)"),
             "launches": paths[path][key], "max_abs_err": err,
-            "ms": kern[key]["ms"], "plain_ms": kern[key]["plain_ms"],
-            "bound_ms": kern[key]["bound_ms"],
-            "bound_by": kern[key]["bound_by"], "library_ms": None,
+            "ms": kern[timed]["ms"], "plain_ms": kern[timed]["plain_ms"],
+            "bound_ms": kern[timed]["bound_ms"],
+            "bound_by": kern[timed]["bound_by"], "library_ms": None,
             **({"passes_ms": kern[key]["passes_ms"],
                 "one_chunk_ms": kern[key]["one_chunk_ms"]} if key == "Q"
                else {"q60_ms": kern["V q60"]["ms"]} if key == "V"
@@ -1869,7 +2236,12 @@ def main() -> int:
                      "sass_a_block": sass_t}
                if key == "T"
                else {"wrap_ms": kern["A wrap"]["ms"]} if key == "A"
-               else {"raster_ms": kern["F raster"]["ms"]} if key == "F"
+               else {"layout_ms": kern["I"]["ms"]} if key == "I"
+               else {"layout_ms": kern["F"]["ms"],
+                     "raster_corpus_ms": kern["F raster"]["ms"]} if key == "F"
+               else {"rounds": kern[key]["rounds"],
+                     "chunks_a_round": kern[key]["chunks_a_round"],
+                     "chain_ms": kern[key]["chain_ms"]} if key == "L"
                else {"rounds": kern[key]["rounds"]} if key in ("D", "R")
                else {})})
     print(json.dumps({"kernels": kernels}))

@@ -194,7 +194,6 @@ def test_rejects_bad_inputs():
         A.decode_chunks(torch.zeros((2, 4), dtype=torch.uint8),
                         torch.zeros(2, dtype=torch.int64),
                         torch.zeros(2, dtype=torch.int32))
-    with pytest.raises(NotImplementedError,
-                       match="not yet ported.*amv_tpu/codecs/adpcm_trellis"):
+    with pytest.raises(ValueError, match="init_step must be in 0..88"):
         amv_audio.encode_stream(np.zeros(100, np.int16), 1378, trellis=True,
-                                device="cpu")
+                                init_step_index=89, device="cpu")

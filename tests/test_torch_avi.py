@@ -20,6 +20,7 @@ from amv_tpu.containers import avi as jax_avi  # noqa: E402
 from amv_tpu.pipeline import encode as jax_encode  # noqa: E402
 from amv_tpu.verify import fixtures  # noqa: E402
 from amv_tpu_torch import cli  # noqa: E402
+from amv_tpu_torch.codecs import mjpeg  # noqa: E402
 from amv_tpu_torch.containers import avi  # noqa: E402
 
 
@@ -168,10 +169,19 @@ def test_extract_yuv420_matches_jax(codec, bits, kw, monkeypatch):
 
 def test_extract_yuv420_refusals():
     rng = np.random.default_rng(9)
-    with pytest.raises(NotImplementedError, match="not yet ported.*mjpeg"):
-        avi.extract_yuv420(avi.AviStream("video", codec=b"MJPG", width=16,
-                                         height=16, chunks=[b"\xff\xd8"]),
-                           device="cpu")
+    # progressive (SOF2) and lossless (SOF3) MJPEG: a baseline frame with
+    # its SOF0 marker byte changed, refused naming the JAX module
+    base = mjpeg.encode_mjpeg_frames(
+        rng.integers(0, 256, (1, 16, 16), dtype=np.uint8),
+        *rng.integers(0, 256, (2, 1, 8, 8), dtype=np.uint8), device="cpu")
+    for sof, module in ((b"\xff\xc2", "jpeg_progressive"),
+                        (b"\xff\xc3", "jpeg_lossless")):
+        frame = base[0].replace(b"\xff\xc0", sof, 1)
+        with pytest.raises(NotImplementedError,
+                           match=f"not yet ported.*amv_tpu/bitstream/{module}"):
+            avi.extract_yuv420(avi.AviStream("video", codec=b"MJPG", width=16,
+                                             height=16, chunks=[frame]),
+                               device="cpu")
     for codec, bits in ((b"H264", 24), (b"XVID", 12)):
         st = dict(codec=codec, width=16, height=16, bits=bits,
                   chunks=[bytes(rng.integers(0, 256, 1000, dtype=np.uint8))])

@@ -1101,3 +1101,109 @@ def test_cli_avi_route_cuda_matches_cpu(dev, tmp_path):
         *(p[i].numpy() for p in planes), 2) for i in range(20)]
     want_pcm = resample.resample_pcm(pcm, 44100, 22050, device="cpu")
     assert s.audio_chunks == ref_adpcm.encode(want_pcm.numpy(), 1378, 22050)
+
+
+# ------------------------------------------------ kernel L and the MJPEG path
+
+def _trellis_stream(seconds, rate, fps, seed):
+    """(x, starts, pairs, ns, starts_np) of a seeded sine + noise stream in
+    the encoder's chunk layout."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * rate)
+    t = np.arange(n)
+    x = np.clip(12000 * np.sin(t * 0.031) * (0.3 + 0.7 * np.abs(
+        np.sin(t * 0.0007))) + rng.normal(0, 400, n), -32768,
+        32767).astype(np.int16)
+    ns, starts, padded, _ = amv_audio.stream_layout(
+        x, PE.av_rescale_near(rate, 1, fps), rate)
+    return (torch.from_numpy(padded), torch.from_numpy(starts),
+            torch.tensor(ns, dtype=torch.int32), ns, starts)
+
+
+@pytest.mark.parametrize("rate,fps,start", [(22050, 16, "spread"),
+                                            (44100, 12, "spread"),
+                                            (22050, 16, "zero"),
+                                            (22050, 16, "top")])
+def test_trellis_kernel_matches_plain(dev, rate, fps, start):
+    """Kernel L from given starts (0..88 spread over the chunks, all 0, all
+    88) against its plain version: bytes and final states."""
+    from amv_tpu_torch.kernels import adpcm_trellis as L
+    x, st, pairs, ns, _ = _trellis_stream(2.0, rate, fps, seed=rate + fps)
+    c = len(ns)
+    step = {"spread": torch.arange(c) * 37 % 89, "zero": torch.zeros(c),
+            "top": torch.full((c,), 88)}[start].to(torch.int32)
+    pred = x[st].to(torch.int32)
+    want = torch.full((x.numel() // 2,), 0xA5, dtype=torch.uint8)
+    fw = L.trellis_chunks_plain(x, st, pairs, step, pred, want)
+    got = want.new_full(want.shape, 0xA5).to(dev)
+    l0 = L.LAUNCHES
+    fg = L.trellis_chunks(*(t.to(dev) for t in (x, st, pairs, step, pred)),
+                          got)
+    torch.cuda.synchronize()
+    assert L.LAUNCHES == l0 + 1
+    assert torch.equal(fg.cpu(), fw) and torch.equal(got.cpu(), want)
+
+
+def test_trellis_encode_stream_cuda_matches_cpu(dev):
+    """encode_stream(trellis=True) on the card (Q's guesses, L's chain) is
+    the CPU route's bytes, from the right and from a wrong guess, and its
+    chain holds at the fixed point."""
+    from amv_tpu_torch.kernels import adpcm_trellis as L
+    x, st, pairs, ns, _ = _trellis_stream(1.0, 22050, 16, seed=5)
+    pcm = x.numpy()[:22050]
+    want = amv_audio.encode_stream(pcm, 1378, 22050, trellis=True,
+                                   device="cpu")
+    assert amv_audio.encode_stream(pcm, 1378, 22050, trellis=True,
+                                   device=dev) == want
+    truth = torch.tensor([int.from_bytes(c[2:4], "little") for c in want],
+                         dtype=torch.int32, device=dev)
+    out, step, final, rounds = L.encode_chain(
+        x.to(dev), st.to(dev), pairs.to(dev), 0, (truth + 1) % 89,
+        rounds=True)
+    assert torch.equal(step, truth) and torch.equal(step[1:], final[:-1])
+    assert rounds >= 2
+
+
+@pytest.mark.parametrize("layout,ri", [("420", 0), ("422", 5), ("444", 1),
+                                       ("gray", 0), ("422", 0)])
+def test_mjpeg_cuda_matches_cpu(dev, layout, ri):
+    """encode_mjpeg_frames and decode_mjpeg_frames on the card (V and E,
+    or F and the C packer; D or the C decoder, then I) equal the CPU
+    route, at 320x240 with 8 frames; F and I launched where they run."""
+    from amv_tpu_torch.codecs import mjpeg as M
+    rng = np.random.default_rng(len(layout) + ri)
+    y = rng.integers(0, 256, (8, 240, 320), dtype=np.uint8)
+    cshape = {"420": (8, 120, 160), "422": (8, 240, 160),
+              "444": (8, 240, 320), "gray": (8, 1, 1)}[layout]
+    cb = rng.integers(0, 256, cshape, dtype=np.uint8)
+    chroma = (None, None) if layout == "gray" else (cb, 255 - cb)
+    f0, i0 = F.LAUNCHES, I.LAUNCHES
+    pays = M.encode_mjpeg_frames(y, *chroma, subsampling=layout,
+                                 restart_interval=ri, device=dev)
+    assert (F.LAUNCHES > f0) == (layout != "420" or ri != 0)
+    assert pays == M.encode_mjpeg_frames(y, *chroma, subsampling=layout,
+                                         restart_interval=ri, device="cpu")
+    got = M.decode_mjpeg_frames(pays, device=dev, batch_frames=5)
+    assert I.LAUNCHES >= i0 + 2
+    want = M.decode_mjpeg_frames(pays, device="cpu")
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert torch.equal(g.cpu(), w)
+
+
+def test_idct_put_and_fdct_quantize_at_mjpeg_shapes(dev):
+    """I's idct_put and F's fdct_quantize at the MJPEG path's shapes (a
+    batch of 64 320x240 4:2:2 frames: 153,600 blocks) against their plain
+    versions, extreme coefficients included."""
+    rng = np.random.default_rng(12)
+    coef = rng.integers(-2048, 2048, (64, 600, 4, 8, 8)).astype(np.int16)
+    coef[0, 0] = 32767
+    coef[0, 1] = -32768
+    ct = torch.from_numpy(coef)
+    assert torch.equal(I.idct_put(ct.to(dev)).cpu(), I.idct_put(ct))
+    pix = torch.from_numpy(rng.integers(0, 256, (64, 600, 4, 8, 8),
+                                        dtype=np.uint8))
+    q = encoder_qmat(2)
+    assert torch.equal(F.fdct_quantize(pix.to(dev), q).cpu(),
+                       F.fdct_quantize(pix, q))

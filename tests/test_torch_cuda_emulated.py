@@ -8,7 +8,7 @@ shared buffer for the warp shuffles; its launches `k<<<g, b, s, st>>>(...)`
 are rewritten into that header's launch helper.  The library is loaded
 with ctypes under the C signatures of `kernels._build`, and the kernel's
 output is held bit-exact against its plain version at small sizes
-(kernels A, T, F, D, R, X and P).  This
+(kernels A, T, F, D, R, X, P and L).  This
 checks a kernel's logic (indices, tiles, scans, barriers) where there is no
 card; what nvcc makes of it is checked on the card
 (tests/test_torch_cuda.py, chip_smoke.py).  Skipped where g++ is absent.
@@ -29,6 +29,7 @@ from amv_tpu_torch.codecs.amv_video import encoder_qmat
 from amv_tpu_torch.codecs.jpeg_tables import DEC_FAST, REC_FAST
 from amv_tpu_torch.kernels import _build
 from amv_tpu_torch.kernels import adpcm as AQ
+from amv_tpu_torch.kernels import adpcm_trellis as TL
 from amv_tpu_torch.kernels import entropy_decode as D
 from amv_tpu_torch.kernels import entropy_parallel as EP
 from amv_tpu_torch.kernels import entropy_records as ER
@@ -498,3 +499,49 @@ def test_record_pack_source_matches_plain(pack_lib, case):
         np.testing.assert_array_equal(bits, want_b.numpy())
         np.testing.assert_array_equal(words, want_w.numpy())
     assert (bits[3:] > 16 * 32).all() and (bits[3:] < 4000 * 32).all()
+
+
+@pytest.fixture(scope="module")
+def trellis_lib(tmp_path_factory):
+    return _lib("adpcm_trellis.cu", tmp_path_factory)
+
+
+@pytest.mark.parametrize("case", ["sine", "silence", "square", "odd_starts"])
+def test_trellis_source_matches_plain(trellis_lib, case):
+    """Kernel L, the Viterbi quantizer, on the CPU: chunks of 60-ish
+    samples from given starts (state 0, 88 and between; state 88 is the
+    one whose 48 in-edges three threads share), against its plain
+    version: a seeded sine with noise, silence (ties everywhere), a
+    full-scale square wave (the predictor's clip), and chunks given out of
+    stream order with one of no samples."""
+    rng = np.random.default_rng(len(case))
+    total = 6 * 64
+    t = np.arange(total)
+    if case == "silence":
+        x = np.zeros(total, np.int16)
+    elif case == "square":
+        x = np.where((t // 7) % 2, 32767, -32768).astype(np.int16)
+    else:
+        x = (9000 * np.sin(t * 0.07) + rng.normal(0, 500, total)).astype(
+            np.int16)
+    starts = np.arange(0, total, 64, dtype=np.int64)
+    pairs = np.array([32, 31, 32, 20, 32, 1], np.int32)
+    step0 = np.array([0, 88, 40, 87, 1, 88], np.int32)
+    if case == "odd_starts":
+        starts, pairs, step0 = starts[::-1].copy(), pairs[::-1].copy(), \
+            step0[::-1].copy()
+        pairs[2] = 0
+    pred0 = x[starts].astype(np.int32)
+    out = np.full(total // 2, 0xA5, np.uint8)
+    final = np.full(len(starts), -1, np.int32)
+    back = np.zeros((len(starts), 64, 89), np.uint8)
+    rc = trellis_lib.amv_trellis(
+        x.ctypes.data, starts.ctypes.data, pairs.ctypes.data,
+        step0.ctypes.data, pred0.ctypes.data, len(starts), 64,
+        back.ctypes.data, out.ctypes.data, final.ctypes.data, None)
+    assert rc == 0
+    want = torch.full((total // 2,), 0xA5, dtype=torch.uint8)
+    wfinal = TL.trellis_chunks_plain(*(torch.from_numpy(a) for a in (
+        x, starts, pairs, step0, pred0)), want)
+    np.testing.assert_array_equal(out, want.numpy())
+    np.testing.assert_array_equal(final, wfinal.numpy())

@@ -20,7 +20,8 @@ from amv_tpu.pipeline import encode as jax_encode  # noqa: E402
 from amv_tpu.pipeline import transcode as jax_transcode  # noqa: E402
 from amv_tpu.verify import fixtures, ref_adpcm  # noqa: E402
 from amv_tpu_torch import cli, native  # noqa: E402
-from amv_tpu_torch.containers import riff, wav  # noqa: E402
+from amv_tpu_torch.codecs import mjpeg as MJ  # noqa: E402
+from amv_tpu_torch.containers import avi, riff, wav  # noqa: E402
 from amv_tpu_torch.pipeline import batch as PB  # noqa: E402
 from amv_tpu_torch.pipeline import decode as PD  # noqa: E402
 from amv_tpu_torch.pipeline import encode as PE  # noqa: E402
@@ -160,23 +161,28 @@ def test_cli_q60_routes(clip, tmp_path):
 
 @pytest.mark.parametrize("argv", [
     ["-i", "{amv}", "{tmp}/out.bmp"],
-    ["-i", "{amv}", "-vcodec", "mjpeg", "{tmp}/out.avi"],
-    ["-i", "{amv}", "-acodec", "copy", "{tmp}/out.wav"],
-    ["-i", "{amv}", "-vcodec", "copy", "{tmp}/out.avi"],
-    ["-i", "{yuv}", "-s", "48x32", "-trellis", "{tmp}/out.amv"],
     ["-i", "{amv}", "-pix_fmt", "rgb565", "{tmp}/out.rgb"],
-    ["-i", "{amv}", "{tmp}/out_%03d.jpg"],
     ["-i", "{wav}", "-f", "act", "{tmp}/out.act"],
     ["-i", "{tmp}/in.act", "{tmp}/out.wav"],
+    ["-i", "{sof2}", "-f", "amv", "-s", "48x32", "{tmp}/out.amv"],
+    ["-i", "{sof3}", "-f", "amv", "{tmp}/out.amv"],
 ])
 def test_cli_unported_routes_exit_nonzero(clip, tmp_path, argv):
     y, cb, cr, pcm, data = clip
     paths = {"amv": tmp_path / "in.amv", "yuv": tmp_path / "in.yuv",
-             "wav": tmp_path / "in.wav", "tmp": tmp_path}
+             "wav": tmp_path / "in.wav", "tmp": tmp_path,
+             "sof2": tmp_path / "sof2.avi", "sof3": tmp_path / "sof3.avi"}
     paths["amv"].write_bytes(data)
     np.concatenate([p.reshape(N, -1) for p in (y, cb, cr)],
                    axis=1).tofile(paths["yuv"])
     wav.write_pcm(str(paths["wav"]), pcm, 22050)
+    # MJPG AVIs whose frames are progressive (SOF2) and lossless (SOF3):
+    # baseline frames with the SOF0 marker byte changed
+    base = MJ.encode_mjpeg_frames(y, cb, cr, device="cpu")
+    for key, sof in (("sof2", b"\xFF\xC2"), ("sof3", b"\xFF\xC3")):
+        paths[key].write_bytes(avi.mux(
+            y, cb, cr, pcm, fps=16, sample_rate=22050,
+            video_chunks=[c.replace(b"\xFF\xC0", sof, 1) for c in base]))
     with pytest.raises(SystemExit) as e:
         _run(*(a.format(**paths) for a in argv))
     assert "not yet ported: it needs amv_tpu/" in str(e.value.code)
