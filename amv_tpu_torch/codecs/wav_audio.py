@@ -5,8 +5,8 @@ The port of `amv_tpu/codecs/wav_audio.py`:
 * PCM u8/s16/s24/s32 -> s16 (pcm.c:380-470: keep the top 16 bits);
 * A-law / mu-law (pcm.c:45-75 G.711 expansion, a table lookup);
 * IMA-ADPCM-WAV, wFormatTag 0x11 (adpcm.c:983-1014), through kernel A;
-* MS-ADPCM, wFormatTag 0x02 (adpcm.c:1041-1106), through
-  `kernels.adpcm.decode_ms_nibbles`.
+* MS-ADPCM, wFormatTag 0x02 (adpcm.c:1041-1106), through kernel M
+  (`kernels.adpcm.decode_ms_nibbles`).
 
 The bytes go to the device once; the PCM formats convert there.  Both
 ADPCM flavours reset their state in every block header, so a stream

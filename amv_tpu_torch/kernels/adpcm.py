@@ -22,8 +22,11 @@
 `repeat=R` is the wrap entries' contract: output row i reads input row
 i % C, as over an input tiled R times, without the tiled copy.
 
-`decode_ms_nibbles` is the MS-ADPCM decode of WAV input, torch ops over
-lanes on any device (no kernel: no Pallas kernel carries it in JAX).
+* M, `decode_ms_nibbles`: the MS-ADPCM expand of WAV input, the port of
+  `amv_tpu/kernels/adpcm.py:decode_ms_nibbles` (a lax.scan in JAX, no
+  Pallas kernel), backed by csrc/adpcm_ms.cu (a thread per lane, the rows
+  staged through shared memory).  Plain version: `decode_ms_nibbles_plain`,
+  a loop over samples vectorised over lanes.
 
 On a CUDA tensor the wrappers launch the kernel; on a CPU tensor they run
 the plain version.  Arithmetic: adpcm.c:716-740 (expand) and :219-227
@@ -41,6 +44,7 @@ from . import _build
 
 DECODE_LAUNCHES = 0   # kernel A
 ENCODE_LAUNCHES = 0   # kernel Q
+MS_LAUNCHES = 0       # kernel M
 
 
 def _steps(dev) -> torch.Tensor:
@@ -261,13 +265,45 @@ def decode_ms_nibbles(nibbles: torch.Tensor, coeff1: torch.Tensor,
                       coeff2: torch.Tensor, idelta: torch.Tensor,
                       sample1: torch.Tensor, sample2: torch.Tensor
                       ) -> torch.Tensor:
-    """MS-ADPCM expand (adpcm.c:743-756) of nibble streams int32 [B, n] in
-    emit order, lane-parallel on their device: a loop over the n samples,
-    each step torch ops over the B lanes, as `amv_tpu.kernels.adpcm.
-    decode_ms_nibbles`' lax.scan.  The state vectors (int32 [B], from the
-    block headers) stay int32, so idelta's growth wraps as C's `int` does;
-    C's `/ 256` truncates toward zero.  -> int16 [B, n] (the header's two
-    samples are the caller's)."""
+    """MS-ADPCM expand (adpcm.c:743-756) of nibble streams [B, n] (uint8 or
+    int32, values 0..15) in emit order, lane by lane, as `amv_tpu.kernels.
+    adpcm.decode_ms_nibbles`' lax.scan.  The state vectors (int [B], from
+    the block headers) are int32, so idelta's growth wraps as C's `int`
+    does; C's `/ 256` truncates toward zero.  -> int16 [B, n] (the
+    header's two samples are the caller's)."""
+    states = (coeff1, coeff2, idelta, sample1, sample2)
+    if nibbles.dim() != 2:
+        raise ValueError(f"nibbles must be [B, n], got "
+                         f"{tuple(nibbles.shape)}")
+    b, n = nibbles.shape
+    for name, t in zip(("coeff1", "coeff2", "idelta", "sample1",
+                        "sample2"), states):
+        if t.shape != (b,):
+            raise ValueError(f"{name} must be [{b}], got {tuple(t.shape)}")
+    if all(t.device.type == "cpu" for t in (nibbles, *states)):
+        return decode_ms_nibbles_plain(nibbles, *states)
+    _build.require_cuda(nibbles, *states)
+    nib = nibbles.to(torch.uint8).contiguous()
+    st = [t.to(torch.int32).contiguous() for t in states]
+    out = torch.empty((b, n), dtype=torch.int16, device=nib.device)
+    if b == 0 or n == 0:
+        return out
+    with torch.cuda.device(nib.device):
+        rc = _build.library().amv_ms_expand(
+            nib.data_ptr(), b, n, *(t.data_ptr() for t in st),
+            out.data_ptr(), _build.stream())
+    _build.check(rc, "amv_ms_expand")
+    global MS_LAUNCHES
+    MS_LAUNCHES += 1
+    return out
+
+
+def decode_ms_nibbles_plain(nibbles: torch.Tensor, coeff1: torch.Tensor,
+                            coeff2: torch.Tensor, idelta: torch.Tensor,
+                            sample1: torch.Tensor, sample2: torch.Tensor
+                            ) -> torch.Tensor:
+    """Plain torch version of kernel M on any device (same output): a
+    loop over the n samples, each step torch ops over the B lanes."""
     dev = nibbles.device
     adapt = torch.as_tensor(MS_ADAPTATION_TABLE, dtype=torch.int32,
                             device=dev)

@@ -2,7 +2,8 @@
 
 Not a Pallas kernel in the JAX package, which runs this quantizer on the
 host (`amv_tpu/codecs/adpcm_trellis.py:trellis_encode_fast`); backed by
-csrc/adpcm_trellis.cu, a CTA per chunk.  Plain version: `codecs.
+csrc/adpcm_trellis.cu, a warp per chunk (three states a lane, records
+handed on by warp shuffles, 4-bit back-pointers).  Plain version: `codecs.
 adpcm_trellis.trellis_lanes`, the same Viterbi in torch, vectorised over
 chunks.
 
@@ -28,9 +29,12 @@ from ..codecs.adpcm_trellis import trellis_lanes
 from . import _build
 
 LAUNCHES = 0
+MAX_LEN = 1 << 17      # kernel L's longest chunk (its int64 keys' room)
 
 
-def _check(x, starts, pairs, step0, pred0, out):
+def _check(x, starts, pairs, step0, pred0, out) -> int:
+    """Raise on a malformed call; -> the longest chunk's samples (one host
+    sync for both)."""
     if x.dim() != 1 or x.dtype != torch.int16 or x.numel() % 2:
         raise ValueError(f"x must be int16 [even n], got {x.dtype} "
                          f"{tuple(x.shape)}")
@@ -45,11 +49,16 @@ def _check(x, starts, pairs, step0, pred0, out):
     if out.shape != (x.numel() // 2,) or out.dtype != torch.uint8:
         raise ValueError(f"out must be uint8 [{x.numel() // 2}], got "
                          f"{out.dtype} {tuple(out.shape)}")
-    if a and bool(((starts < 0) | (starts % 2 != 0) | (pairs < 0) |
-                   (starts + 2 * pairs.long() > x.numel()) |
-                   (step0 < 0) | (step0 > 88)).any()):
+    if not a:
+        return 0
+    bad = ((starts < 0) | (starts % 2 != 0) | (pairs < 0) |
+           (starts + 2 * pairs.long() > x.numel()) |
+           (step0 < 0) | (step0 > 88)).any()
+    bad, len_max = torch.stack([bad.long(), 2 * pairs.max().long()]).tolist()
+    if bad:
         raise ValueError("each chunk must start at an even sample, lie "
                          "within x, and start from a step index in 0..88")
+    return len_max
 
 
 def trellis_chunks(x: torch.Tensor, starts: torch.Tensor,
@@ -60,7 +69,7 @@ def trellis_chunks(x: torch.Tensor, starts: torch.Tensor,
     [A] in 0..88, pred0 int32 [A]; writes chunk a's bytes into out uint8
     [total / 2] at starts[a] / 2 and returns its final step index, int32
     [A]."""
-    _check(x, starts, pairs, step0, pred0, out)
+    len_max = _check(x, starts, pairs, step0, pred0, out)
     a = starts.shape[0]
     if all(t.device.type == "cpu"
            for t in (x, starts, pairs, step0, pred0, out)):
@@ -69,13 +78,16 @@ def trellis_chunks(x: torch.Tensor, starts: torch.Tensor,
     final = torch.empty(a, dtype=torch.int32, device=x.device)
     if a == 0:
         return final
-    len_max = 2 * int(pairs.max())
-    back = torch.empty((a, max(len_max, 1), 89), dtype=torch.uint8,
-                       device=x.device)
+    if len_max > MAX_LEN:
+        raise ValueError(f"kernel L takes chunks of at most {MAX_LEN} "
+                         f"samples, got {len_max}")
+    lib = _build.library()
+    back = torch.empty(lib.amv_trellis_scratch(a, len_max) // 4,
+                       dtype=torch.int32, device=x.device)
     x, starts, pairs, step0, pred0 = (t.contiguous() for t in (
         x, starts, pairs, step0, pred0))
     with torch.cuda.device(x.device):
-        rc = _build.library().amv_trellis(
+        rc = lib.amv_trellis(
             x.data_ptr(), starts.data_ptr(), pairs.data_ptr(),
             step0.data_ptr(), pred0.data_ptr(), a, len_max, back.data_ptr(),
             out.data_ptr(), final.data_ptr(), _build.stream())

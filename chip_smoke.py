@@ -11,12 +11,12 @@ rescaling, -ar resampling, every WAVE format), the trellis quantizer
 
 Phases (any failure raises and exits non-zero; nothing is caught):
  1. the card: nvidia-smi name and power limit, torch.cuda required;
- 2. build the thirteen CUDA kernels from amv_tpu_torch/csrc (nvcc, sm_90a,
+ 2. build the fourteen CUDA kernels from amv_tpu_torch/csrc (nvcc, sm_90a,
     one nvcc per source, all started together), and log the registers,
-    spills and shared memory ptxas gives kernels D, E, Q, V, T, A, X, P
-    and F, and kernel T's SASS instructions (cuobjdump, static counts: one
-    thread a block), logged in phase 4 with a static-count estimate of
-    each T entry's issue time at its own blocks;
+    spills and shared memory ptxas gives kernels D, E, Q, V, T, A, X, P,
+    F, L and M, and kernel T's SASS instructions (cuobjdump, static
+    counts: one thread a block), logged in phase 4 with a static-count
+    estimate of each T entry's issue time at its own blocks;
  3. a 160x120 corpus at the reference's canonical shape (16 fps, 22,050 Hz
     ADPCM audio): 4,800 frames (5 minutes) of seeded videogen/rotozoom
     pictures with noise, each C-encoded at qscale 2, muxed into an .amv
@@ -109,8 +109,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     44,100 Hz stereo in each WAVE format (u8, s16, s24, s32, A-law, mu-law,
     IMA-WAV and MS-ADPCM at block_align 2,048) decoded on the card against
     the CPU route and, on the first 64 blocks, the scalar oracles, with
-    Msamples/s; kernel A launched for IMA-WAV; MS-ADPCM's lane loop timed
-    alone;
+    Msamples/s; kernel A launched for IMA-WAV and kernel M for MS-ADPCM,
+    M held against its plain version (the torch loop) on that stream's
+    12,998 lanes of 2,034 samples;
 13. trellis: the 300 s stream of phase 7 through cli.main -trellis x3
     (V, E, Q and L launched), Msamples/s; kernel L against its plain
     version on the card over all 4,800 chunks from the file's chunk
@@ -178,10 +179,15 @@ OPS_COMPRESS = 25    # an ADPCM encode sample (adpcm_encode.cu compress)
 OPS_SCATTER = 8      # a record expanded (record_expand.cu)
 OPS_RECORD = 12      # a record packed (record_pack.cu: its length in the
                      # scan, the code's mask and shifts, one or two ORs)
-OPS_EDGE = 16        # a trellis in-edge (adpcm_trellis.cu: the predictor's
-                     # add and clip, the error and its square, the int64
-                     # sum, the unreachable test, the compare and 3 selects)
+OPS_MS = 13          # an MS-ADPCM sample (adpcm_ms.cu: the predictor's two
+                     # products, the / 256, the sign, the sum, the clip, the
+                     # adaptation product, shift and floor)
+OPS_EDGE = 16        # a trellis in-edge (the predictor's add and clip, the
+                     # error and its square, the int64 sum, the unreachable
+                     # test, the compare and 3 selects: the bound's yardstick)
 EDGES = 1424         # in-edges of the 89 states a sample (89 x 16)
+EDGES_EVALUATED = 1157   # of them, the errors kernel L forms (89 x 13: its
+                         # index -1 move's far group needs m = 0 alone)
 N_ORACLE = 32        # trellis chunks held against the numpy oracle
 
 # phase 12, ingest: a 5-minute capture of 320x240 I420 frames and 44,100 Hz
@@ -380,12 +386,13 @@ def timed_cli(m, argv, runs=3):
 
 def ptxas_start(m):
     """nvcc -Xptxas -v of kernels D's and R's, E's, Q's, V's, T's, A's, X's,
-    P's and F's sources, started beside the build (the object goes
-    nowhere)."""
+    P's, F's, L's and M's sources, started beside the build (the object
+    goes nowhere)."""
     return m.tools_t.ptxas_start(m._build, (
         "entropy_decode.cu", "entropy_encode.cu", "adpcm_encode.cu",
         "encode_fused.cu", "transcode.cu", "adpcm_decode.cu",
-        "record_expand.cu", "record_pack.cu", "fdct.cu"))
+        "record_expand.cu", "record_pack.cu", "fdct.cu", "adpcm_trellis.cu",
+        "adpcm_ms.cu"))
 
 
 def ptxas_log(m, procs) -> None:
@@ -403,7 +410,7 @@ def reset_launches(m):
     m.idct.LAUNCHES = m.fdct.LAUNCHES = m.U.LAUNCHES = m.V.LAUNCHES = 0
     m.adpcm.DECODE_LAUNCHES = m.adpcm.ENCODE_LAUNCHES = 0
     m.R.RECORD_LAUNCHES = m.R.EXPAND_LAUNCHES = m.RP.LAUNCHES = 0
-    m.L.LAUNCHES = 0
+    m.L.LAUNCHES = m.adpcm.MS_LAUNCHES = 0
 
 
 def launches(m):
@@ -413,7 +420,8 @@ def launches(m):
             "U": m.U.LAUNCHES, "V": m.V.LAUNCHES,
             "A": m.adpcm.DECODE_LAUNCHES, "Q": m.adpcm.ENCODE_LAUNCHES,
             "R": m.R.RECORD_LAUNCHES, "X": m.R.EXPAND_LAUNCHES,
-            "P": m.RP.LAUNCHES, "L": m.L.LAUNCHES}
+            "P": m.RP.LAUNCHES, "L": m.L.LAUNCHES,
+            "M": m.adpcm.MS_LAUNCHES}
 
 
 def route_bytes(m, pays, w, h, enc):
@@ -683,8 +691,8 @@ def wav_oracle(m, fmt, bits, ba, data, n_blocks):
     return b.reshape(-1, w)[:, w - 2:].copy().view("<i2").reshape(-1, 2)
 
 
-def ingest_phase(m, dev, paths, card, n_frames=N_FRAMES, n_unique=N_UNIQUE,
-                 n_fmt=N_FMT, wav_s=WAV_S) -> None:
+def ingest_phase(m, dev, paths, card, check, n_frames=N_FRAMES,
+                 n_unique=N_UNIQUE, n_fmt=N_FMT, wav_s=WAV_S) -> None:
     """Phase 12: an AVI of n_frames 320x240 I420 frames (n_unique seeded
     pictures, tiled) and mono s16 PCM at 44,100 Hz through the canonical
     `-f amv -r 16 -s 160x120 -ac 1 -ar 22050` (cli.main x3): video equal to
@@ -693,7 +701,8 @@ def ingest_phase(m, dev, paths, card, n_frames=N_FRAMES, n_unique=N_UNIQUE,
     CPU route's, V, E and Q launched; the stages one by one; each raw AVI
     format and each -sws_flags value on the card against the CPU route;
     each WAVE format's decode against the CPU route and the scalar
-    oracles, with its Msamples/s."""
+    oracles, with its Msamples/s; kernel M launched by the MS-ADPCM decode
+    and held against its plain version (`check`) on that stream's lanes."""
     import torch
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -864,10 +873,14 @@ def ingest_phase(m, dev, paths, card, n_frames=N_FRAMES, n_unique=N_UNIQUE,
                                                 device=d)
 
         a1 = m.adpcm.DECODE_LAUNCHES
+        m.adpcm.MS_LAUNCHES = 0
         dec()
         sync()
         launched = m.adpcm.DECODE_LAUNCHES - a1
         assert (launched > 0) == (name == "ima"), (name, launched)
+        assert (m.adpcm.MS_LAUNCHES > 0) == (name == "ms"), name
+        if name == "ms":
+            paths["wav ms"] = {"M": m.adpcm.MS_LAUNCHES}
         ts = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -883,25 +896,20 @@ def ingest_phase(m, dev, paths, card, n_frames=N_FRAMES, n_unique=N_UNIQUE,
         if name == "ms":
             lanes = m.wav_audio._lanes(data, 2, ba, 14, m.wav_audio._ms_lanes)
             tl = [torch.from_numpy(a).to(dev) for a in lanes[1]]
-
-            def loop():
-                return m.adpcm.decode_ms_nibbles(*tl)
-
-            if cuda:
-                ms_loop = cuda_ms(loop, 3)[0]
-            else:
-                one = {}
-                staged(one, "loop", loop)
-                ms_loop = one["loop"] * 1e3
+            b_ms, n_ms = tl[0].shape
+            check("M", lambda: (m.adpcm.decode_ms_nibbles(*tl),),
+                  lambda: (m.adpcm.decode_ms_nibbles_plain(*tl),),
+                  f"{b_ms} lanes of {n_ms} samples (MS-ADPCM, {wav_s:.0f} s "
+                  f"of 44,100 Hz stereo at block_align {ba})",
+                  3 * b_ms * n_ms + 20 * b_ms, OPS_MS * b_ms * n_ms)
     paths["wav ima"] = {"A": m.adpcm.DECODE_LAUNCHES - a0}
     log(f"{card}: WAVE decodes of {wav_s:.0f} s of 44,100 Hz stereo, on the "
         "card equal to the CPU route and (first 64 blocks) the scalar "
         "oracles; Msamples/s (both channels, median of 3, host clock): " +
         ", ".join(f"{k} {r:.1f} ({t * 1e3:.1f} ms)"
                   for k, (r, t) in rates.items()) +
-        f"; kernel A launched {paths['wav ima']['A']} times for IMA-WAV" +
-        f"; MS-ADPCM's decode_ms_nibbles loop alone {ms_loop:.1f} ms "
-        f"(CUDA events) of its {rates['ms'][1] * 1e3:.1f} ms")
+        f"; kernel A launched {paths['wav ima']['A']} times for IMA-WAV, "
+        f"kernel M {paths['wav ms']['M']} times for MS-ADPCM")
     log(f"phase 12 took {time.perf_counter() - t12:.1f} s")
 
 def trellis_phase(m, dev, paths, card, check, kern, pics, pcm, tmp,
@@ -988,7 +996,10 @@ def trellis_phase(m, dev, paths, card, check, kern, pics, pcm, tmp,
         f"({int((guess[1:] != step[1:]).sum())} of {len(ns) - 1} guesses "
         f"wrong), {paths['trellis']['L'] // 3} launches a pass; "
         f"encode_chain {chain_ms:.3f} ms (median of 3, CUDA events), "
-        f"kernel L {kern['L']['ms']:.3f} ms a launch over all chunks")
+        f"kernel L {kern['L']['ms']:.3f} ms a launch over all chunks; its "
+        f"own candidates ({EDGES_EVALUATED} of the {EDGES} in-edges a "
+        f"sample) at {OPS_EDGE} operations each take "
+        f"{bound(0, n_samp * EDGES_EVALUATED * OPS_EDGE)[0]:.4f} ms")
     t0 = time.perf_counter()
     fin = final.cpu().numpy()
     for k in range(min(n_oracle, len(ns))):
@@ -2179,7 +2190,7 @@ def main() -> int:
     log(f"phase 11 took {time.perf_counter() - t11:.1f} s")
 
     # ---- 12. ingest -------------------------------------------------
-    ingest_phase(m, dev, paths, smi)
+    ingest_phase(m, dev, paths, smi, check)
 
     with tempfile.TemporaryDirectory() as tmp:
         # ---- 13. trellis --------------------------------------------
@@ -2215,14 +2226,17 @@ def main() -> int:
             ("V", "encode_fused", "encode", "encode_fused.cu",
              "encode_fused_pallas.py:67", "V"),
             ("L", "adpcm_trellis", "trellis", "adpcm_trellis.cu",
-             None, "L")):
+             "amv_tpu/codecs/adpcm_trellis.py:92 (numpy on the host; no TPU "
+             "kernel)", "L"),
+            ("M", "ms_expand", "wav ms", "adpcm_ms.cu",
+             "amv_tpu/kernels/adpcm.py:225 decode_ms_nibbles (lax.scan; no "
+             "TPU kernel)", "M")):
         err = max(v for k, v in errs.items() if k.split()[0] == key)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"amv_tpu_torch/csrc/{src}",
-            "replaces": (f"amv_tpu/kernels/{replaces}" if replaces else
-                         "amv_tpu/codecs/adpcm_trellis.py:92 (numpy on the "
-                         "host; no TPU kernel)"),
+            "replaces": (replaces if replaces.startswith("amv_tpu/") else
+                         f"amv_tpu/kernels/{replaces}"),
             "launches": paths[path][key], "max_abs_err": err,
             "ms": kern[timed]["ms"], "plain_ms": kern[timed]["plain_ms"],
             "bound_ms": kern[timed]["bound_ms"],

@@ -3,9 +3,9 @@
 // compiles with g++ and runs on the CPU: every CTA's threads run as
 // std::threads, one CTA at a time; __syncthreads and __syncwarp are
 // std::barriers, the warp shuffles and ballots exchange through a per-warp
-// buffer between two warp barriers, atomics are std::atomic_ref, and a
-// thread that returns drops out of both barriers (as an exited thread
-// does on the card).  __shared__ variables become function statics,
+// buffer between two warp barriers, atomics are std::atomic_ref, Hopper's
+// DPX min functions are plain arithmetic, and a thread that returns drops
+// out of both barriers (as an exited thread does on the card).  __shared__ variables become function statics,
 // shared by the running CTA's threads.
 //
 // tests/test_torch_cuda_emulated.py compiles a source against this
@@ -199,4 +199,13 @@ inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
     for (int n = 0; n < 4; n++)
         r |= (unsigned)(v >> (8 * ((s >> (4 * n)) & 7)) & 0xff) << (8 * n);
     return r;
+}
+// Hopper's DPX integer min functions
+inline int __viaddmin_s32(int a, int b, int c) { return std::min(a + b, c); }
+inline int __vimin3_s32(int a, int b, int c) {
+    return std::min(std::min(a, b), c);
+}
+inline int __vibmin_s32(int a, int b, bool *pred) {
+    *pred = a <= b;
+    return std::min(a, b);
 }

@@ -1123,15 +1123,20 @@ def _trellis_stream(seconds, rate, fps, seed):
 @pytest.mark.parametrize("rate,fps,start", [(22050, 16, "spread"),
                                             (44100, 12, "spread"),
                                             (22050, 16, "zero"),
-                                            (22050, 16, "top")])
+                                            (22050, 16, "top"),
+                                            (22050, 16, "random"),
+                                            (44100, 12, "random")])
 def test_trellis_kernel_matches_plain(dev, rate, fps, start):
     """Kernel L from given starts (0..88 spread over the chunks, all 0, all
-    88) against its plain version: bytes and final states."""
+    88, seeded random) against its plain version: bytes and final
+    states."""
     from amv_tpu_torch.kernels import adpcm_trellis as L
     x, st, pairs, ns, _ = _trellis_stream(2.0, rate, fps, seed=rate + fps)
     c = len(ns)
     step = {"spread": torch.arange(c) * 37 % 89, "zero": torch.zeros(c),
-            "top": torch.full((c,), 88)}[start].to(torch.int32)
+            "top": torch.full((c,), 88),
+            "random": torch.from_numpy(np.random.default_rng(c).integers(
+                0, 89, c))}[start].to(torch.int32)
     pred = x[st].to(torch.int32)
     want = torch.full((x.numel() // 2,), 0xA5, dtype=torch.uint8)
     fw = L.trellis_chunks_plain(x, st, pairs, step, pred, want)
@@ -1162,6 +1167,49 @@ def test_trellis_encode_stream_cuda_matches_cpu(dev):
         rounds=True)
     assert torch.equal(step, truth) and torch.equal(step[1:], final[:-1])
     assert rounds >= 2
+
+
+def test_ms_kernel_matches_plain(dev):
+    """Kernel M against its plain version at 1,040 lanes of 2,034 samples
+    (a 44,100 Hz stereo MS-ADPCM stream's lanes at block_align 2,048),
+    with lanes at the int32 extremes of idelta and the nibble 8 that grows
+    it until the products wrap; launched once."""
+    rng = np.random.default_rng(13)
+    b, n = 1040, 2034
+    nib = rng.integers(0, 16, (b, n)).astype(np.uint8)
+    st = [rng.choice([256, 512, 0, 192, 240, 460, 392], b),
+          rng.choice([0, -256, 0, 64, 0, -208, -232], b),
+          rng.integers(-300, 5000, b), rng.integers(-32768, 32768, b),
+          rng.integers(-32768, 32768, b)]
+    nib[:3] = 8
+    st[2][:3] = [2 ** 30, -2 ** 31, 2 ** 31 - 1]
+    args = [torch.from_numpy(nib)] + [torch.from_numpy(
+        np.asarray(v, np.int32)) for v in st]
+    want = AQ.decode_ms_nibbles_plain(*args)
+    m0 = AQ.MS_LAUNCHES
+    got = AQ.decode_ms_nibbles(*(t.to(dev) for t in args))
+    torch.cuda.synchronize()
+    assert AQ.MS_LAUNCHES == m0 + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+def test_wav_decode_ms_cuda_matches_cpu(dev, channels):
+    """codecs.wav_audio.decode_ms on the card (kernel M) equals the CPU
+    route (the plain loop), a short last block included."""
+    from amv_tpu_torch.codecs import wav_audio
+    rng = np.random.default_rng(channels)
+    ba = 512
+    blocks = rng.integers(0, 256, (40, ba), dtype=np.uint8)
+    blocks[:, :channels] = rng.integers(0, 7, (40, channels))
+    blocks[:, channels:3 * channels] = rng.integers(
+        -200, 4000, (40, channels)).astype("<i2").view(np.uint8)
+    data = blocks.tobytes()[:-100]
+    m0 = AQ.MS_LAUNCHES
+    got = wav_audio.decode_ms(data, channels, ba, device=dev)
+    assert AQ.MS_LAUNCHES > m0
+    want = wav_audio.decode_ms(data, channels, ba, device="cpu")
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("layout,ri", [("420", 0), ("422", 5), ("444", 1),

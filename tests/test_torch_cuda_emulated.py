@@ -8,7 +8,7 @@ shared buffer for the warp shuffles; its launches `k<<<g, b, s, st>>>(...)`
 are rewritten into that header's launch helper.  The library is loaded
 with ctypes under the C signatures of `kernels._build`, and the kernel's
 output is held bit-exact against its plain version at small sizes
-(kernels A, T, F, D, R, X, P and L).  This
+(kernels A, T, F, D, R, X, P, L and M).  This
 checks a kernel's logic (indices, tiles, scans, barriers) where there is no
 card; what nvcc makes of it is checked on the card
 (tests/test_torch_cuda.py, chip_smoke.py).  Skipped where g++ is absent.
@@ -36,7 +36,7 @@ from amv_tpu_torch.kernels import entropy_records as ER
 from amv_tpu_torch.kernels import fdct as F
 from amv_tpu_torch.kernels import record_pack as RP
 from amv_tpu_torch.kernels import transcode as T
-from amv_tpu_torch.verify import fixtures
+from amv_tpu_torch.verify import fixtures, ref_adpcm
 from test_torch_record_sync import boundaries, cut, zrl_scan
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -61,7 +61,8 @@ def emulated(source: str, out_dir) -> ctypes.CDLL:
     for name, argtypes in _build._SIGNATURES.items():
         if hasattr(lib, name):
             getattr(lib, name).argtypes = argtypes
-            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).restype = _build._RESTYPES.get(name,
+                                                              ctypes.c_int)
     return lib
 
 
@@ -506,15 +507,32 @@ def trellis_lib(tmp_path_factory):
     return _lib("adpcm_trellis.cu", tmp_path_factory)
 
 
-@pytest.mark.parametrize("case", ["sine", "silence", "square", "odd_starts"])
-def test_trellis_source_matches_plain(trellis_lib, case):
-    """Kernel L, the Viterbi quantizer, on the CPU: chunks of 60-ish
-    samples from given starts (state 0, 88 and between; state 88 is the
-    one whose 48 in-edges three threads share), against its plain
-    version: a seeded sine with noise, silence (ties everywhere), a
-    full-scale square wave (the predictor's clip), and chunks given out of
-    stream order with one of no samples."""
+def _trellis_case(case):
+    """(x, starts, pairs, step0) of a case of kernel L's source test."""
     rng = np.random.default_rng(len(case))
+    if case in ("phase13", "window"):
+        # one chunk of phase 13's 1,378 samples (11 traceback windows); a
+        # chunk of 300 (past the 128-sample window, ending mid-word)
+        n = 1378 if case == "phase13" else 300
+        t = np.arange(n)
+        x = np.clip(12000 * np.sin(t * 0.031) + rng.normal(0, 400, n),
+                    -32768, 32767).astype(np.int16)
+        return (x, np.zeros(1, np.int64), np.array([n // 2], np.int32),
+                np.array([40], np.int32))
+    if case == "rails":
+        # full-scale runs at both rails and near-silence, from states 0
+        # and 88: the path reaches both clipped ends
+        runs = []
+        for k in range(12):
+            v = (32767, -32768, 0, 3)[k % 4]
+            runs.append(np.full(int(rng.integers(20, 90)), v) +
+                        (rng.integers(-2, 3, 1) if v in (0, 3) else 0))
+        x = np.clip(np.concatenate(runs), -32768, 32767).astype(np.int16)
+        x = x[:len(x) // 4 * 4]
+        half = len(x) // 2
+        return (x, np.array([0, half], np.int64),
+                np.array([half // 2, half // 2], np.int32),
+                np.array([88, 0], np.int32))
     total = 6 * 64
     t = np.arange(total)
     if case == "silence":
@@ -531,13 +549,32 @@ def test_trellis_source_matches_plain(trellis_lib, case):
         starts, pairs, step0 = starts[::-1].copy(), pairs[::-1].copy(), \
             step0[::-1].copy()
         pairs[2] = 0
+    return x, starts, pairs, step0
+
+
+@pytest.mark.parametrize("case", ["sine", "silence", "square", "odd_starts",
+                                  "phase13", "window", "rails"])
+def test_trellis_source_matches_plain(trellis_lib, case):
+    """Kernel L, the Viterbi quantizer, on the CPU, against its plain
+    version: chunks of 60-ish samples from given starts (state 0, 88 and
+    between; state 88 is the one the dummy lanes 29..31 reduce onto) over
+    a seeded sine with noise, silence (ties everywhere), a full-scale
+    square wave (the predictor's clip), and chunks given out of stream
+    order with one of no samples; a chunk of phase 13's 1,378 samples; a
+    chunk of 300 (longer than the traceback's window of 128 samples, its
+    last back-pointer word part full); and chunks from states 88 and 0
+    over runs at both rails and near silence (the clipped ends)."""
+    x, starts, pairs, step0 = _trellis_case(case)
     pred0 = x[starts].astype(np.int32)
+    total = len(x)
     out = np.full(total // 2, 0xA5, np.uint8)
     final = np.full(len(starts), -1, np.int32)
-    back = np.zeros((len(starts), 64, 89), np.uint8)
+    len_max = 2 * int(pairs.max())
+    back = np.zeros(trellis_lib.amv_trellis_scratch(len(starts), len_max),
+                    np.uint8)
     rc = trellis_lib.amv_trellis(
         x.ctypes.data, starts.ctypes.data, pairs.ctypes.data,
-        step0.ctypes.data, pred0.ctypes.data, len(starts), 64,
+        step0.ctypes.data, pred0.ctypes.data, len(starts), len_max,
         back.ctypes.data, out.ctypes.data, final.ctypes.data, None)
     assert rc == 0
     want = torch.full((total // 2,), 0xA5, dtype=torch.uint8)
@@ -545,3 +582,64 @@ def test_trellis_source_matches_plain(trellis_lib, case):
         x, starts, pairs, step0, pred0)), want)
     np.testing.assert_array_equal(out, want.numpy())
     np.testing.assert_array_equal(final, wfinal.numpy())
+    if case == "rails":              # the path visits both clipped ends
+        nib = np.stack([want.numpy() >> 4, want.numpy() & 15], 1).ravel()
+        s, seen = int(step0[0]), set()
+        for k, nb in enumerate(nib):
+            if k == total // 2:
+                s = int(step0[1])
+            s = min(max(s + int(ref_adpcm.INDEX_TABLE[nb & 7]), 0), 88)
+            seen.add(s)
+        assert {0, 88} <= seen
+
+
+@pytest.fixture(scope="module")
+def ms_lib(tmp_path_factory):
+    return _lib("adpcm_ms.cu", tmp_path_factory)
+
+
+def _ms_case(case):
+    """(nibbles uint8 [B, n], coeff1, coeff2, idelta, sample1, sample2)."""
+    rng = np.random.default_rng(3 + len(case))
+    if case == "block":
+        # the MS-ADPCM block of the wav tests' extremes case (negative
+        # idelta, full-scale samples, nibbles 7 and 8 until idelta wraps),
+        # as the WAVE route lays it out
+        data = bytes([6]) + np.array([-32768, 32767, -32768],
+                                     "<i2").tobytes()
+        data += bytes([0x7F, 0x88, 0xF0, 0x08] * 6)
+        data += data[:7] + bytes([0x88] * 40)
+        from amv_tpu_torch.codecs import wav_audio
+        _, lanes = wav_audio._lanes(data, 1, 31, 7, wav_audio._ms_lanes)
+        return tuple(np.ascontiguousarray(a) for a in lanes)
+    b, n = (45, 300) if case == "random" else (9, 40)
+    nib = rng.integers(0, 16, (b, n)).astype(np.uint8)
+    st = [rng.choice([256, 512, 0, 192, 240, 460, 392], b),
+          rng.choice([0, -256, 0, 64, 0, -208, -232], b),
+          rng.integers(-300, 5000, b), rng.integers(-32768, 32768, b),
+          rng.integers(-32768, 32768, b)]
+    if case == "wrap":
+        # |idelta| x 3 a sample from the extremes of int32: the predictor
+        # product, idelta's growth and the sum wrap
+        nib[:3] = 8
+        st[2][:3] = [2 ** 30, -2 ** 31, 2 ** 31 - 1]
+    return (nib, *(np.asarray(v, np.int32) for v in st))
+
+
+@pytest.mark.parametrize("case", ["random", "wrap", "block"])
+def test_ms_source_matches_plain(ms_lib, case):
+    """Kernel M, the MS-ADPCM expand, on the CPU against its plain version
+    (`decode_ms_nibbles_plain`): 45 lanes of 300 samples (two warps, the
+    second part full; three tiles, the last part full), lanes at the
+    int32 extremes of idelta with the nibble 8 that grows it, and the
+    extremes block of the WAVE tests laid out by the MS-ADPCM route."""
+    nib, *st = _ms_case(case)
+    b, n = nib.shape
+    out = np.full((b, n), 0x5A5A, np.int16)
+    rc = ms_lib.amv_ms_expand(nib.ctypes.data, b, n,
+                              *(a.ctypes.data for a in st),
+                              out.ctypes.data, None)
+    assert rc == 0
+    want = AQ.decode_ms_nibbles_plain(*(torch.from_numpy(a)
+                                        for a in (nib, *st)))
+    np.testing.assert_array_equal(out, want.numpy())

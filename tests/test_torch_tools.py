@@ -86,3 +86,79 @@ def test_time_serving_runs_on_the_cpu_at_a_tiny_size():
     assert set(out["staged_escape_s"]) == {
         f"{k}_{s}" for k in ("change", "parent")
         for s in ("escape", "escape_mux")}
+
+
+def test_time_trellis_runs_on_the_cpu_at_a_tiny_size():
+    """amv_tpu_torch/tools/time_trellis.py end to end on the CPU (its
+    plain versions, one torch thread): L at both chunk sizes and the chain
+    round by round, the MS-ADPCM expand and the WAVE decode, each held
+    against its plain version by the tool; no device time or ptxas there."""
+    import torch
+
+    from amv_tpu_torch.tools import time_trellis
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = time_trellis.main(["--device", "cpu", "--seconds", "0.25",
+                                 "--seconds-44k", "0.09", "--ms-seconds",
+                                 "0.05", "--reps", "1"])
+    finally:
+        torch.set_num_threads(n)
+    ms = out["ms"]
+    assert out["card"] == "cpu" and out["ptxas"] is None
+    assert (ms["L_chunks"], ms["L_chunk_samples"]) == (4, 1378)
+    assert (ms["L_44k_chunks"], ms["L_44k_chunk_samples"]) == (2, 3674)
+    rounds = ms["chain_rounds"]
+    assert rounds[0]["chunks"] == 4 and all(r["launch_ms"] is None
+                                            for r in rounds)
+    assert ms["L_device_ms"] is None and ms["M_device_ms"] is None
+    assert ms["M_lanes"] == 4 and ms["M_samples"] == 2034
+    assert ms["wav_ms_msamples_s"] > 0
+
+
+def test_trellis_variants_apply_to_the_source():
+    """amv_tpu_torch/tools/trellis_variants.py's edits of kernel L's source
+    all apply (the tool builds each with nvcc on the card): each variant
+    differs from the shipped source, and the shipped one is the file."""
+    import os
+
+    from amv_tpu_torch.kernels import _build
+    from amv_tpu_torch.tools import time_transcode_kernel as tk
+    from amv_tpu_torch.tools import trellis_variants as tv
+    text = open(os.path.join(tk._csrc(_build), tv.SOURCE)).read()
+    out = tv.sources(text)
+    assert out["shipped"] == text
+    assert all(v != text for k, v in out.items() if k != "shipped")
+
+
+def test_loop_counts_takes_the_uniform_per_sample_loop():
+    """time_trellis.loop_counts on a cuobjdump-shaped listing: the
+    innermost loop with a shuffle and over 200 instructions (not the outer
+    loop around it, nor a fallback loop holding WARPSYNC), split by pipe."""
+    from amv_tpu_torch.tools import time_trellis as tool
+
+    def line(addr, op):
+        return f"        /*{addr:04x}*/                   {op} ;"
+
+    rows = ["\tFunction : other_kernel", line(0, "EXIT"),
+            "\tFunction : _Z14trellis_kernelv", line(0, "MOV R1, R2")]
+    addr = 0x10
+    for k in range(240):                       # the per-sample loop
+        op = ("SHFL.IDX PT, R1, R2, R3, 0x1f" if k == 5 else
+              "IMAD R1, R2, R3, R4" if k % 4 == 0 else "LOP3.LUT R1, R2")
+        rows.append(line(addr, op))
+        addr += 0x10
+    rows.append(line(addr, "@!P0 BRA 0x10"))
+    addr += 0x10
+    rows.append(line(addr, "BRA 0x0"))         # the outer loop
+    addr += 0x10
+    start = addr
+    for k in range(210):                       # a divergent fallback
+        rows.append(line(addr, "WARPSYNC.COLLECTIVE R0" if k == 1 else
+                         "SHFL.IDX PT, R1, R2, R3, 0x1f"))
+        addr += 0x10
+    rows.append(line(addr, f"BRA 0x{start:x}"))
+    got = tool.loop_counts("\n".join(rows), "trellis_kernel")
+    assert got["instructions"] == 241 and got["mio"] == 1
+    assert got["imad"] == 60 and got["alu"] == 241 - 60 - 1 - 1
+    assert tool.loop_counts("\n".join(rows), "absent") is None
