@@ -11,9 +11,10 @@ and PCM (`pipeline.decode.decode_bytes`), the AMV encode from them
 (`pipeline.encode.encode_to_bytes`) with its ingest (raw-video and
 baseline MJPEG AVI, `-s` rescaling, `-ar` resampling, every WAVE format)
 and the `-trellis` quantizer, the baseline MJPEG encode
-(`codecs.mjpeg`), and their CLI routes (`python -m amv_tpu_torch`).  The port keeps its own copies of the host
-layer it needs (containers, tables, the C byte passes and oracles) and
-imports nothing of `amv_tpu`.
+(`codecs.mjpeg`), G.729A decoding of ACT recordings (`codecs.g729a`,
+`containers.act`), and their CLI routes (`python -m amv_tpu_torch`).  The
+port keeps its own copies of the host layer it needs (containers, tables,
+the C byte passes and oracles) and imports nothing of `amv_tpu`.
 """
 
 __version__ = "0.1.0"

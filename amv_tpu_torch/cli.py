@@ -15,13 +15,15 @@
   python -m amv_tpu_torch -i in.amv -vcodec copy out.avi        # AMV scans
   python -m amv_tpu_torch -i in.amv frames/f_%04d.jpg           # AMV scans
   python -m amv_tpu_torch -i in.amv -acodec copy out.wav        # raw ADPCM
+  python -m amv_tpu_torch -i rec.act out.wav                    # G.729A
+  python -m amv_tpu_torch -i rec.act out.bit                    # ITU serial
   ... --device cpu                                              # plain versions
 
 Every route runs on the GPU (`--device cuda`, the default) unless the
 caller asks for the CPU.  The flags are `amv_tpu.cli`'s.  Still refused,
 each naming the `amv_tpu` module it waits for: .rgb/.raw (-pix_fmt) and
-.bmp outputs, progressive and lossless MJPEG input, G.729A/ACT, --info
-and --compare.
+.bmp outputs, progressive and lossless MJPEG input, the G.729A encoder
+(-f act, .wav -> .act), --info and --compare.
 """
 
 from __future__ import annotations
@@ -106,17 +108,22 @@ def main(argv=None) -> int:
 
     src_ext = os.path.splitext(args.inputs[0])[1].lower()
     out_ext = os.path.splitext(args.output)[1].lower()
-    if ".act" in (src_ext, out_ext) or args.format == "act":
-        _not_ported("G.729A/ACT", "amv_tpu/codecs/g729a.py, "
-                    "g729a_encoder.py and amv_tpu/containers/act.py")
+    if out_ext == ".act" or args.format == "act":
+        _not_ported("G.729A encoding (-f act, .wav -> .act)",
+                    "amv_tpu/codecs/g729a_encoder.py and "
+                    "amv_tpu/codecs/g729a_encoder_tpu.py")
     if args.duration is not None and args.max_frames is None:
         fps = args.fps
-        if src_ext == ".amv":
+        if src_ext == ".act":
+            fps = 100                   # 10 ms G.729 frames
+        elif src_ext == ".amv":
             from .containers import riff
             with open(args.inputs[0], "rb") as f:
                 fps = riff.parse_header(f.read(0x140)).fps_num
         args.max_frames = max(1, int(args.duration * fps))
 
+    if src_ext == ".act":
+        return _decode_act(args, out_ext)
     if args.format == "amv" or out_ext == ".amv":
         if len(args.inputs) == 1 and src_ext == ".amv" and not args.size \
                 and not args.psnr:
@@ -142,6 +149,31 @@ def _transcode(args) -> int:
             else f"qscale={args.qscale or 2}")
     print(f"wrote {args.output}: {len(out)} bytes (requantized {mode}, "
           f"device {args.device})")
+    return 0
+
+
+def _decode_act(args, ext: str) -> int:
+    """ACT -> the ITU serial format (.bit, no decode), or G.729A decoded
+    by kernel G into a PCM WAV (any other extension, as in the JAX
+    package): one stream, all its frames in one launch."""
+    from .containers import act, wav
+    src, out = args.inputs[0], args.output
+    with open(src, "rb") as f:
+        frames, rate, _ = act.demux(f.read())
+    if args.max_frames:
+        frames = frames[:args.max_frames]
+    if ext == ".bit":
+        with open(out, "wb") as f:
+            f.write(act.to_itu_bitstream(frames))
+        print(f"wrote {out}: {len(frames)} ITU serial frames")
+        return 0
+    from .codecs import g729a
+    from .pipeline import resolve_device, upload
+    dev = resolve_device(args.device)
+    pcm = g729a.decode_streams(upload(frames[:, None], dev))[0]
+    wav.write_pcm(out, pcm.cpu().numpy(), rate, 1)
+    print(f"wrote {out}: {len(pcm)} samples @ {rate} Hz (G.729A, device "
+          f"{args.device})")
     return 0
 
 

@@ -50,10 +50,13 @@ _SIGNATURES = {
     "amv_trellis": [_P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     "amv_trellis_scratch": [_I64, _I64],
     "amv_ms_expand": [_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _P],
+    "amv_g729_decode": [_P, _I64, _I64, _P, _P, _P],
+    "amv_g729_state_words": [],
 }
 
 # entries that return something other than an int status
-_RESTYPES = {"amv_adpcm_encode_scratch": _I64, "amv_trellis_scratch": _I64}
+_RESTYPES = {"amv_adpcm_encode_scratch": _I64, "amv_trellis_scratch": _I64,
+             "amv_g729_state_words": _I64}
 
 _lib = None
 

@@ -1,0 +1,353 @@
+"""Time kernel G (the G.729A decoder) and kernel M (the MS-ADPCM expand) of
+the amv_tpu_torch package that comes first on sys.path, at the main paths'
+shapes on one GPU:
+
+* G (where the tree has it) on `chip_smoke.py` phase 15's batch: 1,024
+  streams of 6,000 seeded frames (60 s each; 1% erasures, 1% bad parity,
+  5% pitch codes >= 197), one `decode_frames_scan` launch, and one stream
+  of 60,000 frames (a 10-minute file); frames/s, the real-time factor
+  and the bytes bound (10 bytes in and 160 out a frame); the first 8
+  frames of every stream held against the plain version on the card;
+* M as `time_trellis.ms_readings` reads it: on phase 12's lanes (300 s
+  of seeded 44,100 Hz stereo MS-ADPCM at block_align 2,048: 12,998 lanes
+  of 2,034 samples), held against its plain version, also in a burst of
+  `--burst` launches, and the whole MS-ADPCM WAVE decode.
+
+Times: the median of CUDA events over `--reps` calls after a warm-up, the
+device time a launch from `torch.profiler` (each kernel's total over the
+launches it recorded), and for G the host clock around a synchronize.
+`nvcc -Xptxas -v` gives each kernel's registers and
+spills, and `nvdisasm` of each source built with `-lineinfo` its loops
+(`line_loops`: every backward branch's body, its source lines,
+instruction count, stores and carried chain) and the longest dependent
+chains through G's recurrences (`g729_floor`: its latency floor a
+frame).  Prints one JSON line: the tree, the
+card's name and power limit, and the readings.
+
+    PYTHONPATH=<tree> python3 amv_tpu_torch/tools/time_g729.py
+
+To compare two trees, run it from each in turns (parent, change, change,
+parent) inside one command; its helpers in `time_trellis.py` come from the
+tree on sys.path too, so a tree before this tool's is timed by its own
+`time_trellis.py`.  `--device cpu` runs the plain versions at the
+sizes given (the tests' rehearsal); it measures no device time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import importlib
+import json
+import os
+import re
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from amv_tpu_torch.tools import time_trellis as tt
+
+BYTES_A_FRAME = 10 + 160
+
+
+_NV_LABEL = re.compile(r"^\s*(\.L_\w+):")
+_REG = re.compile(r"\b(U?R\d+|U?P\d)\b")
+# opcodes that write no register
+_NO_DEST = ("ST", "BRA", "BAR", "WARPSYNC", "BSSY", "BSYNC", "EXIT", "RET",
+            "NOP", "RED", "LDGSTS", "LDGDEPBAR", "DEPBAR", "CALL")
+
+
+def _regs(text):
+    return [r for r in _REG.findall(text)]
+
+
+def carried_chain(body):
+    """The longest run of dependent instructions through one pass of a
+    loop body [(opcode, operands)], from the values it carries in (the
+    registers it reads before it writes them and writes again) to their
+    new values: the recurrence's latency in instructions a pass."""
+    written, live_in = set(), set()
+    parsed = []
+    for op, args in body:
+        regs = _regs(args)
+        if op.startswith(_NO_DEST) or not regs:
+            dst, src = [], regs
+        elif op.startswith("ISETP"):
+            dst, src = regs[:2], regs[2:]
+        else:
+            dst, src = regs[:1], regs[1:]
+        src = [r for r in src if r not in dst] + [r for r in src if r in dst]
+        live_in |= {r for r in src if r not in written}
+        written |= set(dst)
+        parsed.append((dst, src))
+    depth = {r: 0 for r in live_in & written}
+    carried = set(depth)
+    best = 0
+    for dst, src in parsed:
+        d = max((depth[r] for r in src if r in depth), default=None)
+        for r in dst:
+            if d is None:
+                depth.pop(r, None)
+            else:
+                depth[r] = d + 1
+                if r in carried:
+                    best = max(best, d + 1)
+    return best
+
+
+def _listing(text: str, kernel: str, source: str):
+    """`kernel`'s instructions in nvdisasm --print-line-info-inline output
+    of a -lineinfo build: [(opcode, operands, lines)], lines those of
+    `source` its inline chain names, innermost first (an instruction with
+    none keeps its predecessor's); and {label: index}."""
+    body, fn, lines, chain, labels = [], False, (), [], {}
+    for raw in text.splitlines():
+        m = re.search(r"\.text\.(\S+?):?$", raw.strip())
+        if m and raw.strip().startswith(".text"):
+            fn = kernel in m.group(1)
+            continue
+        if not fn:
+            continue
+        if "//##" in raw:
+            chain += [int(n) for f, n in re.findall(
+                r'"([^"]+)", line (\d+)', raw) if f.endswith(source)]
+            continue
+        m = _NV_LABEL.match(raw)
+        if m:
+            labels[m.group(1)] = len(body)
+            continue
+        m = tt.SASS_INSN.match(raw)
+        if m and m.group(2) != "NOP":
+            if chain:
+                lines, chain = tuple(chain), []
+            body.append((m.group(2), m.group(3), lines))
+    return body, labels
+
+
+def line_loops(text: str, kernel: str, source: str):
+    """The loops of `kernel` in nvdisasm --print-line-info-inline output of
+    a -lineinfo build: for each backward branch, the source lines of
+    `source` its body's instructions come from (innermost first), its
+    instruction count, its stores and its carried chain."""
+    body, labels = _listing(text, kernel, source)
+    out = []
+    for lo, hi in tt.backward_branches(body, labels):
+        ins = body[lo:hi + 1]
+        lines = sorted({ln[0] for _, _, ln in ins if ln})
+        out.append({"lines": [lines[0], lines[-1]] if lines else None,
+                    "instructions": len(ins),
+                    "stores": sum(o.startswith("ST") for o, _, _ in ins),
+                    "chain": carried_chain([(o, a) for o, a, _ in ins]),
+                    "opcodes": collections.Counter(
+                        o.split(".")[0] for o, _, _ in ins).most_common(8)})
+    return out
+
+
+def longest_chain(body):
+    """The longest run of dependent instructions in [(opcode, operands)],
+    in program order."""
+    depth, best = {}, 0
+    for op, args in body:
+        regs = _regs(args)
+        if op.startswith(_NO_DEST) or not regs:
+            dst, src = [], regs
+        elif op.startswith("ISETP"):
+            dst, src = regs[:2], regs[2:]
+        else:
+            dst, src = regs[:1], regs[1:]
+        d = 1 + max((depth.get(r, 0) for r in src), default=0)
+        for r in dst:
+            depth[r] = d
+        best = max(best, d)
+    return best
+
+
+def segment_chains(text: str, kernel: str, source: str, lo: int, hi: int,
+                   gap: int = 16):
+    """For each stretch of `kernel`'s instructions inlined from lines lo..hi
+    of `source` (a call site, or an unrolled loop; members at most `gap`
+    instructions apart), the longest dependent chain through it."""
+    body, _ = _listing(text, kernel, source)
+    runs = []
+    for i, (_, _, ln) in enumerate(body):
+        if any(lo <= x <= hi for x in ln):
+            if runs and i - runs[-1][-1] <= gap:
+                runs[-1].append(i)
+            else:
+                runs.append([i])
+    return [longest_chain([(o, a) for o, a, _ in body[r[0]:r[-1] + 1]])
+            for r in runs]
+
+
+# Hopper's latency of a dependent integer instruction (IMAD, IADD3, LOP3,
+# SHF, VIMNMX), in cycles: the floor counts each instruction on a chain
+# at this much
+DEP_CYCLES = 4
+
+
+def g729_floor(text: str, source_text: str):
+    """A frame's latency floor in dependent instructions, from the nvdisasm
+    listing of csrc/g729_decode.cu: the longest chain through each
+    recurrence lane 0 runs every frame (`segment_chains`): the LP
+    syntheses of a subframe (the first pass, and the postfilter's, which
+    clips: the first and last of the three sites), the AGC's 40 steps and
+    one sample of the interpolation (a round), twice, and the high-pass's
+    80 steps.  A floor: it leaves out the straight-line code between them
+    (the LSF decode, the LSP polynomials, the gains' log2/pow2 and
+    divisions), the shuffles and the loads."""
+    lines = source_text.splitlines()
+
+    def chains(a, b):
+        lo, hi = (next(i + 1 for i, ln in enumerate(lines) if t in ln)
+                  for t in (a, b))
+        return segment_chains(text, "g729_decode_kernel", "g729_decode.cu",
+                              lo, hi)
+
+    # a stretch of a few instructions is a fragment the scheduler moved
+    synth = [c for c in chains("bool synthesis(", "return ovf;") if c > 8]
+    if len(synth) != 3:
+        raise RuntimeError(f"expected 3 synthesis sites, found {synth}")
+    parts = {"synthesis": 2 * (synth[0] + synth[-1]),
+             "agc": 2 * max(chains("int gp = gain_coeff;",
+                                   "gain_coeff = gp;")),
+             "interpolation": 2 * max(chains("int v = 0;",
+                                             "exc[base + n] = g729_round(")),
+             "high-pass": max(chains("the 100 Hz high-pass", "hz1 = x;"))}
+    return {"synthesis_sites": synth, "parts": parts,
+            "instructions": sum(parts.values()),
+            "cycles": DEP_CYCLES * sum(parts.values())}
+
+
+def listing(build, source: str, save=None) -> str:
+    """nvcc -lineinfo of csrc/<source> to a cubin, and nvdisasm's listing
+    with inlined line information (written to `save` when given)."""
+    import tempfile
+    from amv_tpu_torch.tools import time_transcode_kernel as tk
+    bindir = os.path.dirname(build._nvcc())
+    flags = [f for f in build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = os.path.join(tmp, "k.cubin")
+        subprocess.run([build._nvcc(), *flags, "-lineinfo", "-cubin", "-o",
+                        cubin, os.path.join(tk._csrc(build), source)],
+                       capture_output=True, text=True, check=True)
+        text = subprocess.run(
+            [os.path.join(bindir, "nvdisasm"), "--print-line-info-inline",
+             cubin], capture_output=True, text=True, check=True).stdout
+    if save:
+        with open(save, "w") as f:
+            f.write(text)
+    return text
+
+
+def g_readings(G, fixtures, dev, args):
+    """Kernel G on the batch and on one long stream."""
+    from amv_tpu_torch.kernels import g729 as K
+    rng = np.random.default_rng(0)
+    out = {}
+    for key, b, t in (("batch", args.batch, args.frames),
+                      ("long", 1, args.long_frames)):
+        frames = fixtures.g729_frames(rng, t, b, erasure=0.01,
+                                      bad_parity=0.01, high_pitch=0.05)
+        parms = G.unpack_frames(torch.from_numpy(frames).to(dev))
+        st0 = G.init_state(b, dev)
+        l0 = K.LAUNCHES
+        ms, (st, pcm) = tt.event_ms(
+            lambda: G.decode_frames_scan(st0, parms), args.reps, dev)
+        launches = (K.LAUNCHES - l0) / (args.reps + 1)
+        split = tt.device_ms(lambda: G.decode_frames_scan(st0, parms),
+                             max(1, args.reps // 2), dev)
+        host = []
+        for _ in range(3):            # the host clock around a synchronize
+            _sync = torch.cuda.synchronize if dev.type == "cuda" else int
+            _sync()
+            t0 = time.perf_counter()
+            G.decode_frames_scan(st0, parms)
+            _sync()
+            host.append(1e3 * (time.perf_counter() - t0))
+        dev_ms = None if split is None else sum(
+            v for k, v in split.items() if "g729" in k)
+        n = b * t
+        r = {"streams": b, "frames": t, "ms": ms, "device_ms": dev_ms,
+             "host_ms": sorted(host),
+             "device_split_ms": split,
+             "launches_a_call": launches if dev.type == "cuda" else 0,
+             "frames_s": n / ms * 1e3,
+             "real_time_factor": n * 10.0 / ms,
+             "bytes_bound_ms": 1e3 * n * BYTES_A_FRAME / 3.35e12}
+        k = min(args.check_frames, t)
+        sp, want = G.init_state(b, dev), []
+        for i in range(k):
+            sp, w = G.decode_frame_batch(sp, parms[i])
+            want.append(w)
+        assert torch.equal(pcm[:k], torch.stack(want)), f"G {key} != plain"
+        r["checked_frames"] = k
+        stream = G.decode_streams(torch.from_numpy(frames).to(dev))
+        assert torch.equal(stream, pcm.permute(1, 0, 2).reshape(b, -1))
+        out[key] = r
+    return out
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--frames", type=int, default=6000)
+    ap.add_argument("--long-frames", type=int, default=60000)
+    ap.add_argument("--check-frames", type=int, default=8)
+    ap.add_argument("--ms-seconds", type=float, default=300.0,
+                    help="44,100 Hz stereo MS-ADPCM for M")
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--burst", type=int, default=2000,
+                    help="M's launches queued back to back for M_burst_ms")
+    ap.add_argument("--sass-dir", default=None,
+                    help="write each kernel's nvdisasm listing here")
+    args = ap.parse_args(argv)
+    import amv_tpu_torch
+    from amv_tpu_torch.codecs import wav_audio
+    from amv_tpu_torch.kernels import _build, adpcm
+    from amv_tpu_torch.tools import time_transcode_kernel as tk
+    from amv_tpu_torch.verify import fixtures
+    try:
+        G = importlib.import_module("amv_tpu_torch.codecs.g729a")
+    except ImportError:
+        G = None                      # a tree before kernel G
+
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device (or --device cpu)")
+    srcs = [s for s in ("g729_decode.cu", "adpcm_ms.cu")
+            if os.path.exists(os.path.join(tk._csrc(_build), s))]
+    ptx = None
+    if dev.type == "cuda":
+        ptx = tk.ptxas_start(_build, srcs)
+        _build.library()
+    out = {"tree": os.path.dirname(os.path.dirname(
+        os.path.abspath(amv_tpu_torch.__file__)))}
+    out["card"] = tk.smi("name,power.limit") if dev.type == "cuda" \
+        else "cpu"
+    ms = tt.ms_readings(adpcm, wav_audio, dev, args)
+    if G is not None:
+        ms["G"] = g_readings(G, fixtures, dev, args)
+    out["ms"] = ms
+    out["ptxas"] = tk.ptxas_lines(ptx) if ptx else None
+    if dev.type == "cuda":
+        sass = {src: listing(_build, src, save=args.sass_dir and
+                             os.path.join(args.sass_dir, src + ".sass"))
+                for src in srcs}
+        out["line_loops"] = {
+            src: line_loops(sass[src], k, src)
+            for src, k in (("adpcm_ms.cu", "ms_expand_kernel"),
+                           ("g729_decode.cu", "g729_decode_kernel"))
+            if src in srcs}
+        if "g729_decode.cu" in srcs:
+            with open(os.path.join(tk._csrc(_build), "g729_decode.cu")) as f:
+                out["g729_floor"] = g729_floor(sass["g729_decode.cu"],
+                                               f.read())
+    print(json.dumps(out), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

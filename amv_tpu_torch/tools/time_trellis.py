@@ -13,8 +13,11 @@ the main paths' shapes on one GPU:
   sync (`torch.nonzero`), and the chain's median wall time;
 * the MS-ADPCM expand (`kernels.adpcm.decode_ms_nibbles`) on phase 12's
   lanes (300 s of seeded 44,100 Hz stereo MS-ADPCM at block_align 2,048:
-  12,998 lanes of 2,034 samples), and the whole WAVE decode
-  (`codecs.wav_audio.decode_ms`, host clock) in Msamples/s.
+  12,998 lanes of 2,034 samples), also in a burst of `--burst` launches
+  queued back to back with the SM clock nvidia-smi reads meanwhile (a
+  launch that ends in a synchronize runs before the card has left its
+  idle clocks), and the whole WAVE decode (`codecs.wav_audio.decode_ms`,
+  host clock) in Msamples/s.
 
 Each result is held bit-exact against its plain version (`trellis_chunks_
 plain`; `decode_ms_nibbles_plain`, or a tree's torch loop itself).  Times:
@@ -47,12 +50,27 @@ import numpy as np
 import torch
 
 WAV_RATE, WAV_BLOCK = 44100, 2048
-_SASS = re.compile(r"\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
-                   r"([A-Z][\w.]*)([^;]*);")
+# an instruction of cuobjdump -sass or nvdisasm output: its address, its
+# opcode and its operands (a guard predicate dropped)
+SASS_INSN = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                       r"([A-Z][\w.]*)\s*([^;]*);")
+_TARGET = re.compile(r"(\.L_\w+|0x[0-9a-f]+)")
 # SASS opcodes off the integer ALU pipe: the multiply-add pipe (IMAD),
 # memory and shuffles (MIO), and control
 _NOT_ALU = ("IMAD", "SHFL", "LDS", "STS", "LDG", "STG", "BRA", "BSSY",
             "BSYNC", "WARPSYNC", "NOP", "S2R", "UMOV", "ULDC", "CS2R", "MOV")
+
+
+def backward_branches(body, index):
+    """(first, last) positions of each loop in body [(opcode, operands,
+    ...)]: a branch whose target, a label (nvdisasm) or an address
+    (cuobjdump), is at or before it in index {target: position}."""
+    out = []
+    for i, (op, args, *_) in enumerate(body):
+        t = _TARGET.search(args)
+        if op.startswith("BRA") and t and index.get(t.group(1), i + 1) <= i:
+            out.append((index[t.group(1)], i))
+    return out
 
 
 def loop_counts(sass: str, kernel: str):
@@ -61,19 +79,16 @@ def loop_counts(sass: str, kernel: str):
     per-sample loop; its uniform path, not the divergent fallback that
     holds WARPSYNC): {"instructions", "alu", "imad", "mio", opcode counts}
     or None where there is no such loop."""
-    body = next((sec for sec in re.split(r"\n\s*Function : ", sass)
+    text = next((sec for sec in re.split(r"\n\s*Function : ", sass)
                  if kernel in sec.split("\n")[0]), None)
-    if body is None:
+    if text is None:
         return None
-    ins = [(int(m.group(1), 16), m.group(2), m.group(3))
-           for m in map(_SASS.match, body.splitlines()) if m]
+    ins = [(m.group(2), m.group(3), int(m.group(1), 16))
+           for m in map(SASS_INSN.match, text.splitlines()) if m]
     best = None
-    for off, op, rest in ins:
-        t = re.search(r"0x([0-9a-f]+)", rest)
-        if not (op.startswith("BRA") and t and int(t.group(1), 16) < off):
-            continue
-        lo = int(t.group(1), 16)
-        ops = [o for a, o, _ in ins if lo <= a <= off]
+    for lo, hi in backward_branches(
+            ins, {f"0x{a:x}": i for i, (_, _, a) in enumerate(ins)}):
+        ops = [o for o, _, _ in ins[lo:hi + 1]]
         if (len(ops) > 200 and "SHFL.IDX" in ops and not any(
                 o.startswith("WARPSYNC") for o in ops)
                 and (best is None or len(ops) < len(best))):
@@ -116,8 +131,10 @@ def event_ms(fn, reps, dev):
 
 
 def device_ms(fn, reps, dev):
-    """Device milliseconds per call of fn by kernel name (torch.profiler);
-    None on the CPU."""
+    """Device milliseconds a launch of each kernel fn runs, by kernel name
+    (torch.profiler: each kernel's total over the launches it recorded,
+    so a record the profiler drops does not halve the time); None on the
+    CPU."""
     if dev.type != "cuda":
         return None
     from torch.autograd import DeviceType
@@ -131,8 +148,26 @@ def device_ms(fn, reps, dev):
     split = {}
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0:
-            split[ev.key[:60]] = ev.device_time_total / 1e3 / reps
+            split[ev.key[:60]] = ev.device_time_total / 1e3 / ev.count
     return split
+
+
+def burst_ms(fn, n, smi):
+    """Milliseconds a call of fn runs when n calls are queued back to back
+    (CUDA events around all n, after n more queued the same way, so the
+    card has left its idle clocks), and the SM clock nvidia-smi reads
+    while those first n drain."""
+    for _ in range(n):
+        fn()
+    clock = smi("clocks.sm")
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n, clock
 
 
 def ms_stream(seconds, rng):
@@ -239,13 +274,18 @@ def ms_readings(adpcm, wav_audio, dev, args):
                                     wav_audio._ms_lanes)
     t = [torch.from_numpy(a).to(dev) for a in lanes]
     plain = getattr(adpcm, "decode_ms_nibbles_plain", None)
-    reps = 2 if plain is None else args.reps    # a tree's loop: ~350 ms
+    looped = plain is None                      # a tree's loop: ~350 ms
+    reps = 2 if looped else args.reps
     plain = plain or adpcm.decode_ms_nibbles
     out = {"M_lanes": int(t[0].shape[0]), "M_samples": int(t[0].shape[1])}
     out["M_ms"], got = event_ms(lambda: adpcm.decode_ms_nibbles(*t), reps,
                                 dev)
     split = device_ms(lambda: adpcm.decode_ms_nibbles(*t), reps, dev)
     out["M_device_ms"] = None if split is None else sum(split.values())
+    if dev.type == "cuda" and args.burst and not looped:
+        from amv_tpu_torch.tools import time_transcode_kernel as tk
+        out["M_burst_ms"], out["M_burst_sm_clock"] = burst_ms(
+            lambda: adpcm.decode_ms_nibbles(*t), args.burst, tk.smi)
     want = plain(*t)
     assert torch.equal(got, want), "M != plain"
     ms_dec, pcm = event_ms(lambda: wav_audio.decode_ms(
@@ -265,6 +305,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--ms-seconds", type=float, default=300.0,
                     help="44,100 Hz stereo MS-ADPCM for M")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--burst", type=int, default=2000,
+                    help="M's launches queued back to back for M_burst_ms")
     args = ap.parse_args(argv)
     import amv_tpu_torch
     from amv_tpu_torch.codecs import amv_audio, wav_audio

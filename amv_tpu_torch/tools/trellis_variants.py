@@ -65,10 +65,12 @@ VARIANTS = {
 }
 
 
-def sources(text: str) -> dict:
-    """{variant: its source text}; raises if an edit no longer applies."""
+def sources(text: str, variants=None) -> dict:
+    """{variant: its source text} of `variants` ({name: [(text, its
+    replacement)]}, by default this tool's); raises if an edit no longer
+    applies."""
     out = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in (VARIANTS if variants is None else variants).items():
         s = text
         for old, new in edits:
             if old not in s:
@@ -77,6 +79,39 @@ def sources(text: str) -> dict:
             s = s.replace(old, new)
         out[name] = s
     return out
+
+
+def start_builds(build, texts: dict, out_dir: str) -> dict:
+    """nvcc of each {name: source text} into out_dir/<name>.so, all
+    started together: {name: its process}."""
+    from amv_tpu_torch.tools import time_transcode_kernel as tk
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name, text in texts.items():
+        cu = os.path.join(out_dir, f"{name}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        procs[name] = subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", tk._csrc(build),
+             "-Xptxas", "-v", "-shared", "-o",
+             os.path.join(out_dir, f"{name}.so"), cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return procs
+
+
+def load(build, name: str, proc, out_dir: str):
+    """The library a build of start_builds made, its C entries typed, and
+    its kernels' registers as ptxas gives them."""
+    log = proc.communicate()[0]
+    if proc.returncode:
+        raise RuntimeError(f"nvcc {name}:\n{log}")
+    lib = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
+    for entry, argtypes in build._SIGNATURES.items():
+        if hasattr(lib, entry):
+            getattr(lib, entry).argtypes = argtypes
+            getattr(lib, entry).restype = build._RESTYPES.get(entry,
+                                                              ctypes.c_int)
+    return lib, [int(r) for r in re.findall(r"Used (\d+) registers", log)]
 
 
 def main() -> dict:
@@ -90,20 +125,9 @@ def main() -> dict:
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    csrc = tk._csrc(_build)
     out_dir = os.path.join(_build.BUILD_DIR, "variants")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    with open(os.path.join(csrc, SOURCE)) as f:
-        variants = sources(f.read())
-    for name, text in variants.items():
-        cu = os.path.join(out_dir, f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(text)
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-Xptxas", "-v",
-             "-shared", "-o", os.path.join(out_dir, f"{name}.so"), cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    with open(os.path.join(tk._csrc(_build), SOURCE)) as f:
+        procs = start_builds(_build, sources(f.read()), out_dir)
 
     dev = torch.device("cuda")
     pcm = fixtures.audiogen(300.0, 22050, seed=0)
@@ -123,17 +147,9 @@ def main() -> dict:
 
     res = {}
     for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc {name}:\n{log}")
-        lib = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
-        launch = lib.amv_trellis
-        launch.argtypes = _build._SIGNATURES["amv_trellis"]
-        scratch = lib.amv_trellis_scratch
-        scratch.argtypes = _build._SIGNATURES["amv_trellis_scratch"]
-        scratch.restype = ctypes.c_int64
-        row = {"registers": [int(r) for r in
-                             re.findall(r"Used (\d+) registers", log)]}
+        lib, regs = load(_build, name, proc, out_dir)
+        launch, scratch = lib.amv_trellis, lib.amv_trellis_scratch
+        row = {"registers": regs}
         for label, n in (("all_ms", len(ns)), ("734_ms", 734),
                          ("one_ms", 1)):
             back = torch.empty(scratch(n, len_max), dtype=torch.uint8,

@@ -52,3 +52,68 @@ def audiogen(seconds: float = 1.0, sample_rate: int = 22050,
            + 500 * rng.standard_normal(len(t)))
     return np.clip(sig, -32768, 32767).astype(np.int16)
 
+
+
+# G.729 frame fields in order of their first bit: (first bit, width)
+_G729_FIELDS = ((0, 1), (1, 7), (8, 5), (13, 5), (18, 8), (26, 1), (27, 13),
+                (40, 4), (44, 3), (47, 4), (51, 5), (56, 13), (69, 4),
+                (73, 3), (76, 4))
+# the pitch parity (3.7.2): bit P1 >> 2 of this word
+_G729_PARITY = 0x6996966996696996
+
+
+def g729_frames(rng, t: int, b: int, erasure: float = 0.0,
+                bad_parity: float = 0.0, high_pitch: float = 0.0,
+                low_pitch: float = 0.0) -> np.ndarray:
+    """Random packed G.729 frames uint8 [t, b, 10] with valid pitch parity
+    (tests/test_g729.py:make_frame's fields, vectorised): the first pitch
+    index P1 in [60, 197), or with the given shares in [197, 256) (high)
+    or [0, 20) (low: the least lags); the given shares of frames have
+    their parity bit flipped, or are erasures (all ten bytes zero)."""
+    shape = (t, b)
+    vals = [rng.integers(0, 1 << n, shape, dtype=np.uint64)
+            for _, n in _G729_FIELDS]
+    u = rng.random(shape)
+    p1 = rng.integers(60, 197, shape)
+    p1 = np.where(u < high_pitch, rng.integers(197, 256, shape), p1)
+    p1 = np.where((u >= high_pitch) & (u < high_pitch + low_pitch),
+                  rng.integers(0, 20, shape), p1)
+    p0 = ((_G729_PARITY >> (p1 >> 2)) & 1) ^ 1
+    p0 ^= (rng.random(shape) < bad_parity).astype(p0.dtype)
+    vals[4], vals[5] = p1.astype(np.uint64), p0.astype(np.uint64)
+    hi = np.zeros(shape, np.uint64)      # bits 0..63, bit 0 the MSB
+    lo = np.zeros(shape, np.uint64)      # bits 64..79 in the top 16
+    for (at, n), v in zip(_G729_FIELDS, vals):
+        end = at + n
+        if end <= 64:
+            hi |= v << np.uint64(64 - end)
+        elif at >= 64:
+            lo |= v << np.uint64(128 - end)
+        else:
+            hi |= v >> np.uint64(end - 64)
+            lo |= (v & np.uint64((1 << (end - 64)) - 1)) << np.uint64(
+                128 - end)
+    out = np.concatenate([hi.astype(">u8")[..., None].view(np.uint8),
+                          lo.astype(">u8")[..., None].view(np.uint8)[..., :2]],
+                         axis=-1)
+    out[rng.random(shape) < erasure] = 0
+    return out
+
+
+def g729_set_field(frames: np.ndarray, at: int, n: int, value: int) -> None:
+    """Set the n-bit field at bit `at` of packed G.729 frames (uint8
+    [..., 10], bit j at byte j >> 3 from the MSB) to value, in place."""
+    for i in range(n):
+        j = at + i
+        m = np.uint8(1 << (7 - (j & 7)))
+        frames[..., j >> 3] &= ~m
+        if (value >> (n - 1 - i)) & 1:
+            frames[..., j >> 3] |= m
+
+
+def g729_loud(frames: np.ndarray) -> None:
+    """Every frame's gain codes set to the largest pitch gain (GA 0, GB 5:
+    1.36 in Q14), in place: the excitation grows until LP synthesis
+    overflows, and the decoder takes its rescale-and-redo path."""
+    for at, n, v in ((44, 3, 0), (47, 4, 5), (73, 3, 0), (76, 4, 5)):
+        g729_set_field(frames, at, n, v)

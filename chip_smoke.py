@@ -5,18 +5,21 @@ entropy encoders), the record-IR decode, the AMV decode (video and audio),
 the AMV encode, the q60 quantizer, odd picture sizes, the served
 transcode on CUDA streams, the encode's ingest (AVI input, -s
 rescaling, -ar resampling, every WAVE format), the trellis quantizer
-(-trellis, kernel L) and baseline MJPEG in and out.
+(-trellis, kernel L), baseline MJPEG in and out, and G.729A decoding
+(kernel G) with the ACT routes.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; nothing is caught):
  1. the card: nvidia-smi name and power limit, torch.cuda required;
- 2. build the fourteen CUDA kernels from amv_tpu_torch/csrc (nvcc, sm_90a,
+ 2. build the fifteen CUDA sources from amv_tpu_torch/csrc (nvcc, sm_90a,
     one nvcc per source, all started together), and log the registers,
     spills and shared memory ptxas gives kernels D, E, Q, V, T, A, X, P,
-    F, L and M, and kernel T's SASS instructions (cuobjdump, static
+    F, L, M and G, and kernel T's SASS instructions (cuobjdump, static
     counts: one thread a block), logged in phase 4 with a static-count
-    estimate of each T entry's issue time at its own blocks;
+    estimate of each T entry's issue time at its own blocks; G's source
+    is also built with line information to a cubin beside the phases, for
+    its latency floor in phase 15;
  3. a 160x120 corpus at the reference's canonical shape (16 fps, 22,050 Hz
     ADPCM audio): 4,800 frames (5 minutes) of seeded videogen/rotozoom
     pictures with noise, each C-encoded at qscale 2, muxed into an .amv
@@ -133,13 +136,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     (read, demux, header parse, host C scan decode, dequant, I, assembly,
     4:2:0, scale, V, E, escape, audio, mux); a 4:2:0 `-vcodec mjpeg` file
     of the port decoded through kernel D; 64 frames of 4:2:0, 4:4:4 and
-    gray with restart intervals 0 and 1, bytes and planes card = CPU.
+    gray with restart intervals 0 and 1, bytes and planes card = CPU;
+15. G.729A: 1,024 recordings of 60 s (6,000 seeded frames each: 1%
+    erasures, 1% bad parity, 5% pitch codes >= 197; one stream at the
+    largest pitch gain, whose LP synthesis overflows, one with the least
+    pitch code) through decode_streams on the card, kernel G launched
+    once (its launches counted from 0): its time beside its bounds (bytes
+    and operations, and the latency floor: the longest dependent chains
+    through a frame's recurrences in the nvdisasm listing of the cubin
+    built in phase 2, time_g729.g729_floor, at the card's highest SM
+    clock), frames/s and the real-time factor; G against its plain
+    version on the card, PCM and state, for
+    every stream's first 32 frames and two windows of 32 in the middle,
+    each from the state G returned at that frame; two streams' first 200
+    frames against the scalar oracle (verify/ref_g729.py); a 10-minute
+    .act file (stream 0's frames 10 times, act.mux) through `cli.main -i
+    rec.act out.wav` x3 (G launched once a pass; its first 6,000 frames
+    equal stream 0 of the batch) and out.bit (the frames' bits), with
+    frames/s and the stages one by one (read, demux, upload + unpack, G,
+    write).
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import statistics
@@ -189,6 +211,16 @@ EDGES = 1424         # in-edges of the 89 states a sample (89 x 16)
 EDGES_EVALUATED = 1157   # of them, the errors kernel L forms (89 x 13: its
                          # index -1 move's far group needs m = 0 alone)
 N_ORACLE = 32        # trellis chunks held against the numpy oracle
+# phase 15, G.729A: a dictaphone's recordings in bulk and one 10-minute file
+G_STREAMS, G_FRAMES = 1024, 6000     # 1,024 recordings of 60 s
+G_FILE_REPS = 10                     # stream 0's frames 10 times: 10 min
+G_CHECK = 32                         # frames of each window held to plain
+G_ORACLE = 200                       # frames of 2 streams held to the oracle
+# kernel G's integer operations a frame, counted from g729_decode.cu:
+# the interpolation 6,400, LP syntheses 4,000, the residual FIR 2,400, the
+# long-term filter 5,300, tilt 1,700, the energy sums 720, the excitation
+# update 640, the high-pass 960, the AGC 480, LSF/LSP/LP and gains 1,600
+OPS_G729 = 24200
 
 # phase 12, ingest: a 5-minute capture of 320x240 I420 frames and 44,100 Hz
 # PCM through the reference's canonical `-s 160x120 -ar 22050`
@@ -218,12 +250,13 @@ def log(msg: str) -> None:
 
 def import_port() -> SimpleNamespace:
     """The port's modules this script drives; nothing of JAX or amv_tpu."""
-    from amv_tpu_torch import cli, native
+    from amv_tpu_torch import cli, native, pipeline
     from amv_tpu_torch.codecs import amv_audio, amv_video, jpeg_tables
-    from amv_tpu_torch.codecs import mjpeg, wav_audio
+    from amv_tpu_torch.codecs import g729a, mjpeg, wav_audio
     from amv_tpu_torch.bitstream import jpeg_parse
-    from amv_tpu_torch.containers import avi, riff, wav
+    from amv_tpu_torch.containers import act, avi, riff, wav
     from amv_tpu_torch.kernels import _build, adpcm, fdct, idct
+    from amv_tpu_torch.kernels import g729 as G
     from amv_tpu_torch.kernels import adpcm_trellis as L
     from amv_tpu_torch.kernels import color, resample, scale
     from amv_tpu_torch.kernels import decode_fused as U
@@ -237,9 +270,11 @@ def import_port() -> SimpleNamespace:
     from amv_tpu_torch.pipeline import decode, encode
     from amv_tpu_torch.pipeline import serving as S
     from amv_tpu_torch.pipeline import transcode as P
+    from amv_tpu_torch.tools import time_g729 as tools_g
     from amv_tpu_torch.tools import time_serving as tools_s
     from amv_tpu_torch.tools import time_transcode_kernel as tools_t
-    from amv_tpu_torch.verify import fixtures, ref_adpcm, ref_trellis
+    from amv_tpu_torch.verify import fixtures, ref_adpcm, ref_g729
+    from amv_tpu_torch.verify import ref_trellis
     from amv_tpu_torch.verify import ref_wav_audio
     return SimpleNamespace(**locals())
 
@@ -392,7 +427,7 @@ def ptxas_start(m):
         "entropy_decode.cu", "entropy_encode.cu", "adpcm_encode.cu",
         "encode_fused.cu", "transcode.cu", "adpcm_decode.cu",
         "record_expand.cu", "record_pack.cu", "fdct.cu", "adpcm_trellis.cu",
-        "adpcm_ms.cu"))
+        "adpcm_ms.cu", "g729_decode.cu"))
 
 
 def ptxas_log(m, procs) -> None:
@@ -410,7 +445,7 @@ def reset_launches(m):
     m.idct.LAUNCHES = m.fdct.LAUNCHES = m.U.LAUNCHES = m.V.LAUNCHES = 0
     m.adpcm.DECODE_LAUNCHES = m.adpcm.ENCODE_LAUNCHES = 0
     m.R.RECORD_LAUNCHES = m.R.EXPAND_LAUNCHES = m.RP.LAUNCHES = 0
-    m.L.LAUNCHES = m.adpcm.MS_LAUNCHES = 0
+    m.L.LAUNCHES = m.adpcm.MS_LAUNCHES = m.G.LAUNCHES = 0
 
 
 def launches(m):
@@ -421,7 +456,7 @@ def launches(m):
             "A": m.adpcm.DECODE_LAUNCHES, "Q": m.adpcm.ENCODE_LAUNCHES,
             "R": m.R.RECORD_LAUNCHES, "X": m.R.EXPAND_LAUNCHES,
             "P": m.RP.LAUNCHES, "L": m.L.LAUNCHES,
-            "M": m.adpcm.MS_LAUNCHES}
+            "M": m.adpcm.MS_LAUNCHES, "G": m.G.LAUNCHES}
 
 
 def route_bytes(m, pays, w, h, enc):
@@ -1240,6 +1275,182 @@ def mjpeg_phase(m, dev, paths, card, check, amv_data, tmp,
     log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
 
 
+def g729_phase(m, dev, paths, card, kern, extra, tmp, mhz, g_sass,
+               n_streams=G_STREAMS, n_frames=G_FRAMES,
+               file_reps=G_FILE_REPS, n_check=G_CHECK,
+               n_oracle=G_ORACLE) -> None:
+    """Phase 15: G.729A.  A dictaphone's recordings in bulk, n_streams of
+    n_frames seeded frames each (1% erasures, 1% bad parity, 5% pitch
+    codes >= 197; stream 1 erased for its first 3 frames and at the
+    largest pitch gain, so its LP synthesis overflows; stream 2 with the
+    least pitch code), through decode_streams on the card: kernel G
+    launched once, its time beside the bounds (g_sass: a future of G's
+    nvdisasm listing, for its latency floor at mhz); G against its plain
+    version on the card for every stream's first n_check frames and for
+    two windows of n_check frames in the middle, each from the state G
+    returned at that frame; streams 0 and 3's first n_oracle frames
+    against the scalar oracle (verify/ref_g729.py).  Then one file: stream
+    0's frames file_reps times over, written with act.mux, through
+    `cli.main -i rec.act out.wav` x3 (frames/s, the stages one by one)
+    and out.bit; its first n_frames * 80 samples equal stream 0's."""
+    import torch
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cpu = torch.device("cpu")
+    t15 = time.perf_counter()
+    rng = np.random.default_rng(15)
+    frames = m.fixtures.g729_frames(rng, n_frames, n_streams, erasure=0.01,
+                                    bad_parity=0.01, high_pitch=0.05)
+    frames[0, [0, 3]] = m.fixtures.g729_frames(rng, 1, 2)[0]
+    m.fixtures.g729_loud(frames[:, 1])
+    frames[:3, 1] = 0
+    m.fixtures.g729_set_field(frames[2, 2], 18, 8, 0)     # P1 = 0
+    m.fixtures.g729_set_field(frames[2, 2], 26, 1, 1)
+    n_all = n_streams * n_frames
+    log(f"G.729A batch: {n_streams} streams x {n_frames} frames "
+        f"({n_frames / 100:.0f} s each), {frames.nbytes / 1e6:.1f} MB in, "
+        f"{n_all * 160 / 1e6:.1f} MB of PCM out; "
+        f"{time.perf_counter() - t15:.1f} s to make")
+
+    # the batch through decode_streams: one launch of G
+    fr = torch.from_numpy(frames).to(dev)
+    sync()
+    reset_launches(m)
+    t0 = time.perf_counter()
+    pcm = m.g729a.decode_streams(fr)
+    sync()
+    wall = time.perf_counter() - t0
+    paths["g729 batch"] = launches(m)
+    assert paths["g729 batch"]["G"] == 1, paths["g729 batch"]
+    assert pcm.shape == (n_streams, n_frames * 80) and \
+        pcm.dtype == torch.int16
+    parms = m.g729a.unpack_frames(fr)
+    st0 = m.g729a.init_state(n_streams, dev)
+    g_ms, (st_end, pcm_g) = cuda_ms(
+        lambda: m.g729a.decode_frames_scan(st0, parms), 3)
+    assert torch.equal(pcm_g.permute(1, 0, 2).reshape(n_streams, -1), pcm)
+    bms, by = bound(n_all * (10 + 160), n_all * OPS_G729)
+    with open(os.path.join(m.tools_t._csrc(m._build), "g729_decode.cu")) \
+            as f:
+        floor = m.tools_g.g729_floor(g_sass.result(), f.read())
+    frame_ms = floor["cycles"] / (mhz * 1e3)     # a frame's floor
+    batch = {"streams": n_streams, "frames": n_frames, "ms": g_ms,
+             "bound_ms": bms, "bound_by": by,
+             "latency_floor_ms": n_frames * frame_ms,
+             "frames_s": n_all / g_ms * 1e3,
+             "real_time_factor": n_all * 10.0 / g_ms,
+             "decode_streams_s": wall}
+    log(f"G at {n_streams} x {n_frames} frames: {g_ms:.3f} ms a launch "
+        f"(median of 3, CUDA events), decode_streams {wall:.3f} s (host "
+        f"clock, first call); {n_all / g_ms / 1e3:.1f} M frames/s, real-time"
+        f" factor {n_all * 10.0 / g_ms:.0f}; bound {bms:.4f} ms by {by} "
+        f"({n_all * 170 / 1e6:.0f} MB, {n_all * OPS_G729 / 1e9:.1f} G int "
+        f"ops); latency floor {n_frames * frame_ms:.3f} ms ({n_frames} "
+        f"frames x {floor['instructions']} dependent instructions "
+        f"{floor['parts']} x {m.tools_g.DEP_CYCLES} cycles at {mhz:.0f} MHz,"
+        " from the SASS built in this run)")
+
+    # G against its plain version: the first n_check frames of every
+    # stream, then two windows from G's own state at their first frame
+    def window(at):
+        st = st0
+        if at:
+            st, _ = m.g729a.decode_frames_scan(st0, parms[:at])
+        got = m.g729a.decode_frames_scan(st, parms[at:at + n_check])
+        sync()
+        t0 = time.perf_counter()
+        sp, want = st, []
+        for i in range(at, at + n_check):
+            sp, w = m.g729a.decode_frame_batch(sp, parms[i])
+            want.append(w)
+        sync()
+        plain_s = time.perf_counter() - t0
+        pairs = [(got[1], torch.stack(want)),
+                 (got[1], pcm_g[at:at + n_check])]
+        pairs += [(got[0][k], sp[k]) for k, _ in m.g729a.STATE_FIELDS]
+        return pairs, plain_s
+
+    wins = (0, n_frames // 3, min((2 * n_frames) // 3 + 7, n_frames - n_check))
+    plain_s = []
+    for at in wins:
+        pairs, t = window(at)
+        plain_s.append(t)
+        extra("G" if at == 0 else f"G window {at}", pairs,
+              f"{n_streams} streams, frames {at}-{at + n_check - 1}, PCM "
+              "and state" + (f", from G's state at frame {at}" if at
+                             else ""))
+    # the kernels line's ms, plain_ms and bound_ms: one work, the first
+    # window's (the plain version at the batch's frames would take ~20 min)
+    check_ms = cuda_ms(lambda: m.g729a.decode_frames_scan(
+        st0, parms[:n_check]), 3)[0]
+    n_win = n_streams * n_check
+    bms_c, by_c = bound(n_win * (10 + 160), n_win * OPS_G729)
+    kern["G"] = {"ms": check_ms, "plain_ms": 1e3 * plain_s[0],
+                 "bound_ms": bms_c, "bound_by": by_c, "streams": n_streams,
+                 "frames": n_check, "latency_floor_ms": n_check * frame_ms,
+                 "floor_instructions": floor["instructions"],
+                 "batch": batch}
+    log(f"G at {n_streams} x {n_check} frames: kernel {check_ms:.3f} ms, "
+        f"plain {plain_s[0] * 1e3:.1f} ms (host clock; windows "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in plain_s[1:])} ms); bound "
+        f"{bms_c:.4f} ms by {by_c}, latency floor {n_check * frame_ms:.4f}"
+        " ms")
+    t0 = time.perf_counter()
+    got = pcm[[0, 3], :n_oracle * 80].cpu().numpy()
+    for row, b in enumerate((0, 3)):
+        dec = m.ref_g729.G729Decoder()
+        want = np.concatenate([dec.decode_frame(f.tobytes())
+                               for f in frames[:n_oracle, b]])
+        assert np.array_equal(got[row], want), f"stream {b} != the oracle"
+    log(f"G: streams 0 and 3, frames 0-{n_oracle - 1}, equal the scalar "
+        f"oracle ({time.perf_counter() - t0:.1f} s)")
+
+    # one 10-minute file through the user's entry point
+    src = os.path.join(tmp, "rec.act")
+    data = m.act.mux(np.tile(frames[:, 0], (file_reps, 1)))
+    with open(src, "wb") as f:
+        f.write(data)
+    n_file = len(m.act.demux(data)[0])
+    reset_launches(m)
+    wall, walls = timed_cli(m, ["-i", src, os.path.join(tmp, "rec.wav"),
+                                "--device", dev.type])
+    paths["g729 file"] = launches(m)
+    assert paths["g729 file"]["G"] == 3, paths["g729 file"]
+    out, rate = m.wav.read_pcm(os.path.join(tmp, "rec.wav"), device=cpu)
+    assert rate == 8000 and out.shape == (n_file * 80,)
+    assert torch.equal(out[:n_frames * 80], pcm[0].cpu()), \
+        "the file's first frames differ from stream 0 of the batch"
+    bit = os.path.join(tmp, "rec.bit")
+    assert m.cli.main(["-i", src, bit]) == 0
+    words = np.fromfile(bit, "<u2").reshape(-1, 82)
+    assert (words[:, 0] == 0x6B21).all() and (words[:, 1] == 80).all()
+    assert set(np.unique(words[:, 2:]).tolist()) <= {0x7F, 0x81}
+    assert np.array_equal(np.packbits(words[:, 2:] == 0x81, axis=1),
+                          m.act.demux(data)[0]), ".bit != the ACT frames"
+    split = {}
+    raw = staged(split, "read", lambda: open(src, "rb").read())
+    fr1, rate1, _ = staged(split, "demux", lambda: m.act.demux(raw))
+    p1 = staged(split, "upload + unpack", lambda: m.g729a.unpack_frames(
+        m.pipeline.upload(fr1[:, None], dev)))
+    _, pcm1 = staged(split, "device G", lambda: m.g729a.decode_frames_scan(
+        m.g729a.init_state(1, dev), p1))
+    staged(split, "device->host + write", lambda: m.wav.write_pcm(
+        os.path.join(tmp, "rec2.wav"), pcm1.reshape(-1).cpu().numpy(),
+        rate1))
+    kern["G"]["file"] = {"frames": n_file, "cli_s": walls,
+                         "frames_s": n_file / wall,
+                         "real_time_factor": n_file / 100 / wall,
+                         "g_s": split["device G"]}
+    log(f"{card}: G.729A, cli.main -i rec.act out.wav x3 ({n_file} frames, "
+        f"{n_file / 6000:.1f} min, {len(data)} bytes): "
+        f"{', '.join(f'{t:.3f}' for t in walls)} s, median {wall:.3f} s = "
+        f"{n_file / wall:.0f} frames/s, real-time factor "
+        f"{n_file / 100 / wall:.0f}; launches {paths['g729 file']}; the "
+        f"first {n_frames} frames equal stream 0 of the batch; out.bit "
+        "equal to the file's frames' bits")
+    log_split("G.729A file", split)
+    log(f"phase 15 took {time.perf_counter() - t15:.1f} s")
+
+
 def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1266,6 +1477,11 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
         f"{' '.join(m._build.NVCC_FLAGS)}; host C library with gcc)")
     ptxas_log(m, ptxas)
+    # G's listing with line information, for its floor in phase 15; nvcc
+    # runs while the phases do
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    g_sass = pool.submit(m.tools_g.listing, m._build, "g729_decode.cu")
+    pool.shutdown(wait=False)
     t_sass = m.tools_t.sass_counts(m._build, ("transcode_blocks_kernel",))
     max_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
@@ -2197,6 +2413,8 @@ def main() -> int:
         trellis_phase(m, dev, paths, smi, check, kern, pics, pcm, tmp)
         # ---- 14. MJPEG ingest ---------------------------------------
         mjpeg_phase(m, dev, paths, smi, check, data, tmp)
+        # ---- 15. G.729A ---------------------------------------------
+        g729_phase(m, dev, paths, smi, kern, extra, tmp, max_mhz, g_sass)
     log(f"total {time.perf_counter() - t_start:.1f} s after the imports")
 
     kernels = []
@@ -2230,7 +2448,10 @@ def main() -> int:
              "kernel)", "L"),
             ("M", "ms_expand", "wav ms", "adpcm_ms.cu",
              "amv_tpu/kernels/adpcm.py:225 decode_ms_nibbles (lax.scan; no "
-             "TPU kernel)", "M")):
+             "TPU kernel)", "M"),
+            ("G", "g729_decode", "g729 file", "g729_decode.cu",
+             "amv_tpu/codecs/g729a.py:596 decode_frame_batch (XLA lax.scan; "
+             "no TPU kernel)", "G")):
         err = max(v for k, v in errs.items() if k.split()[0] == key)
         kernels.append({
             "name": name, "route": "cuda",
@@ -2257,6 +2478,8 @@ def main() -> int:
                      "chunks_a_round": kern[key]["chunks_a_round"],
                      "chain_ms": kern[key]["chain_ms"]} if key == "L"
                else {"rounds": kern[key]["rounds"]} if key in ("D", "R")
+               else {k: v for k, v in kern["G"].items() if k not in (
+                   "ms", "plain_ms", "bound_ms", "bound_by")} if key == "G"
                else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -163,6 +163,10 @@ T __shfl_up_sync(unsigned, T v, unsigned d) {
     return amv_emu::exchange(v, lane >= (int)d ? lane - (int)d : lane);
 }
 template <class T>
+T __shfl_xor_sync(unsigned, T v, int m) {
+    return amv_emu::exchange(v, (amv_emu::linear() % 32) ^ (m & 31));
+}
+template <class T>
 T __ldg(const T *p) { return *p; }
 template <class T>
 void __stcs(T *p, T v) { *p = v; }
@@ -180,6 +184,10 @@ inline unsigned __ballot_sync(unsigned mask, int p) {
     return r & mask;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned s) {
+    return (unsigned)((((uint64_t)hi << 32) | lo) >> (s & 31));
+}
 // atomics on shared or device memory: the CTA's threads are std::threads
 template <class T>
 T atomicAdd(T *p, T v) { return std::atomic_ref<T>(*p).fetch_add(v); }
@@ -202,6 +210,9 @@ inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
 }
 // Hopper's DPX integer min functions
 inline int __viaddmin_s32(int a, int b, int c) { return std::min(a + b, c); }
+inline int __viaddmax_s32(int a, int b, int c) {
+    return std::max((int)((unsigned)a + (unsigned)b), c);
+}
 inline int __vimin3_s32(int a, int b, int c) {
     return std::min(std::min(a, b), c);
 }

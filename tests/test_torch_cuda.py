@@ -1255,3 +1255,102 @@ def test_idct_put_and_fdct_quantize_at_mjpeg_shapes(dev):
     q = encoder_qmat(2)
     assert torch.equal(F.fdct_quantize(pix.to(dev), q).cpu(),
                        F.fdct_quantize(pix, q))
+
+
+def test_ms_kernel_matches_plain_odd_rows(dev):
+    """Kernel M at a second shape: 333 lanes of an odd 4,091 samples
+    (rows at every byte offset from a word, 16-bit stores, a tail of 11),
+    from an offset view of the nibbles, against its plain version."""
+    rng = np.random.default_rng(14)
+    b, n = 333, 4091
+    nib = rng.integers(0, 16, (b, n + 1)).astype(np.uint8)
+    st = [rng.choice([256, 512, 0, 192, 240, 460, 392], b),
+          rng.choice([0, -256, 0, 64, 0, -208, -232], b),
+          rng.integers(16, 5000, b), rng.integers(-32768, 32768, b),
+          rng.integers(-32768, 32768, b)]
+    args = [torch.from_numpy(nib[:, 1:])] + [torch.from_numpy(
+        np.asarray(v, np.int32)) for v in st]
+    want = AQ.decode_ms_nibbles_plain(*args)
+    m0 = AQ.MS_LAUNCHES
+    got = AQ.decode_ms_nibbles(*(t.to(dev) for t in args))
+    torch.cuda.synchronize()
+    assert AQ.MS_LAUNCHES == m0 + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def _g729_frames(t, b, seed):
+    """Seeded frames: erasures, bad parity, high and low pitch codes;
+    stream 1 erased for its first 3 frames and at the largest pitch gain
+    (its LP synthesis overflows), stream 2 with P1 = 0 (lag 19)."""
+    rng = np.random.default_rng(seed)
+    frames = fixtures.g729_frames(rng, t, b, erasure=0.02, bad_parity=0.02,
+                                  high_pitch=0.1, low_pitch=0.1)
+    fixtures.g729_loud(frames[:, 1])
+    frames[:3, 1] = 0
+    fixtures.g729_set_field(frames[2, 2], 18, 8, 0)
+    fixtures.g729_set_field(frames[2, 2], 26, 1, 1)
+    return frames
+
+
+def test_g729_kernel_matches_plain(dev):
+    """Kernel G (decode_frames_scan on CUDA tensors, one launch) against
+    its plain version on the CPU: 67 streams x 24 frames, PCM and every
+    state field; then two windows on the card from G's own state equal one
+    launch over both."""
+    from amv_tpu_torch.codecs import g729a as G
+    from amv_tpu_torch.kernels import g729 as K
+    frames = _g729_frames(24, 67, 0)
+    parms = G.unpack_frames(frames)
+    want_st, want = G.decode_frames_scan(G.init_state(67), parms)
+    g0 = K.LAUNCHES
+    st, pcm = G.decode_frames_scan(G.init_state(67, dev), parms.to(dev))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == g0 + 1
+    assert torch.equal(pcm.cpu(), want)
+    for k, _ in G.STATE_FIELDS:
+        assert torch.equal(st[k].cpu(), want_st[k]), k
+    sa, pa = G.decode_frames_scan(G.init_state(67, dev), parms[:9].to(dev))
+    sb, pb = G.decode_frames_scan(sa, parms[9:].to(dev))
+    assert torch.equal(torch.cat([pa, pb]).cpu(), want)
+    for k, _ in G.STATE_FIELDS:
+        assert torch.equal(sb[k].cpu(), want_st[k]), k
+
+
+def test_g729_decode_streams_long_stream(dev):
+    """decode_streams on the card: one stream of 600 frames (a launch of
+    one warp) equals the same frames as stream 0 of a batch of 40 (a
+    launch of 40), and the first 16 frames equal the oracle copy."""
+    from amv_tpu_torch.codecs import g729a as G
+    from amv_tpu_torch.verify import ref_g729
+    frames = _g729_frames(600, 40, 1)
+    frames[:3, 0] = fixtures.g729_frames(np.random.default_rng(2), 3, 1)[:, 0]
+    one = G.decode_streams(torch.from_numpy(frames[:, :1].copy()).to(dev))
+    many = G.decode_streams(torch.from_numpy(frames).to(dev))
+    assert torch.equal(one[0], many[0])
+    dec = ref_g729.G729Decoder()
+    want = np.concatenate([dec.decode_frame(f.tobytes())
+                           for f in frames[:16, 0]])
+    assert np.array_equal(one[0, :16 * 80].cpu().numpy(), want)
+
+
+def test_cli_act_cuda_matches_cpu(dev, tmp_path):
+    """cli.main -i rec.act out.wav on the card (kernel G, one launch)
+    writes the CPU route's bytes; out.bit needs no decode."""
+    from amv_tpu_torch import cli
+    from amv_tpu_torch.containers import act
+    from amv_tpu_torch.kernels import g729 as K
+    src = tmp_path / "rec.act"
+    frames = _g729_frames(120, 3, 3)[:, 1]
+    frames[0] = fixtures.g729_frames(np.random.default_rng(4), 1, 1)[0, 0]
+    src.write_bytes(act.mux(frames))
+    g0 = K.LAUNCHES
+    assert cli.main(["-i", str(src), str(tmp_path / "g.wav")]) == 0
+    assert K.LAUNCHES == g0 + 1
+    assert cli.main(["-i", str(src), str(tmp_path / "c.wav"),
+                     "--device", "cpu"]) == 0
+    assert (tmp_path / "g.wav").read_bytes() == \
+        (tmp_path / "c.wav").read_bytes()
+    assert cli.main(["-i", str(src), str(tmp_path / "g.bit")]) == 0
+    assert K.LAUNCHES == g0 + 1
+    assert (tmp_path / "g.bit").read_bytes() == act.to_itu_bitstream(
+        act.demux(src.read_bytes())[0])

@@ -8,7 +8,7 @@ shared buffer for the warp shuffles; its launches `k<<<g, b, s, st>>>(...)`
 are rewritten into that header's launch helper.  The library is loaded
 with ctypes under the C signatures of `kernels._build`, and the kernel's
 output is held bit-exact against its plain version at small sizes
-(kernels A, T, F, D, R, X, P, L and M).  This
+(kernels A, T, F, D, R, X, P, L, M and G).  This
 checks a kernel's logic (indices, tiles, scans, barriers) where there is no
 card; what nvcc makes of it is checked on the card
 (tests/test_torch_cuda.py, chip_smoke.py).  Skipped where g++ is absent.
@@ -44,9 +44,11 @@ CSRC = os.path.join(os.path.dirname(HERE), "amv_tpu_torch", "csrc")
 _LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\s*\(", re.S)
 
 
-def emulated(source: str, out_dir) -> ctypes.CDLL:
-    """csrc/<source> built with g++ against tests/cuda_emu, loaded."""
-    text = open(os.path.join(CSRC, source)).read()
+def emulated(source: str, out_dir, text=None) -> ctypes.CDLL:
+    """csrc/<source> (or `text`, an edit of it) built with g++ against
+    tests/cuda_emu, loaded."""
+    if text is None:
+        text = open(os.path.join(CSRC, source)).read()
     text = _LAUNCH.sub(lambda m: f"amv_emu::launch({m.group(1)}, "
                                  f"{m.group(2)}, ", text)
     cpp = os.path.join(out_dir, source + ".cpp")
@@ -612,7 +614,8 @@ def _ms_case(case):
         from amv_tpu_torch.codecs import wav_audio
         _, lanes = wav_audio._lanes(data, 1, 31, 7, wav_audio._ms_lanes)
         return tuple(np.ascontiguousarray(a) for a in lanes)
-    b, n = (45, 300) if case == "random" else (9, 40)
+    b, n = {"random": (45, 300), "odd": (37, 203),
+            "rows": (33, 2034)}.get(case, (9, 40))
     nib = rng.integers(0, 16, (b, n)).astype(np.uint8)
     st = [rng.choice([256, 512, 0, 192, 240, 460, 392], b),
           rng.choice([0, -256, 0, 64, 0, -208, -232], b),
@@ -626,13 +629,16 @@ def _ms_case(case):
     return (nib, *(np.asarray(v, np.int32) for v in st))
 
 
-@pytest.mark.parametrize("case", ["random", "wrap", "block"])
+@pytest.mark.parametrize("case", ["random", "wrap", "block", "odd", "rows"])
 def test_ms_source_matches_plain(ms_lib, case):
     """Kernel M, the MS-ADPCM expand, on the CPU against its plain version
     (`decode_ms_nibbles_plain`): 45 lanes of 300 samples (two warps, the
-    second part full; three tiles, the last part full), lanes at the
-    int32 extremes of idelta with the nibble 8 that grows it, and the
-    extremes block of the WAVE tests laid out by the MS-ADPCM route."""
+    second part full; 18 chunks of 16 and a tail of 12), lanes at the
+    int32 extremes of idelta with the nibble 8 that grows it, the
+    extremes block of the WAVE tests laid out by the MS-ADPCM route; rows
+    of an odd 203 samples (rows at every byte offset from a word, 16-bit
+    stores) and phase 12's 2,034 (rows 2 bytes off a word every other
+    row, a tail of 2)."""
     nib, *st = _ms_case(case)
     b, n = nib.shape
     out = np.full((b, n), 0x5A5A, np.int16)
@@ -643,3 +649,94 @@ def test_ms_source_matches_plain(ms_lib, case):
     want = AQ.decode_ms_nibbles_plain(*(torch.from_numpy(a)
                                         for a in (nib, *st)))
     np.testing.assert_array_equal(out, want.numpy())
+
+
+@pytest.mark.parametrize("variant", ["rows_24", "rows_16", "rows_8",
+                                     "stores_row_by_row", "table",
+                                     "no_dpx"])
+def test_ms_variant_source_matches_plain(tmp_path, variant):
+    """tools/ms_variants.py's builds of kernel M, with fewer rows a warp
+    (the lanes past them only copy and store) or another store loop, on
+    the CPU against the plain version: 45 lanes of 300 samples (two to six
+    warps, the last part full) and phase 12's 2,034 samples a row over 33
+    lanes."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the kernel source for the CPU")
+    from amv_tpu_torch.tools import ms_variants as mv
+    from amv_tpu_torch.tools import trellis_variants as tv
+    text = tv.sources(open(os.path.join(CSRC, mv.SOURCE)).read(),
+                      mv.VARIANTS)[variant]
+    lib = emulated(mv.SOURCE, str(tmp_path), text)
+    for case in ("random", "rows"):
+        nib, *st = _ms_case(case)
+        b, n = nib.shape
+        out = np.full((b, n), 0x5A5A, np.int16)
+        assert lib.amv_ms_expand(nib.ctypes.data, b, n,
+                                 *(a.ctypes.data for a in st),
+                                 out.ctypes.data, None) == 0
+        want = AQ.decode_ms_nibbles_plain(*(torch.from_numpy(a)
+                                            for a in (nib, *st)))
+        np.testing.assert_array_equal(out, want.numpy(), err_msg=case)
+
+
+@pytest.fixture(scope="module")
+def g729_lib(tmp_path_factory):
+    return _lib("g729_decode.cu", tmp_path_factory)
+
+
+def _g729_frames():
+    """3 streams x 12 frames: stream 0 random with erasures, bad parity
+    and high and low pitch codes; stream 1 erased for its first 2 frames
+    (lags 0 and 1) and at the largest pitch gain (LP synthesis
+    overflows); stream 2 with P1 = 0 (lag 19) in its third frame."""
+    rng = np.random.default_rng(5)
+    frames = fixtures.g729_frames(rng, 12, 3, erasure=0.1, bad_parity=0.1,
+                                  high_pitch=0.1, low_pitch=0.2)
+    frames[4:6, 0] = 0
+    fixtures.g729_loud(frames[:, 1])
+    frames[:2, 1] = 0
+    fixtures.g729_set_field(frames[2, 2], 18, 8, 0)
+    fixtures.g729_set_field(frames[2, 2], 26, 1, 1)
+    return frames
+
+
+def _g729(lib, parms, flat):
+    t, b = parms.shape[:2]
+    flat = np.ascontiguousarray(flat, np.int32).copy()
+    pcm = np.full((t, b, 80), 0x5A5A, np.int16)
+    p = np.ascontiguousarray(parms, np.int32)
+    rc = lib.amv_g729_decode(p.ctypes.data, t, b, flat.ctypes.data,
+                             pcm.ctypes.data, None)
+    assert rc == 0
+    return flat, pcm
+
+
+@pytest.mark.parametrize("split", [12, 5])
+def test_g729_source_matches_plain(g729_lib, monkeypatch, split):
+    """Kernel G on the CPU against its plain version
+    (`codecs.g729a.decode_frames_scan` on CPU tensors): erasures (leading
+    ones too), the overflow redo (its whole-buffer shift), lags 0, 1 and
+    19 (the interpolation in rounds), bad parity; in one launch, or in two
+    (frames 0-4, then 5-11 from the state the first returned).  PCM and
+    every state field are bit-exact."""
+    from amv_tpu_torch.codecs import g729a as G
+    from amv_tpu_torch.kernels import g729 as K
+    from test_torch_g729 import coverage
+    frames = _g729_frames()
+    _, redo, least = coverage(frames, monkeypatch)
+    assert redo > 0 and least == 0
+    assert g729_lib.amv_g729_state_words() == K.STATE_WORDS
+    parms = G.unpack_frames(frames)
+    st0 = G.init_state(3)
+    want_st, want = G.decode_frames_scan(st0, parms)
+    flat = K.flatten_state(st0).numpy()
+    pcms = []
+    for a, b in ((0, split), (split, 12)):
+        if a < b:
+            flat, pcm = _g729(g729_lib, parms[a:b].numpy(), flat)
+            pcms.append(pcm)
+    np.testing.assert_array_equal(np.concatenate(pcms), want.numpy())
+    got_st = K.unflatten_state(torch.from_numpy(flat))
+    for k, _ in G.STATE_FIELDS:
+        np.testing.assert_array_equal(got_st[k].numpy(), want_st[k].numpy(),
+                                      err_msg=k)

@@ -163,7 +163,7 @@ def test_cli_q60_routes(clip, tmp_path):
     ["-i", "{amv}", "{tmp}/out.bmp"],
     ["-i", "{amv}", "-pix_fmt", "rgb565", "{tmp}/out.rgb"],
     ["-i", "{wav}", "-f", "act", "{tmp}/out.act"],
-    ["-i", "{tmp}/in.act", "{tmp}/out.wav"],
+    ["-i", "{wav}", "{tmp}/out.act"],
     ["-i", "{sof2}", "-f", "amv", "-s", "48x32", "{tmp}/out.amv"],
     ["-i", "{sof3}", "-f", "amv", "{tmp}/out.amv"],
 ])

@@ -131,6 +131,25 @@ def test_trellis_variants_apply_to_the_source():
     assert all(v != text for k, v in out.items() if k != "shipped")
 
 
+def test_ms_variants_apply_to_the_source():
+    """amv_tpu_torch/tools/ms_variants.py's edits of kernel M's source (the
+    rows a warp walks, and the diagnostics that leave out a part of a
+    tile) all apply: each differs from the shipped source, and the
+    shipped one is the file."""
+    import os
+
+    from amv_tpu_torch.kernels import _build
+    from amv_tpu_torch.tools import ms_variants as mv
+    from amv_tpu_torch.tools import time_transcode_kernel as tk
+    from amv_tpu_torch.tools import trellis_variants as tv
+    text = open(os.path.join(tk._csrc(_build), mv.SOURCE)).read()
+    out = tv.sources(text, {**mv.VARIANTS, **mv.DIAGNOSTICS})
+    assert out["shipped"] == text and len(out) == 14
+    assert all(v != text for k, v in out.items() if k != "shipped")
+    assert [mv.rows_a_warp(k) for k in mv.VARIANTS] == [32, 24, 16, 8, 32, 32, 32]
+    assert all(mv.rows_a_warp(k) == 32 for k in mv.DIAGNOSTICS)
+
+
 def test_loop_counts_takes_the_uniform_per_sample_loop():
     """time_trellis.loop_counts on a cuobjdump-shaped listing: the
     innermost loop with a shuffle and over 200 instructions (not the outer
@@ -162,3 +181,100 @@ def test_loop_counts_takes_the_uniform_per_sample_loop():
     assert got["instructions"] == 241 and got["mio"] == 1
     assert got["imad"] == 60 and got["alu"] == 241 - 60 - 1 - 1
     assert tool.loop_counts("\n".join(rows), "absent") is None
+
+
+def test_time_g729_runs_on_the_cpu_at_a_tiny_size():
+    """amv_tpu_torch/tools/time_g729.py end to end on the CPU (the plain
+    versions): G on a batch and on one stream, each held against the plain
+    frame step and decode_streams by the tool, and M with the WAVE decode;
+    no device time, ptxas or SASS there."""
+    import torch
+
+    from amv_tpu_torch.tools import time_g729
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = time_g729.main(["--device", "cpu", "--batch", "2", "--frames",
+                              "3", "--long-frames", "4", "--check-frames",
+                              "2", "--ms-seconds", "0.05", "--reps", "1"])
+    finally:
+        torch.set_num_threads(n)
+    ms = out["ms"]
+    assert out["card"] == "cpu" and out["ptxas"] is None
+    assert ms["M_lanes"] == 4 and ms["M_device_ms"] is None
+    g = ms["G"]
+    assert (g["batch"]["streams"], g["batch"]["frames"]) == (2, 3)
+    assert (g["long"]["streams"], g["long"]["frames"]) == (1, 4)
+    assert g["batch"]["checked_frames"] == 2 and g["long"]["device_ms"] is None
+
+
+def _nvdisasm(body, kernel="_ZN4g729_decode_kernelEv", src="/x/k.cu"):
+    """An nvdisasm --print-line-info-inline shaped listing: body holds
+    (label or None, source lines (innermost first) or None, instruction)
+    rows."""
+    rows, addr = [f".text.{kernel}:"], 0
+    for label, lns, insn in body:
+        if label:
+            rows.append(f"{label}:")
+        if lns:
+            ln = [lns] if isinstance(lns, int) else lns
+            rows.append(f'        //## File "{src}", line {ln[0]}' + "".join(
+                f' inlined at "{src}", line {x}' for x in ln[1:]))
+        rows.append(f"        /*{addr:04x}*/                   {insn} ;")
+        addr += 0x10
+    return "\n".join(rows)
+
+
+def test_line_loops_carried_chain():
+    """time_g729.line_loops: a backward branch's body, its source lines,
+    stores, and the chain from the values it carries in to their new
+    values (here s: IMAD, SHF, LEA.HI, VIMNMX; the address add apart)."""
+    from amv_tpu_torch.tools import time_g729 as tool
+    text = _nvdisasm([
+        (None, 10, "MOV R1, c[0x0][0x28]"),
+        (".L_x_1", 20, "IMAD R2, R3, R4, R5"),
+        (None, 21, "SHF.R.S32.HI R6, RZ, 0x1f, R2"),
+        (None, 21, "LEA.HI R2, R6, R2, RZ, 0x8"),
+        (None, 22, "VIMNMX R3, R2, 0x7fff, PT"),
+        (None, 23, "STS [R7], R3"),
+        (None, 23, "IADD3 R7, R7, 0x4, RZ"),
+        (None, 24, "ISETP.NE.AND P0, PT, R7, R8, PT"),
+        (None, 24, "@P0 BRA `(.L_x_1)"),
+        (None, 30, "EXIT")])
+    (loop,) = tool.line_loops(text, "g729_decode_kernel", "k.cu")
+    assert loop["lines"] == [20, 24] and loop["instructions"] == 8
+    assert loop["stores"] == 1 and loop["chain"] == 4
+    assert tool.line_loops(text, "other_kernel", "k.cu") == []
+
+
+def test_g729_floor_counts_the_recurrences():
+    """time_g729.g729_floor finds each recurrence by the lines of its
+    source (through the inline chain: the helper's own line comes first),
+    splits the synthesis into its three call sites (a fragment of a few
+    instructions the scheduler moved away is not one), and sums a frame's
+    chains: the first and last synthesis sites, the AGC and the
+    interpolation twice, the high-pass once."""
+    from amv_tpu_torch.tools import time_g729 as tool
+    src = ["//"] * 60
+    for at, text in ((10, "bool synthesis("), (12, "return ovf;"),
+                     (20, "int v = 0;"), (21, "exc[base + n] = g729_round("),
+                     (30, "int gp = gain_coeff;"), (32, "gain_coeff = gp;"),
+                     (40, "the 100 Hz high-pass"), (44, "hz1 = x;")):
+        src[at - 1] = text
+
+    def chain(n, lines, r=2):
+        # n dependent instructions through R<r>, from helper line 3
+        return [(None, [3, *lines], f"IMAD R{r}, R{r}, R9, RZ")
+                for _ in range(n)]
+
+    filler = [(None, 50, "MOV R20, R21")] * 20
+    body = (chain(12, [11]) + filler + chain(14, [11]) + filler +
+            chain(2, [11]) + filler + chain(16, [11]) + filler +
+            chain(3, [20, 50]) + filler + chain(4, [31]) + filler +
+            chain(9, [41]) + filler + [(None, 50, "EXIT")])
+    out = tool.g729_floor(_nvdisasm(body, src="/x/g729_decode.cu"),
+                          "\n".join(src))
+    assert out["synthesis_sites"] == [12, 14, 16]     # the fragment left out
+    assert out["parts"] == {"synthesis": 56, "agc": 8, "interpolation": 6,
+                            "high-pass": 9}
+    assert out["cycles"] == tool.DEP_CYCLES * 79
