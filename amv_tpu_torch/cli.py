@@ -17,13 +17,15 @@
   python -m amv_tpu_torch -i in.amv -acodec copy out.wav        # raw ADPCM
   python -m amv_tpu_torch -i rec.act out.wav                    # G.729A
   python -m amv_tpu_torch -i rec.act out.bit                    # ITU serial
+  python -m amv_tpu_torch -i in.wav -f act out.act              # G.729A enc
   ... --device cpu                                              # plain versions
 
 Every route runs on the GPU (`--device cuda`, the default) unless the
-caller asks for the CPU.  The flags are `amv_tpu.cli`'s.  Still refused,
-each naming the `amv_tpu` module it waits for: .rgb/.raw (-pix_fmt) and
-.bmp outputs, progressive and lossless MJPEG input, the G.729A encoder
-(-f act, .wav -> .act), --info and --compare.
+caller asks for the CPU; `-f act` runs the host encoder
+(`codecs/g729a_encoder.py`, as the JAX package does) after the resampling
+on the device.  The flags are `amv_tpu.cli`'s.  Still refused, each
+naming the `amv_tpu` module it waits for: .rgb/.raw (-pix_fmt) and .bmp
+outputs, progressive and lossless MJPEG input, --info and --compare.
 """
 
 from __future__ import annotations
@@ -108,10 +110,6 @@ def main(argv=None) -> int:
 
     src_ext = os.path.splitext(args.inputs[0])[1].lower()
     out_ext = os.path.splitext(args.output)[1].lower()
-    if out_ext == ".act" or args.format == "act":
-        _not_ported("G.729A encoding (-f act, .wav -> .act)",
-                    "amv_tpu/codecs/g729a_encoder.py and "
-                    "amv_tpu/codecs/g729a_encoder_tpu.py")
     if args.duration is not None and args.max_frames is None:
         fps = args.fps
         if src_ext == ".act":
@@ -129,6 +127,8 @@ def main(argv=None) -> int:
                 and not args.psnr:
             return _transcode(args)
         return _encode(args)
+    if args.format == "act" or out_ext == ".act":
+        return _encode_act(args)
     if args.format is not None or src_ext != ".amv":
         raise SystemExit(f"unsupported route {src_ext or 'raw'} -> "
                          f"{args.format or out_ext}")
@@ -174,6 +174,34 @@ def _decode_act(args, ext: str) -> int:
     wav.write_pcm(out, pcm.cpu().numpy(), rate, 1)
     print(f"wrote {out}: {len(pcm)} samples @ {rate} Hz (G.729A, device "
           f"{args.device})")
+    return 0
+
+
+def _encode_act(args) -> int:
+    """WAV -> G.729A -> .act (`amv_tpu/cli.py:_encode_act`): the mono mean
+    as int16, resampled to 8 kHz on the device, then the host encoder
+    (`codecs/g729a_encoder.py:encode_stream`, the "high" preset)."""
+    from .codecs.g729a_encoder import encode_stream
+    from .codecs.wav_audio import downmix
+    from .containers import act, wav
+    from .pipeline import resolve_device
+    dev = resolve_device(args.device)
+    pcm, rate = wav.read_pcm(args.inputs[0], device=dev)
+    if pcm.dim() > 1:
+        pcm = downmix(pcm)
+    if rate != 8000:
+        from .kernels.resample import resample_pcm
+        print(f"resampling audio {rate} -> 8000 Hz")
+        pcm = resample_pcm(pcm, rate, 8000, device=dev)
+    if args.max_frames:
+        pcm = pcm[:args.max_frames * 80]
+    frames = encode_stream(pcm.cpu().numpy())
+    data = act.mux(np.frombuffer(b"".join(frames), np.uint8)
+                   .reshape(-1, 10), sample_rate=8000)
+    with open(args.output, "wb") as f:
+        f.write(data)
+    print(f"wrote {args.output}: {len(frames)} G.729A frames, {len(data)} "
+          f"bytes (device {args.device})")
     return 0
 
 

@@ -52,7 +52,11 @@ _SIGNATURES = {
     "amv_ms_expand": [_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _P],
     "amv_g729_decode": [_P, _I64, _I64, _P, _P, _P],
     "amv_g729_state_words": [],
+    "amv_g729_encode": [_P, _I64, _I64, _P, _P, _P, _P],
 }
+# a source's flags beyond NVCC_FLAGS: kernel K's float sums must round as
+# its plain version's separate torch multiplies and adds do
+SOURCE_FLAGS = {"g729_encode.cu": ["-fmad=false"]}
 
 # entries that return something other than an int status
 _RESTYPES = {"amv_adpcm_encode_scratch": _I64, "amv_trellis_scratch": _I64,
@@ -100,7 +104,8 @@ def build() -> str:
     objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
             for s in srcs]
     try:
-        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+        _run([[nvcc, *NVCC_FLAGS,
+               *SOURCE_FLAGS.get(os.path.basename(s), []), "-c", "-o", o, s]
               for s, o in zip(srcs, objs)])
         tmp = f"{_SO}.{tag}"
         _run([[nvcc, "-shared", "-o", tmp, *objs]])

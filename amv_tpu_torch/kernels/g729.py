@@ -1,19 +1,29 @@
-"""Kernel G: G.729 Annex A decoding of B streams over T frames in one
-launch (csrc/g729_decode.cu).
+"""Kernels G and K: G.729 Annex A decoding (csrc/g729_decode.cu) and
+encoding (csrc/g729_encode.cu) of B streams over T frames, each in one
+launch.
 
-Not the port of a Pallas kernel: the JAX package decodes with the XLA
+Neither ports a Pallas kernel: the JAX package decodes with the XLA
 program of `amv_tpu/codecs/g729a.py:596 decode_frame_batch` under
-`:731 decode_frames_scan` (a lax.scan over frames).  The port's plain
-version is `codecs/g729a.py:decode_frame_batch`, torch ops over the
-streams and a Python loop over each recurrence's steps, thousands of
-launches a frame.  Kernel G gives each stream a warp and keeps its state
-in shared memory for all T frames; see the source for the design.
+`:731 decode_frames_scan`, and encodes with `amv_tpu/codecs/
+g729a_encoder_tpu.py:437 encode_frame_batch` under `:588
+encode_frames_scan` (lax.scans over frames).  The port's plain versions
+are `codecs/g729a.py:decode_frame_batch` and `codecs/
+g729a_encoder_batch.py:encode_frame_batch`, torch ops over the streams
+and Python loops over each recurrence's steps.  Kernel G gives each
+stream a CTA of four warps, one a decoder stage, pipelined over frames;
+kernel K gives each stream a CTA of 128 threads, which split the
+encoder's searches; both keep the state in shared memory for all T
+frames.  See the sources for the designs.
 
-`decode_frames(st, parms)` is `codecs.g729a.decode_frames_scan`'s CUDA
-route: the state dict crosses as one int32 [B, STATE_WORDS] buffer in
-`codecs.g729a.STATE_FIELDS` order, which the kernel reads before frame 0
-and writes after frame T.  `table_header()` is the text of
-csrc/g729_tables.cuh, the kernel's copy of `codecs/g729_tables.py`.
+`decode_frames(st, parms)` and `encode_frames(st, hist, frames)` are the
+CUDA routes of `codecs.g729a.decode_frames_scan` and
+`codecs.g729a_encoder_batch.encode_frames_scan`: the state dict crosses
+as one int32 [B, STATE_WORDS] buffer in `codecs.g729a.STATE_FIELDS`
+order, which the kernel reads before frame 0 and writes after frame T.
+`table_header()` is the text of csrc/g729_tables.cuh, the kernels' copy
+of `codecs/g729_tables.py`; `encode_table_header()` that of
+csrc/g729_encode_tables.cuh, K's float constants (exact, as hex
+literals) from `codecs/g729a_encoder_batch.py`.
 """
 
 from __future__ import annotations
@@ -25,7 +35,8 @@ from ..codecs import g729_tables as TB
 from ..codecs.g729a import GAMMA_POWS_D, GAMMA_POWS_N, STATE_FIELDS
 from . import _build
 
-LAUNCHES = 0
+LAUNCHES = 0            # kernel G
+ENCODE_LAUNCHES = 0     # kernel K
 
 STATE_WORDS = sum(int(np.prod(s)) for _, s in STATE_FIELDS)
 
@@ -44,8 +55,9 @@ _HEADER_TABLES = (
 def table_header() -> str:
     """csrc/g729_tables.cuh: the decoder's tables as __constant__ arrays
     (tests/test_torch_g729.py holds the file to this text)."""
-    lines = ["// G.729 Annex A tables for kernel G (csrc/g729_decode.cu): the",
-             "// text of amv_tpu_torch/kernels/g729.py:table_header(), from",
+    lines = ["// G.729 Annex A tables for kernels G and K (csrc/g729_*.cu):",
+             "// the text of amv_tpu_torch/kernels/g729.py:table_header(), "
+             "from",
              "// amv_tpu_torch/codecs/g729_tables.py.", "#pragma once", "",
              "#include <stdint.h>", ""]
     for name, tab in _HEADER_TABLES:
@@ -59,7 +71,38 @@ def table_header() -> str:
                 row = "   "
             row += f" {v},"
         body.append(row)
-        lines += [f"__constant__ int32_t {name}{dims} = {{", *body, "};"]
+        lines += [f"static __constant__ int32_t {name}{dims} = {{", *body,
+                  "};"]
+    return "\n".join(lines) + "\n"
+
+
+def _hex(v) -> str:
+    return float(np.float32(v)).hex() + "f"
+
+
+def encode_table_header() -> str:
+    """csrc/g729_encode_tables.cuh: kernel K's float32 constants, each
+    written exactly (tests/test_torch_g729_encoder.py holds the file to
+    this text)."""
+    from ..codecs import g729a_encoder_batch as E
+    lines = ["// Kernel K's float constants (csrc/g729_encode.cu): the text "
+             "of", "// amv_tpu_torch/kernels/g729.py:encode_table_header(), "
+             "from", "// amv_tpu_torch/codecs/g729a_encoder_batch.py.",
+             "#pragma once", ""]
+    for name, vals in (("kWlp", E.WLP), ("kLagWindow", E.LAG_WINDOW),
+                       ("kSinCoef", E.SIN_COEF),
+                       ("kUniformLsf", E.UNIFORM_LSF)):
+        body, row = [], "   "
+        for v in (_hex(x) for x in vals):
+            if len(row) + len(v) + 2 > 78:
+                body.append(row)
+                row = "   "
+            row += f" {v},"
+        body.append(row)
+        lines += [f"static __constant__ float {name}[{len(vals)}] = {{", *body,
+                  "};"]
+    for name, v in (("kHalfPi", E.HALF_PI), ("kPi511", E.PI_511)):
+        lines.append(f"constexpr float {name} = {_hex(v)};")
     return "\n".join(lines) + "\n"
 
 
@@ -109,3 +152,40 @@ def decode_frames(st: dict, parms: torch.Tensor):
     global LAUNCHES
     LAUNCHES += 1
     return unflatten_state(flat), pcm
+
+
+def encode_frames(st: dict, hist: torch.Tensor, frames: torch.Tensor):
+    """Kernel K: st (the shadow state dict of `codecs.g729a.init_state`),
+    hist float32 [B, 160] (the past input, scaled), frames [T, B, 80] (the
+    int16 samples as float32) -> (the state after frame T, its hist,
+    parms int32 [T, B, 16]), all on one CUDA device; one launch encodes
+    all T frames."""
+    if frames.dim() != 3 or frames.shape[2] != 80:
+        raise ValueError(f"frames must be [T, B, 80], got "
+                         f"{tuple(frames.shape)}")
+    t, b = frames.shape[:2]
+    if tuple(hist.shape) != (b, 160):
+        raise ValueError(f"hist must be {(b, 160)}, got {tuple(hist.shape)}")
+    for k, shape in STATE_FIELDS:
+        if tuple(st[k].shape) != (b,) + shape:
+            raise ValueError(f"state {k} must be {(b,) + shape}, got "
+                             f"{tuple(st[k].shape)}")
+    _build.require_cuda(frames, hist, *st.values())
+    lib = _build.library()
+    if lib.amv_g729_state_words() != STATE_WORDS:
+        raise RuntimeError("csrc/g729_common.cuh's state layout differs from "
+                           "codecs/g729a.py:STATE_FIELDS")
+    x = frames.to(torch.float32).contiguous()
+    flat = flatten_state(st)
+    h = hist.to(torch.float32).contiguous().clone()
+    parms = torch.empty((t, b, 16), dtype=torch.int32, device=x.device)
+    if t == 0 or b == 0:
+        return unflatten_state(flat), h, parms
+    with torch.cuda.device(x.device):
+        rc = lib.amv_g729_encode(x.data_ptr(), t, b, flat.data_ptr(),
+                                 h.data_ptr(), parms.data_ptr(),
+                                 _build.stream())
+    _build.check(rc, "amv_g729_encode")
+    global ENCODE_LAUNCHES
+    ENCODE_LAUNCHES += 1
+    return unflatten_state(flat), h, parms

@@ -1,6 +1,6 @@
-"""Time kernel G (the G.729A decoder) and kernel M (the MS-ADPCM expand) of
-the amv_tpu_torch package that comes first on sys.path, at the main paths'
-shapes on one GPU:
+"""Time kernels G and K (the G.729A decoder and encoder) and kernel M (the
+MS-ADPCM expand) of the amv_tpu_torch package that comes first on
+sys.path, at the main paths' shapes on one GPU:
 
 * G (where the tree has it) on `chip_smoke.py` phase 15's batch: 1,024
   streams of 6,000 seeded frames (60 s each; 1% erasures, 1% bad parity,
@@ -8,6 +8,12 @@ shapes on one GPU:
   of 60,000 frames (a 10-minute file); frames/s, the real-time factor
   and the bytes bound (10 bytes in and 160 out a frame); the first 8
   frames of every stream held against the plain version on the card;
+  and at both shapes in turns with G's one-warp design
+  (`g729_baseline.py`, built into its own library: baseline, tree, tree,
+  baseline), their outputs equal;
+* K (where the tree has it) on `chip_smoke.py` phase 16's batch: 1,024
+  seeded speech streams of 600 frames, one `encode_frames_scan` launch,
+  frames/s, its first frames held against the plain version;
 * M as `time_trellis.ms_readings` reads it: on phase 12's lanes (300 s
   of seeded 44,100 Hz stereo MS-ADPCM at block_align 2,048: 12,998 lanes
   of 2,034 samples), held against its plain version, also in a burst of
@@ -19,9 +25,9 @@ launches it recorded), and for G the host clock around a synchronize.
 `nvcc -Xptxas -v` gives each kernel's registers and
 spills, and `nvdisasm` of each source built with `-lineinfo` its loops
 (`line_loops`: every backward branch's body, its source lines,
-instruction count, stores and carried chain) and the longest dependent
-chains through G's recurrences (`g729_floor`: its latency floor a
-frame).  Prints one JSON line: the tree, the
+instruction count, stores and carried chain) and each pipeline stage's
+dependent chain a frame (`g729_floor`: the longest is G's latency floor
+a frame).  Prints one JSON line: the tree, the
 card's name and power limit, and the readings.
 
     PYTHONPATH=<tree> python3 amv_tpu_torch/tools/time_g729.py
@@ -101,8 +107,9 @@ def _listing(text: str, kernel: str, source: str):
     """`kernel`'s instructions in nvdisasm --print-line-info-inline output
     of a -lineinfo build: [(opcode, operands, lines)], lines those of
     `source` its inline chain names, innermost first (an instruction with
-    none keeps its predecessor's); and {label: index}."""
-    body, fn, lines, chain, labels = [], False, (), [], {}
+    no line information keeps its predecessor's; one whose chain names
+    only other files has none); and {label: index}."""
+    body, fn, lines, chain, labels, seen = [], False, (), [], {}, False
     for raw in text.splitlines():
         m = re.search(r"\.text\.(\S+?):?$", raw.strip())
         if m and raw.strip().startswith(".text"):
@@ -113,6 +120,7 @@ def _listing(text: str, kernel: str, source: str):
         if "//##" in raw:
             chain += [int(n) for f, n in re.findall(
                 r'"([^"]+)", line (\d+)', raw) if f.endswith(source)]
+            seen = True
             continue
         m = _NV_LABEL.match(raw)
         if m:
@@ -120,8 +128,8 @@ def _listing(text: str, kernel: str, source: str):
             continue
         m = tt.SASS_INSN.match(raw)
         if m and m.group(2) != "NOP":
-            if chain:
-                lines, chain = tuple(chain), []
+            if seen:
+                lines, chain, seen = tuple(chain), [], False
             body.append((m.group(2), m.group(3), lines))
     return body, labels
 
@@ -164,22 +172,9 @@ def longest_chain(body):
     return best
 
 
-def segment_chains(text: str, kernel: str, source: str, lo: int, hi: int,
-                   gap: int = 16):
-    """For each stretch of `kernel`'s instructions inlined from lines lo..hi
-    of `source` (a call site, or an unrolled loop; members at most `gap`
-    instructions apart), the longest dependent chain through it."""
-    body, _ = _listing(text, kernel, source)
-    runs = []
-    for i, (_, _, ln) in enumerate(body):
-        if any(lo <= x <= hi for x in ln):
-            if runs and i - runs[-1][-1] <= gap:
-                runs[-1].append(i)
-            else:
-                runs.append([i])
-    return [longest_chain([(o, a) for o, a, _ in body[r[0]:r[-1] + 1]])
-            for r in runs]
-
+# kernel G's build whose chains bound one stream: the instantiation at 4
+# CTAs an SM (128 registers a thread; the one at 8 serves large batches)
+G_KERNEL = "g729_decode_kernelILi4E"
 
 # Hopper's latency of a dependent integer instruction (IMAD, IADD3, LOP3,
 # SHF, VIMNMX), in cycles: the floor counts each instruction on a chain
@@ -187,37 +182,101 @@ def segment_chains(text: str, kernel: str, source: str, lo: int, hi: int,
 DEP_CYCLES = 4
 
 
-def g729_floor(text: str, source_text: str):
+def _lines_between(text: str, first: str, last: str):
+    """The 1-based line numbers from the line holding `first` to the next
+    one holding `last`."""
+    lines = text.splitlines()
+    lo = next(i for i, ln in enumerate(lines) if first in ln)
+    hi = next(i for i, ln in enumerate(lines) if i >= lo and last in ln)
+    return range(lo + 1, hi + 2)
+
+
+def _stretch_chains(insns, members, gap: int = 16):
+    """The longest dependent chain through each stretch of `members`
+    (indices into insns [(opcode, operands, ...)], at most `gap` apart)."""
+    runs = []
+    for i in members:
+        if runs and i - runs[-1][-1] <= gap:
+            runs[-1].append(i)
+        else:
+            runs.append([i])
+    return [longest_chain([(o, a) for o, a, *_ in insns[r[0]:r[-1] + 1]])
+            for r in runs]
+
+
+STAGES = (("parameters", "// ---- parameters of frame t"),
+          ("excitation", "// ---- excitation and LP synthesis of frame t"),
+          ("postfilter", "// ---- the postfilter of frame t"),
+          ("high-pass", "// ---- the 100 Hz high-pass of frame t"))
+
+
+def g729_floor(text: str, csrc: str):
     """A frame's latency floor in dependent instructions, from the nvdisasm
-    listing of csrc/g729_decode.cu: the longest chain through each
-    recurrence lane 0 runs every frame (`segment_chains`): the LP
-    syntheses of a subframe (the first pass, and the postfilter's, which
-    clips: the first and last of the three sites), the AGC's 40 steps and
-    one sample of the interpolation (a round), twice, and the high-pass's
-    80 steps.  A floor: it leaves out the straight-line code between them
-    (the LSF decode, the LSP polynomials, the gains' log2/pow2 and
-    divisions), the shuffles and the loads."""
-    lines = source_text.splitlines()
+    listing of csrc/g729_decode.cu (a -lineinfo build; csrc the sources'
+    directory): each pipeline stage's chain a frame, and the longest of
+    them, which bounds a step.  A stage's instructions are those whose
+    inline chain passes through its block of g729_decode.cu.
+    * parameters: the longest dependent chain through the whole block (the
+      LSF decode and sort, the LSP polynomials, the tilt's 22-step impulse
+      response, the gains' log2/pow2 and divisions; its loops once);
+    * excitation: twice (a subframe) one sample's interpolation and the
+      first LP synthesis (the overflow redo left out);
+    * postfilter: twice the long-term filter's correlation, the 1/A(z/gd)
+      synthesis and the AGC's 40 steps;
+    * high-pass: its 80 steps.
+    A floor: the shuffles, the loads and the barrier between steps are
+    left out."""
+    with open(os.path.join(csrc, "g729_decode.cu")) as f:
+        dsrc = f.read()
+    with open(os.path.join(csrc, "g729_common.cuh")) as f:
+        csrc_text = f.read()
+    kernel = G_KERNEL
+    body, _ = _listing(text, kernel, "g729_decode.cu")
+    cbody, _ = _listing(text, kernel, "g729_common.cuh")
+    insns = [(o, a, dl, cl) for (o, a, dl), (_, _, cl) in zip(body, cbody)]
+    marks, lines = [0], dsrc.splitlines()
+    for m in [m for _, m in STAGES] + ["// the state after frame T"]:
+        marks.append(next(i + 1 for i, ln in enumerate(lines)
+                          if i >= marks[-1] and m in ln))
+    marks = marks[1:]
 
-    def chains(a, b):
-        lo, hi = (next(i + 1 for i, ln in enumerate(lines) if t in ln)
-                  for t in (a, b))
-        return segment_chains(text, "g729_decode_kernel", "g729_decode.cu",
-                              lo, hi)
+    def where(rng, lines):
+        return any(x in rng for x in lines)
 
-    # a stretch of a few instructions is a fragment the scheduler moved
-    synth = [c for c in chains("bool synthesis(", "return ovf;") if c > 8]
-    if len(synth) != 3:
-        raise RuntimeError(f"expected 3 synthesis sites, found {synth}")
-    parts = {"synthesis": 2 * (synth[0] + synth[-1]),
-             "agc": 2 * max(chains("int gp = gain_coeff;",
-                                   "gain_coeff = gp;")),
-             "interpolation": 2 * max(chains("int v = 0;",
-                                             "exc[base + n] = g729_round(")),
-             "high-pass": max(chains("the 100 Hz high-pass", "hz1 = x;"))}
-    return {"synthesis_sites": synth, "parts": parts,
-            "instructions": sum(parts.values()),
-            "cycles": DEP_CYCLES * sum(parts.values())}
+    synth = _lines_between(csrc_text, "bool synthesis(", "return ovf;")
+    interp = _lines_between(csrc_text, "int v = 0;",
+                            "exc[base + n] = g729_round(")
+    agc = _lines_between(dsrc, "int gp = gain_coeff;", "gain_coeff = gp;")
+    corr = _lines_between(dsrc, "uint32_t acc = 0;", "acc += (uint32_t)a")
+    hp = _lines_between(dsrc, "const int x = f.pcm[n];", "hz1 = x;")
+    stages = {}
+    for k, (name, _) in enumerate(STAGES):
+        rng = range(marks[k], marks[k + 1])
+        mem = [i for i, ins in enumerate(insns) if where(rng, ins[2])]
+
+        def part(lines, in_common=True):
+            return [c for c in _stretch_chains(insns, [
+                i for i in mem if where(lines, insns[i][3 if in_common
+                                                       else 2])]) if c > 8]
+        if name == "parameters":
+            parts = {"block": longest_chain([insns[i][:2] for i in mem])}
+        elif name == "excitation":
+            sites = part(synth)[0::2]       # each subframe's first pass
+            parts = {"synthesis": sum(sites) * (2 // len(sites)),
+                     "interpolation": 2 * max(part(interp))}
+        elif name == "postfilter":
+            sites = part(synth)
+            parts = {"synthesis": sum(sites) * (2 // len(sites)),
+                     "agc": 2 * max(part(agc, False)),
+                     "correlation": 2 * max(part(corr, False))}
+        else:
+            parts = {"high-pass": max(part(hp, False))}
+        stages[name] = {"instructions": len(mem), "parts": parts,
+                        "chain": sum(parts.values())}
+    longest = max(stages, key=lambda n: stages[n]["chain"])
+    chain = stages[longest]["chain"]
+    return {"stages": stages, "binding": longest, "instructions": chain,
+            "cycles": DEP_CYCLES * chain}
 
 
 def listing(build, source: str, save=None) -> str:
@@ -227,6 +286,7 @@ def listing(build, source: str, save=None) -> str:
     from amv_tpu_torch.tools import time_transcode_kernel as tk
     bindir = os.path.dirname(build._nvcc())
     flags = [f for f in build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+    flags += getattr(build, "SOURCE_FLAGS", {}).get(source, [])
     with tempfile.TemporaryDirectory() as tmp:
         cubin = os.path.join(tmp, "k.cubin")
         subprocess.run([build._nvcc(), *flags, "-lineinfo", "-cubin", "-o",
@@ -241,8 +301,65 @@ def listing(build, source: str, save=None) -> str:
     return text
 
 
-def g_readings(G, fixtures, dev, args):
-    """Kernel G on the batch and on one long stream."""
+def baseline_library(build):
+    """Kernel G's one-warp design (`g729_baseline.SOURCE`) built with nvcc
+    into its own library beside the port's, against csrc/'s tables, and
+    loaded."""
+    import ctypes
+    import tempfile
+    from amv_tpu_torch.tools import g729_baseline
+    from amv_tpu_torch.tools import time_transcode_kernel as tk
+    so = os.path.join(build.BUILD_DIR, "libg729_baseline.so")
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "g729_baseline.cu")
+        with open(src, "w") as f:
+            f.write(g729_baseline.SOURCE)
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I",
+                        tk._csrc(build), "-o", so, src], capture_output=True,
+                       text=True, check=True)
+    lib = ctypes.CDLL(so)
+    lib.amv_g729_decode.argtypes = build._SIGNATURES["amv_g729_decode"]
+    lib.amv_g729_decode.restype = ctypes.c_int
+    return lib
+
+
+def decode_baseline(lib, st, parms):
+    """The one-warp G on CUDA tensors: (state after frame T, pcm)."""
+    from amv_tpu_torch.kernels import _build
+    from amv_tpu_torch.kernels import g729 as K
+    t, b = parms.shape[:2]
+    p = parms.to(torch.int32).contiguous()
+    flat = K.flatten_state(st)
+    pcm = torch.empty((t, b, 80), dtype=torch.int16, device=p.device)
+    _build.check(lib.amv_g729_decode(p.data_ptr(), t, b, flat.data_ptr(),
+                                     pcm.data_ptr(), _build.stream()),
+                 "baseline amv_g729_decode")
+    return K.unflatten_state(flat), pcm
+
+
+def turns(G, lib, st0, parms, reps):
+    """The one-warp G (baseline) and the tree's G on the same inputs in
+    turns (baseline, tree, tree, baseline), each the median of `reps`
+    launches by CUDA events; their PCM and states must be equal."""
+    out = {"baseline_ms": [], "pipeline_ms": []}
+    got = {}
+    for name in ("baseline", "pipeline", "pipeline", "baseline"):
+        fn = (lambda: decode_baseline(lib, st0, parms)) \
+            if name == "baseline" else \
+            (lambda: G.decode_frames_scan(st0, parms))
+        ms, got[name] = tt.event_ms(fn, reps, parms.device)
+        out[f"{name}_ms"].append(ms)
+    (sa, pa), (sb, pb) = got["baseline"], got["pipeline"]
+    assert torch.equal(pa, pb), "the pipeline's PCM != the baseline's"
+    for k, _ in G.STATE_FIELDS:
+        assert torch.equal(sa[k], sb[k]), f"state {k} != the baseline's"
+    return out
+
+
+def g_readings(G, fixtures, dev, args, lib=None):
+    """Kernel G on the batch and on one long stream (and, given the
+    baseline's library, in turns with it)."""
     from amv_tpu_torch.kernels import g729 as K
     rng = np.random.default_rng(0)
     out = {}
@@ -285,8 +402,33 @@ def g_readings(G, fixtures, dev, args):
         r["checked_frames"] = k
         stream = G.decode_streams(torch.from_numpy(frames).to(dev))
         assert torch.equal(stream, pcm.permute(1, 0, 2).reshape(b, -1))
+        if lib is not None:
+            r["turns"] = turns(G, lib, st0, parms, max(1, args.reps // 3))
         out[key] = r
     return out
+
+
+def k_readings(E, G, fixtures, dev, args):
+    """Kernel K on `--k-batch` seeded speech streams of `--k-frames`
+    frames (one `encode_frames_scan` launch): its time, frames/s, and its
+    first frames held against the plain version on the card."""
+    from amv_tpu_torch.kernels import g729 as K
+    b, t = args.k_batch, args.k_frames
+    pcm = torch.from_numpy(fixtures.speech_streams(b, t * 80, 16)).to(dev)
+    fr = pcm.float().reshape(b, t, 80).permute(1, 0, 2).contiguous()
+    st0 = G.init_state(b, dev)
+    h0 = torch.zeros((b, 160), dtype=torch.float32, device=dev)
+    l0 = K.ENCODE_LAUNCHES
+    ms, (_, _, parms) = tt.event_ms(
+        lambda: E.encode_frames_scan(st0, h0, fr), max(1, args.reps // 3),
+        dev)
+    k = min(args.check_frames, t, 2)
+    sp, hp = st0, h0
+    for i in range(k):
+        sp, hp, p = E.encode_frame_batch(sp, hp, fr[i])
+        assert torch.equal(p, parms[i]), f"K frame {i} != plain"
+    return {"streams": b, "frames": t, "ms": ms, "frames_s": b * t / ms * 1e3,
+            "launches": K.ENCODE_LAUNCHES - l0, "checked_frames": k}
 
 
 def main(argv=None) -> dict:
@@ -296,6 +438,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--frames", type=int, default=6000)
     ap.add_argument("--long-frames", type=int, default=60000)
     ap.add_argument("--check-frames", type=int, default=8)
+    ap.add_argument("--k-batch", type=int, default=1024)
+    ap.add_argument("--k-frames", type=int, default=600)
     ap.add_argument("--ms-seconds", type=float, default=300.0,
                     help="44,100 Hz stereo MS-ADPCM for M")
     ap.add_argument("--reps", type=int, default=10)
@@ -313,11 +457,15 @@ def main(argv=None) -> dict:
         G = importlib.import_module("amv_tpu_torch.codecs.g729a")
     except ImportError:
         G = None                      # a tree before kernel G
+    try:
+        E = importlib.import_module("amv_tpu_torch.codecs.g729a_encoder_batch")
+    except ImportError:
+        E = None                      # a tree before kernel K
 
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device (or --device cpu)")
-    srcs = [s for s in ("g729_decode.cu", "adpcm_ms.cu")
+    srcs = [s for s in ("g729_decode.cu", "g729_encode.cu", "adpcm_ms.cu")
             if os.path.exists(os.path.join(tk._csrc(_build), s))]
     ptx = None
     if dev.type == "cuda":
@@ -329,22 +477,24 @@ def main(argv=None) -> dict:
         else "cpu"
     ms = tt.ms_readings(adpcm, wav_audio, dev, args)
     if G is not None:
-        ms["G"] = g_readings(G, fixtures, dev, args)
+        lib = baseline_library(_build) if dev.type == "cuda" else None
+        ms["G"] = g_readings(G, fixtures, dev, args, lib)
+    if E is not None:
+        ms["K"] = k_readings(E, G, fixtures, dev, args)
     out["ms"] = ms
     out["ptxas"] = tk.ptxas_lines(ptx) if ptx else None
     if dev.type == "cuda":
         sass = {src: listing(_build, src, save=args.sass_dir and
                              os.path.join(args.sass_dir, src + ".sass"))
-                for src in srcs}
+                for src in srcs if src != "g729_encode.cu"}
         out["line_loops"] = {
             src: line_loops(sass[src], k, src)
             for src, k in (("adpcm_ms.cu", "ms_expand_kernel"),
-                           ("g729_decode.cu", "g729_decode_kernel"))
+                           ("g729_decode.cu", G_KERNEL))
             if src in srcs}
         if "g729_decode.cu" in srcs:
-            with open(os.path.join(tk._csrc(_build), "g729_decode.cu")) as f:
-                out["g729_floor"] = g729_floor(sass["g729_decode.cu"],
-                                               f.read())
+            out["g729_floor"] = g729_floor(sass["g729_decode.cu"],
+                                           tk._csrc(_build))
     print(json.dumps(out), flush=True)
     return out
 

@@ -100,8 +100,9 @@ def ptxas_start(build, names):
     """nvcc -Xptxas -v of each source in `names` under csrc/, started (the
     object goes nowhere): [(name, process)] for `ptxas_lines`."""
     return [(name, subprocess.Popen(
-        [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
-         os.devnull, os.path.join(_csrc(build), name)],
+        [build._nvcc(), *build.NVCC_FLAGS,
+         *getattr(build, "SOURCE_FLAGS", {}).get(name, []), "-Xptxas", "-v",
+         "-c", "-o", os.devnull, os.path.join(_csrc(build), name)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         for name in names]
 

@@ -54,6 +54,39 @@ def audiogen(seconds: float = 1.0, sample_rate: int = 22050,
 
 
 
+def speechgen(n: int = 8000, sample_rate: int = 8000, seed: int = 7):
+    """Speech-like AR signal with voiced/unvoiced alternation (for G.729):
+    `amv_tpu/verify/fixtures.py:speechgen`, int16 [n]."""
+    rng = np.random.default_rng(seed)
+    exc = rng.standard_normal(n) * 300
+    pt = np.zeros(n)
+    pt[::75] = 4000
+    voiced = (np.sin(2 * np.pi * np.arange(n) / 3000) > 0)
+    exc = np.where(voiced, exc * 0.3 + pt, exc)
+    sig = exc.copy()
+    for i in range(2, n):
+        sig[i] = exc[i] + 1.5 * sig[i - 1] - 0.7 * sig[i - 2]
+    return np.clip(sig * 0.5, -20000, 20000).astype(np.int16)
+
+
+def speech_streams(b: int, n: int, seed: int = 0):
+    """b speechgen-like streams of n samples, int16 [b, n]: each its own
+    noise, pitch period (60-110 samples) and voicing phase; the AR filter
+    runs over the streams at once, one sample a step."""
+    rng = np.random.default_rng(seed)
+    exc = rng.standard_normal((b, n)) * 300
+    period = rng.integers(60, 111, b)[:, None]
+    phase = rng.integers(0, 3000, b)[:, None]
+    t = np.arange(n)[None, :]
+    pulse = np.where(t % period == 0, 4000.0, 0.0)
+    voiced = np.sin(2 * np.pi * (t + phase) / 3000) > 0
+    exc = np.where(voiced, exc * 0.3 + pulse, exc)
+    sig = exc.copy()
+    for i in range(2, n):
+        sig[:, i] = exc[:, i] + 1.5 * sig[:, i - 1] - 0.7 * sig[:, i - 2]
+    return np.clip(sig * 0.5, -20000, 20000).astype(np.int16)
+
+
 # G.729 frame fields in order of their first bit: (first bit, width)
 _G729_FIELDS = ((0, 1), (1, 7), (8, 5), (13, 5), (18, 8), (26, 1), (27, 13),
                 (40, 4), (44, 3), (47, 4), (51, 5), (56, 13), (69, 4),

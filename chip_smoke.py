@@ -5,8 +5,9 @@ entropy encoders), the record-IR decode, the AMV decode (video and audio),
 the AMV encode, the q60 quantizer, odd picture sizes, the served
 transcode on CUDA streams, the encode's ingest (AVI input, -s
 rescaling, -ar resampling, every WAVE format), the trellis quantizer
-(-trellis, kernel L), baseline MJPEG in and out, and G.729A decoding
-(kernel G) with the ACT routes.
+(-trellis, kernel L), baseline MJPEG in and out, G.729A decoding
+(kernel G) with the ACT routes, and G.729A encoding (kernel K, and the
+host encoder behind `-f act`).
 
     python3 chip_smoke.py
 
@@ -15,11 +16,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  2. build the fifteen CUDA sources from amv_tpu_torch/csrc (nvcc, sm_90a,
     one nvcc per source, all started together), and log the registers,
     spills and shared memory ptxas gives kernels D, E, Q, V, T, A, X, P,
-    F, L, M and G, and kernel T's SASS instructions (cuobjdump, static
+    F, L, M, G and K, and kernel T's SASS instructions (cuobjdump, static
     counts: one thread a block), logged in phase 4 with a static-count
     estimate of each T entry's issue time at its own blocks; G's source
     is also built with line information to a cubin beside the phases, for
-    its latency floor in phase 15;
+    its latency floor in phase 15, and G's one-warp design
+    (tools/g729_baseline.py) into a library of its own, timed in turns
+    with G in phase 15;
  3. a 160x120 corpus at the reference's canonical shape (16 fps, 22,050 Hz
     ADPCM audio): 4,800 frames (5 minutes) of seeded videogen/rotozoom
     pictures with noise, each C-encoded at qscale 2, muxed into an .amv
@@ -142,19 +145,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     largest pitch gain, whose LP synthesis overflows, one with the least
     pitch code) through decode_streams on the card, kernel G launched
     once (its launches counted from 0): its time beside its bounds (bytes
-    and operations, and the latency floor: the longest dependent chains
-    through a frame's recurrences in the nvdisasm listing of the cubin
-    built in phase 2, time_g729.g729_floor, at the card's highest SM
-    clock), frames/s and the real-time factor; G against its plain
-    version on the card, PCM and state, for
-    every stream's first 32 frames and two windows of 32 in the middle,
-    each from the state G returned at that frame; two streams' first 200
-    frames against the scalar oracle (verify/ref_g729.py); a 10-minute
-    .act file (stream 0's frames 10 times, act.mux) through `cli.main -i
-    rec.act out.wav` x3 (G launched once a pass; its first 6,000 frames
-    equal stream 0 of the batch) and out.bit (the frames' bits), with
-    frames/s and the stages one by one (read, demux, upload + unpack, G,
-    write).
+    and operations, and the latency floor: the longest pipeline stage's
+    dependent chain a frame in the nvdisasm listing of the cubin built in
+    phase 2, time_g729.g729_floor, at the card's highest SM clock),
+    frames/s and the real-time factor, and in turns with G's one-warp
+    design (baseline, G, G, baseline; their outputs equal); G against its
+    plain version on the card, PCM and state, for every stream's first
+    16 frames and two windows of 16 in the middle, each from the state G
+    returned at that frame; two streams' first 200 frames against the
+    scalar oracle (verify/ref_g729.py); a 10-minute .act file (stream 0's
+    frames 10 times, act.mux) through `cli.main -i rec.act out.wav` x3 (G
+    launched once a pass; its first 6,000 frames equal stream 0 of the
+    batch) and out.bit (the frames' bits), with frames/s, the stages one
+    by one (read, demux, upload + unpack, G, write), and G in turns with
+    the one-warp design on the file's stream;
+16. G.729A encoding: 1,024 seeded speech recordings of 6 s (600 frames
+    each) through encode_streams on the card, kernel K launched once (its
+    launches counted from 0): its time beside its bound (float operations
+    a frame, counted from g729_encode.cu, over the FP32 rate), frames/s;
+    K against its plain version on the card (parameters, state and hist)
+    for every stream's first 8 frames and a window of 8 mid-stream from
+    K's returned state; the frames decoded by G to K's shadow state;
+    decode(encode(x))'s corr and segSNR; then `cli.main -i speech.wav -f
+    act --max-frames 40` on a 22,050 Hz stereo WAV (the host encoder after
+    the resampling on the card), timed, its file decoded by G against the
+    resampled mono input.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -214,13 +229,37 @@ N_ORACLE = 32        # trellis chunks held against the numpy oracle
 # phase 15, G.729A: a dictaphone's recordings in bulk and one 10-minute file
 G_STREAMS, G_FRAMES = 1024, 6000     # 1,024 recordings of 60 s
 G_FILE_REPS = 10                     # stream 0's frames 10 times: 10 min
-G_CHECK = 32                         # frames of each window held to plain
+G_CHECK = 16                         # frames of each window held to plain
 G_ORACLE = 200                       # frames of 2 streams held to the oracle
 # kernel G's integer operations a frame, counted from g729_decode.cu:
 # the interpolation 6,400, LP syntheses 4,000, the residual FIR 2,400, the
 # long-term filter 5,300, tilt 1,700, the energy sums 720, the excitation
 # update 640, the high-pass 960, the AGC 480, LSF/LSP/LP and gains 1,600
 OPS_G729 = 24200
+# phase 16, G.729A encoding: a dictaphone's library of recordings in bulk
+K_STREAMS, K_FRAMES = 1024, 600      # 1,024 recordings of 6 s
+K_CHECK = 8                          # frames of each window held to plain
+K_CLI_FRAMES = 40                    # frames of cli.main -f act (host)
+# kernel K's float operations a frame, counted from g729_encode.cu (a
+# multiply, add, compare, select, division or square root each one).  The
+# analysis: the window, the autocorrelation's 11 x 240 multiply-adds,
+# Levinson, the grid's 1,024 points at 38 (cos5 26, the sum 11, the
+# point), the sign changes, 10 roots x 12 bisection steps at 44, the LSF
+# targets and sort, the first stage's 256 x 10 distances, the 8 least,
+# the second stage's 1,024 x 5, its minima, the exact errors:
+K_ANALYSIS = (240 + 11 * 240 * 2 + 250 + 40 + 1024 * 38 + 511 * 4
+              + 10 * 12 * 44 + 85 + 80 + 256 * 10 * 3 + 224 + 1024 * 5 * 4
+              + 32 * 31 + 16 * 80)
+# a subframe: the impulse and zero-input responses, the upsampled history
+# (432 x 20 multiply-adds), the pitch grid (372 candidates x 820
+# multiply-adds and 2 x 40 for the scores), the chosen vector's response
+# and gain, the backward correlations, the matrix (22,140 multiply-adds),
+# the 8,192 pulse combinations at 37, the code vector's response, the
+# 128 gain pairs and their 5 correlations:
+K_SUBFRAME = (20 + 729 + 880 + 432 * 41 + 372 * (820 * 2 + 40 * 4 + 4)
+              + 820 * 2 + 165 + 160 + 820 * 2 + 22140 * 2 + 80 + 8192 * 37
+              + 820 * 2 + 5 * 80 + 128 * 16)
+OPS_G729_ENCODE = K_ANALYSIS + 2 * K_SUBFRAME
 
 # phase 12, ingest: a 5-minute capture of 320x240 I420 frames and 44,100 Hz
 # PCM through the reference's canonical `-s 160x120 -ar 22050`
@@ -253,6 +292,7 @@ def import_port() -> SimpleNamespace:
     from amv_tpu_torch import cli, native, pipeline
     from amv_tpu_torch.codecs import amv_audio, amv_video, jpeg_tables
     from amv_tpu_torch.codecs import g729a, mjpeg, wav_audio
+    from amv_tpu_torch.codecs import g729a_encoder_batch as g729_enc
     from amv_tpu_torch.bitstream import jpeg_parse
     from amv_tpu_torch.containers import act, avi, riff, wav
     from amv_tpu_torch.kernels import _build, adpcm, fdct, idct
@@ -421,13 +461,13 @@ def timed_cli(m, argv, runs=3):
 
 def ptxas_start(m):
     """nvcc -Xptxas -v of kernels D's and R's, E's, Q's, V's, T's, A's, X's,
-    P's, F's, L's and M's sources, started beside the build (the object
-    goes nowhere)."""
+    P's, F's, L's, M's, G's and K's sources, started beside the build (the
+    object goes nowhere)."""
     return m.tools_t.ptxas_start(m._build, (
         "entropy_decode.cu", "entropy_encode.cu", "adpcm_encode.cu",
         "encode_fused.cu", "transcode.cu", "adpcm_decode.cu",
         "record_expand.cu", "record_pack.cu", "fdct.cu", "adpcm_trellis.cu",
-        "adpcm_ms.cu", "g729_decode.cu"))
+        "adpcm_ms.cu", "g729_decode.cu", "g729_encode.cu"))
 
 
 def ptxas_log(m, procs) -> None:
@@ -446,6 +486,7 @@ def reset_launches(m):
     m.adpcm.DECODE_LAUNCHES = m.adpcm.ENCODE_LAUNCHES = 0
     m.R.RECORD_LAUNCHES = m.R.EXPAND_LAUNCHES = m.RP.LAUNCHES = 0
     m.L.LAUNCHES = m.adpcm.MS_LAUNCHES = m.G.LAUNCHES = 0
+    m.G.ENCODE_LAUNCHES = 0
 
 
 def launches(m):
@@ -456,7 +497,8 @@ def launches(m):
             "A": m.adpcm.DECODE_LAUNCHES, "Q": m.adpcm.ENCODE_LAUNCHES,
             "R": m.R.RECORD_LAUNCHES, "X": m.R.EXPAND_LAUNCHES,
             "P": m.RP.LAUNCHES, "L": m.L.LAUNCHES,
-            "M": m.adpcm.MS_LAUNCHES, "G": m.G.LAUNCHES}
+            "M": m.adpcm.MS_LAUNCHES, "G": m.G.LAUNCHES,
+            "K": m.G.ENCODE_LAUNCHES}
 
 
 def route_bytes(m, pays, w, h, enc):
@@ -1275,7 +1317,7 @@ def mjpeg_phase(m, dev, paths, card, check, amv_data, tmp,
     log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
 
 
-def g729_phase(m, dev, paths, card, kern, extra, tmp, mhz, g_sass,
+def g729_phase(m, dev, paths, card, kern, extra, tmp, mhz, g_sass, g_base,
                n_streams=G_STREAMS, n_frames=G_FRAMES,
                file_reps=G_FILE_REPS, n_check=G_CHECK,
                n_oracle=G_ORACLE) -> None:
@@ -1285,7 +1327,10 @@ def g729_phase(m, dev, paths, card, kern, extra, tmp, mhz, g_sass,
     largest pitch gain, so its LP synthesis overflows; stream 2 with the
     least pitch code), through decode_streams on the card: kernel G
     launched once, its time beside the bounds (g_sass: a future of G's
-    nvdisasm listing, for its latency floor at mhz); G against its plain
+    nvdisasm listing, for its latency floor at mhz: the longest pipeline
+    stage's chain), and in turns with G's one-warp design (g_base: a
+    future of its library; baseline, G, G, baseline, outputs equal) on
+    the batch and on the file's stream; G against its plain
     version on the card for every stream's first n_check frames and for
     two windows of n_check frames in the middle, each from the state G
     returned at that frame; streams 0 and 3's first n_oracle frames
@@ -1329,25 +1374,32 @@ def g729_phase(m, dev, paths, card, kern, extra, tmp, mhz, g_sass,
         lambda: m.g729a.decode_frames_scan(st0, parms), 3)
     assert torch.equal(pcm_g.permute(1, 0, 2).reshape(n_streams, -1), pcm)
     bms, by = bound(n_all * (10 + 160), n_all * OPS_G729)
-    with open(os.path.join(m.tools_t._csrc(m._build), "g729_decode.cu")) \
-            as f:
-        floor = m.tools_g.g729_floor(g_sass.result(), f.read())
+    floor = m.tools_g.g729_floor(g_sass.result(),
+                                 m.tools_t._csrc(m._build))
     frame_ms = floor["cycles"] / (mhz * 1e3)     # a frame's floor
+    base_lib = g_base.result()
+    turns = m.tools_g.turns(m.g729a, base_lib, st0, parms, 3)
     batch = {"streams": n_streams, "frames": n_frames, "ms": g_ms,
              "bound_ms": bms, "bound_by": by,
              "latency_floor_ms": n_frames * frame_ms,
              "frames_s": n_all / g_ms * 1e3,
              "real_time_factor": n_all * 10.0 / g_ms,
-             "decode_streams_s": wall}
+             "decode_streams_s": wall, "turns": turns}
     log(f"G at {n_streams} x {n_frames} frames: {g_ms:.3f} ms a launch "
         f"(median of 3, CUDA events), decode_streams {wall:.3f} s (host "
         f"clock, first call); {n_all / g_ms / 1e3:.1f} M frames/s, real-time"
         f" factor {n_all * 10.0 / g_ms:.0f}; bound {bms:.4f} ms by {by} "
         f"({n_all * 170 / 1e6:.0f} MB, {n_all * OPS_G729 / 1e9:.1f} G int "
         f"ops); latency floor {n_frames * frame_ms:.3f} ms ({n_frames} "
-        f"frames x {floor['instructions']} dependent instructions "
-        f"{floor['parts']} x {m.tools_g.DEP_CYCLES} cycles at {mhz:.0f} MHz,"
-        " from the SASS built in this run)")
+        f"frames x {floor['instructions']} dependent instructions, the "
+        f"{floor['binding']} stage's, x {m.tools_g.DEP_CYCLES} cycles at "
+        f"{mhz:.0f} MHz, from the SASS built in this run; stages "
+        + ", ".join(f"{k} {v['chain']} {v['parts']}"
+                    for k, v in floor["stages"].items()) + ")")
+    log(f"G in turns with its one-warp design at {n_streams} x {n_frames} "
+        f"(baseline, G, G, baseline; CUDA events, median of 3 each): "
+        f"baseline {turns['baseline_ms']} ms, G {turns['pipeline_ms']} ms; "
+        "PCM and state equal")
 
     # G against its plain version: the first n_check frames of every
     # stream, then two windows from G's own state at their first frame
@@ -1388,6 +1440,8 @@ def g729_phase(m, dev, paths, card, kern, extra, tmp, mhz, g_sass,
                  "bound_ms": bms_c, "bound_by": by_c, "streams": n_streams,
                  "frames": n_check, "latency_floor_ms": n_check * frame_ms,
                  "floor_instructions": floor["instructions"],
+                 "floor_stages": {k: v["chain"]
+                                  for k, v in floor["stages"].items()},
                  "batch": batch}
     log(f"G at {n_streams} x {n_check} frames: kernel {check_ms:.3f} ms, "
         f"plain {plain_s[0] * 1e3:.1f} ms (host clock; windows "
@@ -1436,10 +1490,12 @@ def g729_phase(m, dev, paths, card, kern, extra, tmp, mhz, g_sass,
     staged(split, "device->host + write", lambda: m.wav.write_pcm(
         os.path.join(tmp, "rec2.wav"), pcm1.reshape(-1).cpu().numpy(),
         rate1))
+    turns_1 = m.tools_g.turns(m.g729a, base_lib, m.g729a.init_state(1, dev),
+                              p1, 3)
     kern["G"]["file"] = {"frames": n_file, "cli_s": walls,
                          "frames_s": n_file / wall,
                          "real_time_factor": n_file / 100 / wall,
-                         "g_s": split["device G"]}
+                         "g_s": split["device G"], "turns": turns_1}
     log(f"{card}: G.729A, cli.main -i rec.act out.wav x3 ({n_file} frames, "
         f"{n_file / 6000:.1f} min, {len(data)} bytes): "
         f"{', '.join(f'{t:.3f}' for t in walls)} s, median {wall:.3f} s = "
@@ -1448,7 +1504,165 @@ def g729_phase(m, dev, paths, card, kern, extra, tmp, mhz, g_sass,
         f"first {n_frames} frames equal stream 0 of the batch; out.bit "
         "equal to the file's frames' bits")
     log_split("G.729A file", split)
+    log(f"G in turns with its one-warp design at 1 x {n_file} (baseline, "
+        f"G, G, baseline): baseline {turns_1['baseline_ms']} ms, G "
+        f"{turns_1['pipeline_ms']} ms = "
+        f"{1e3 * statistics.median(turns_1['pipeline_ms']) / n_file:.2f} us"
+        " a frame; PCM and state equal")
     log(f"phase 15 took {time.perf_counter() - t15:.1f} s")
+
+
+def seg_quality(ref, out):
+    """(corr, segSNR dB) of decoded PCM against its input, as
+    tests/test_g729_encoder_tpu.py measures them: from sample 400 on,
+    segments of 160 whose input power passes 1e4."""
+    a, r = out[400:].astype(float), ref[400:].astype(float)
+    n = (len(a) - 1) // 160 * 160
+    e = ((a[:n] - r[:n]) ** 2).reshape(-1, 160).mean(1)
+    p = (r[:n] ** 2).reshape(-1, 160).mean(1)
+    seg = 10 * np.log10(np.maximum(p, 1) / np.maximum(e, 1))[p > 1e4]
+    return float(np.corrcoef(a, r)[0, 1]), float(seg.mean())
+
+
+def g729_encode_phase(m, dev, paths, card, kern, extra, tmp,
+                      n_streams=K_STREAMS, n_frames=K_FRAMES,
+                      n_check=K_CHECK, cli_frames=K_CLI_FRAMES) -> None:
+    """Phase 16: G.729A encoding.  n_streams seeded speech recordings of
+    n_frames frames through encode_streams on the card: kernel K launched
+    once (its launches counted from 0), its time beside its bound (float
+    operations over the FP32 rate), frames/s; K against its plain version
+    on the card, parameters, state and hist, for every stream's first
+    n_check frames and a window of n_check from K's own state mid-stream;
+    the frames decoded by G to K's shadow state; decode(encode(x))'s
+    quality.  Then cli.main -i in.wav -f act on a 22,050 Hz stereo WAV at
+    --max-frames cli_frames (the host encoder, after the resampling on the
+    card), timed; its file decoded by G against the input's 8 kHz mono
+    mean (the CPU route's equality with the JAX package's file is a CPU
+    test, tests/test_torch_g729_encoder.py)."""
+    import torch
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t16 = time.perf_counter()
+    pcm = m.fixtures.speech_streams(n_streams, n_frames * 80, 16)
+    n_all = n_streams * n_frames
+    log(f"G.729A encode: {n_streams} streams x {n_frames} frames "
+        f"({n_frames / 100:.0f} s each) of seeded speech; "
+        f"{time.perf_counter() - t16:.1f} s to make")
+    x = torch.from_numpy(pcm).to(dev)
+    sync()
+    reset_launches(m)
+    t0 = time.perf_counter()
+    packed = m.g729_enc.encode_streams(x)
+    sync()
+    wall = time.perf_counter() - t0
+    paths["g729 encode"] = launches(m)
+    assert paths["g729 encode"]["K"] == 1, paths["g729 encode"]
+    assert packed.shape == (n_frames, n_streams, 10) and \
+        packed.dtype == torch.uint8
+    fr = x.float().reshape(n_streams, n_frames, 80).permute(1, 0, 2) \
+        .contiguous()
+    st0 = m.g729a.init_state(n_streams, dev)
+    h0 = torch.zeros((n_streams, 160), dtype=torch.float32, device=dev)
+    k_ms, (st_k, h_k, parms_k) = cuda_ms(
+        lambda: m.g729_enc.encode_frames_scan(st0, h0, fr), 3)
+    assert torch.equal(m.g729_enc.pack_frames(parms_k), packed)
+    bms, by = bound(n_all * (320 + 64), n_all * OPS_G729_ENCODE)
+    batch = {"streams": n_streams, "frames": n_frames, "ms": k_ms,
+             "bound_ms": bms, "bound_by": by, "frames_s": n_all / k_ms * 1e3,
+             "real_time_factor": n_all * 10.0 / k_ms,
+             "encode_streams_s": wall}
+    log(f"K at {n_streams} x {n_frames} frames: {k_ms:.3f} ms a launch "
+        f"(median of 3, CUDA events), encode_streams {wall:.3f} s (host "
+        f"clock, first call); {n_all / k_ms * 1e3:.0f} frames/s, real-time "
+        f"factor {n_all * 10.0 / k_ms:.0f}; bound {bms:.3f} ms by {by} "
+        f"({OPS_G729_ENCODE} float operations a frame over the FP32 rate)")
+
+    # K against its plain version: every stream's first n_check frames,
+    # then a window from K's own state in the middle
+    def window(at):
+        st, h = st0, h0
+        if at:
+            st, h, _ = m.g729_enc.encode_frames_scan(st0, h0, fr[:at])
+        got = m.g729_enc.encode_frames_scan(st, h, fr[at:at + n_check])
+        sync()
+        t0 = time.perf_counter()
+        sp, hp, want = st, h, []
+        for i in range(at, at + n_check):
+            sp, hp, p = m.g729_enc.encode_frame_batch(sp, hp, fr[i])
+            want.append(p)
+        sync()
+        plain_s = time.perf_counter() - t0
+        # hist's float32 compared by its bits
+        pairs = [(got[2], torch.stack(want)),
+                 (got[2], parms_k[at:at + n_check]),
+                 (got[1].view(torch.int32), hp.view(torch.int32))]
+        pairs += [(got[0][k], sp[k]) for k, _ in m.g729a.STATE_FIELDS]
+        return pairs, plain_s
+
+    plain_s = []
+    for at in (0, n_frames // 2 + 3):
+        pairs, t = window(at)
+        plain_s.append(t)
+        extra("K" if at == 0 else f"K window {at}", pairs,
+              f"{n_streams} streams, frames {at}-{at + n_check - 1}, "
+              "parameters, state and hist" + (f", from K's state at frame "
+                                              f"{at}" if at else ""))
+    check_ms = cuda_ms(lambda: m.g729_enc.encode_frames_scan(
+        st0, h0, fr[:n_check]), 3)[0]
+    n_win = n_streams * n_check
+    bms_c, by_c = bound(n_win * (320 + 64), n_win * OPS_G729_ENCODE)
+    # the frames through G: its state is K's shadow state
+    st_g, pcm_g = m.g729a.decode_frames_scan(
+        m.g729a.init_state(n_streams, dev), m.g729a.unpack_frames(packed))
+    for k in m.g729_enc.TRACKED:
+        assert torch.equal(st_g[k], st_k[k]), f"G's {k} != K's"
+    dec = pcm_g.permute(1, 0, 2).reshape(n_streams, -1).cpu().numpy()
+    q = np.array([seg_quality(pcm[i], dec[i]) for i in range(n_streams)])
+    # the bars of tests/test_g729_encoder_tpu.py, over the streams' mean
+    assert q[:, 0].mean() > 0.8 and q[:, 1].mean() > 4.0, q.mean(0)
+    kern["K"] = {"ms": check_ms, "plain_ms": 1e3 * plain_s[0],
+                 "bound_ms": bms_c, "bound_by": by_c, "streams": n_streams,
+                 "frames": n_check, "batch": batch,
+                 "quality": {"corr_min": float(q[:, 0].min()),
+                             "corr_mean": float(q[:, 0].mean()),
+                             "segsnr_min": float(q[:, 1].min()),
+                             "segsnr_mean": float(q[:, 1].mean())}}
+    log(f"K at {n_streams} x {n_check} frames: kernel {check_ms:.3f} ms, "
+        f"plain {plain_s[0] * 1e3:.1f} ms (host clock; the window "
+        f"{plain_s[1] * 1e3:.1f} ms); bound {bms_c:.4f} ms by {by_c}; G "
+        f"decodes K's frames to K's state; decode(encode(x)) corr min "
+        f"{q[:, 0].min():.4f} mean {q[:, 0].mean():.4f}, segSNR min "
+        f"{q[:, 1].min():.2f} mean {q[:, 1].mean():.2f} dB")
+
+    # cli.main -f act: the host encoder after the resampling on the card
+    src = os.path.join(tmp, "speech.wav")
+    one = m.fixtures.speech_streams(1, int(22050 * cli_frames / 100)
+                                    + 2205, 17)[0]
+    stereo = np.stack([one, one // 2], 1)
+    m.wav.write_pcm(src, stereo, 22050, 2)
+    out = os.path.join(tmp, "speech.act")
+    reset_launches(m)
+    t0 = time.perf_counter()
+    assert m.cli.main(["-i", src, "-f", "act", out, "--device", dev.type,
+                       "--max-frames", str(cli_frames)]) == 0
+    cli_s = time.perf_counter() - t0
+    paths["g729 cli encode"] = launches(m)
+    with open(out, "rb") as f:
+        got = m.act.demux(f.read())[0][:cli_frames]
+    assert len(got) == cli_frames and got.any(1).all()
+    mono = m.resample.resample_pcm(m.wav_audio.downmix(
+        torch.from_numpy(stereo)), 22050, 8000, device="cpu").numpy()
+    dec = m.g729a.decode_streams(torch.from_numpy(got[:, None]).to(dev))
+    c, snr = seg_quality(mono[:cli_frames * 80], dec[0].cpu().numpy())
+    assert c > 0.8, c
+    kern["K"]["cli"] = {"frames": cli_frames, "s": cli_s,
+                        "frames_s": cli_frames / cli_s, "corr": c,
+                        "segsnr": snr}
+    log(f"{card}: cli.main -i speech.wav (22,050 Hz stereo) -f act "
+        f"--max-frames {cli_frames}: {cli_s:.2f} s = "
+        f"{cli_frames / cli_s:.2f} frames/s (the host encoder, \"high\"); "
+        f"decoded by G: corr {c:.4f}, segSNR {snr:.2f} dB against the "
+        f"resampled mono input; launches {paths['g729 cli encode']}")
+    log(f"phase 16 took {time.perf_counter() - t16:.1f} s")
 
 
 def main() -> int:
@@ -1479,8 +1693,9 @@ def main() -> int:
     ptxas_log(m, ptxas)
     # G's listing with line information, for its floor in phase 15; nvcc
     # runs while the phases do
-    pool = concurrent.futures.ThreadPoolExecutor(1)
+    pool = concurrent.futures.ThreadPoolExecutor(2)
     g_sass = pool.submit(m.tools_g.listing, m._build, "g729_decode.cu")
+    g_base = pool.submit(m.tools_g.baseline_library, m._build)
     pool.shutdown(wait=False)
     t_sass = m.tools_t.sass_counts(m._build, ("transcode_blocks_kernel",))
     max_mhz = float(subprocess.run(
@@ -2414,7 +2629,10 @@ def main() -> int:
         # ---- 14. MJPEG ingest ---------------------------------------
         mjpeg_phase(m, dev, paths, smi, check, data, tmp)
         # ---- 15. G.729A ---------------------------------------------
-        g729_phase(m, dev, paths, smi, kern, extra, tmp, max_mhz, g_sass)
+        g729_phase(m, dev, paths, smi, kern, extra, tmp, max_mhz, g_sass,
+                   g_base)
+        # ---- 16. G.729A encode --------------------------------------
+        g729_encode_phase(m, dev, paths, smi, kern, extra, tmp)
     log(f"total {time.perf_counter() - t_start:.1f} s after the imports")
 
     kernels = []
@@ -2451,7 +2669,10 @@ def main() -> int:
              "TPU kernel)", "M"),
             ("G", "g729_decode", "g729 file", "g729_decode.cu",
              "amv_tpu/codecs/g729a.py:596 decode_frame_batch (XLA lax.scan; "
-             "no TPU kernel)", "G")):
+             "no TPU kernel)", "G"),
+            ("K", "g729_encode", "g729 encode", "g729_encode.cu",
+             "amv_tpu/codecs/g729a_encoder_tpu.py:437 encode_frame_batch (XLA "
+             "lax.scan; no TPU kernel)", "K")):
         err = max(v for k, v in errs.items() if k.split()[0] == key)
         kernels.append({
             "name": name, "route": "cuda",
@@ -2478,8 +2699,9 @@ def main() -> int:
                      "chunks_a_round": kern[key]["chunks_a_round"],
                      "chain_ms": kern[key]["chain_ms"]} if key == "L"
                else {"rounds": kern[key]["rounds"]} if key in ("D", "R")
-               else {k: v for k, v in kern["G"].items() if k not in (
-                   "ms", "plain_ms", "bound_ms", "bound_by")} if key == "G"
+               else {k: v for k, v in kern[key].items() if k not in (
+                   "ms", "plain_ms", "bound_ms", "bound_by")}
+               if key in ("G", "K")
                else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -184,6 +184,7 @@ inline unsigned __ballot_sync(unsigned mask, int p) {
     return r & mask;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
 inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned s) {
     return (unsigned)((((uint64_t)hi << 32) | lo) >> (s & 31));

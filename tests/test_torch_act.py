@@ -1,6 +1,6 @@
 """The port's ACT container (amv_tpu_torch/containers/act.py) and its CLI
-routes (`-i rec.act out.wav|out.bit`) on the CPU against the JAX
-package's, byte for byte."""
+routes (`-i rec.act out.wav|out.bit`, `-i in.wav -f act out.act`) on the
+CPU against the JAX package's, byte for byte."""
 
 import numpy as np
 import pytest
@@ -8,6 +8,7 @@ import torch
 
 from amv_tpu import cli as jcli
 from amv_tpu.containers import act as JA
+from amv_tpu.containers import wav as JW
 from amv_tpu_torch import cli
 from amv_tpu_torch.containers import act
 from amv_tpu_torch.verify import fixtures
@@ -95,9 +96,15 @@ def test_cli_act_routes_equal_jax(act_file, tmp_path, ext, extra):
 
 @pytest.mark.parametrize("argv", [["-f", "act", "out.act"], ["out.act"]])
 def test_cli_act_encode_refused(tmp_path, argv):
-    """-f act and .wav -> .act wait for the G.729A encoder, and say which
-    module."""
+    """-f act and .wav -> .act are no longer refused: both routes write
+    amv_tpu.cli.main's file (the host encoder, 8 kHz mono)."""
     src = tmp_path / "in.wav"
-    src.write_bytes(b"")
-    with pytest.raises(SystemExit, match="amv_tpu/codecs/g729a_encoder.py"):
-        cli.main(["-i", str(src), *argv[:-1], str(tmp_path / argv[-1])])
+    JW.write_pcm(str(src), fixtures.speechgen(400, seed=5), 8000)
+    mine, theirs = tmp_path / "p" / argv[-1], tmp_path / "j" / argv[-1]
+    mine.parent.mkdir()
+    theirs.parent.mkdir()
+    assert cli.main(["-i", str(src), *argv[:-1], str(mine), "--device",
+                     "cpu"]) == 0
+    assert jcli.main(["-i", str(src), *argv[:-1], str(theirs)]) == 0
+    assert mine.read_bytes() == theirs.read_bytes()
+    assert len(act.demux(mine.read_bytes())[0]) >= 5

@@ -1354,3 +1354,77 @@ def test_cli_act_cuda_matches_cpu(dev, tmp_path):
     assert K.LAUNCHES == g0 + 1
     assert (tmp_path / "g.bit").read_bytes() == act.to_itu_bitstream(
         act.demux(src.read_bytes())[0])
+
+
+def test_g729_kernel_past_one_wave_matches_plain(dev):
+    """Kernel G with more streams than the card holds at 4 CTAs an SM
+    (the launch takes its build at 64 registers a thread): 4 x SMs + 7
+    streams x 5 frames against the plain version, PCM and state."""
+    from amv_tpu_torch.codecs import g729a as G
+    b = 4 * torch.cuda.get_device_properties(dev).multi_processor_count + 7
+    parms = G.unpack_frames(_g729_frames(5, b, 7))
+    want_st, want = G.decode_frames_scan(G.init_state(b), parms)
+    st, pcm = G.decode_frames_scan(G.init_state(b, dev), parms.to(dev))
+    assert torch.equal(pcm.cpu(), want)
+    for k, _ in G.STATE_FIELDS:
+        assert torch.equal(st[k].cpu(), want_st[k]), k
+
+
+def test_g729_kernel_one_stream_6000_frames(dev):
+    """Kernel G at one stream over 6,000 frames (its pipeline's latency
+    path) in one launch equals the same stream decoded in three windows
+    (each from the state the last returned) and its first 24 frames equal
+    the plain version's, PCM and state."""
+    from amv_tpu_torch.codecs import g729a as G
+    frames = _g729_frames(6000, 3, 5)[:, 1:2].copy()
+    parms = G.unpack_frames(torch.from_numpy(frames).to(dev))
+    st, pcm = G.decode_frames_scan(G.init_state(1, dev), parms)
+    sw, parts = G.init_state(1, dev), []
+    for lo, hi in ((0, 7), (7, 3001), (3001, 6000)):
+        sw, p = G.decode_frames_scan(sw, parms[lo:hi])
+        parts.append(p)
+    assert torch.equal(torch.cat(parts), pcm)
+    for k, _ in G.STATE_FIELDS:
+        assert torch.equal(sw[k], st[k]), k
+    want_st, want = G.decode_frames_scan(G.init_state(1), parms[:24].cpu())
+    s24, p24 = G.decode_frames_scan(G.init_state(1, dev), parms[:24])
+    assert torch.equal(p24.cpu(), want) and torch.equal(pcm[:24].cpu(), want)
+    for k, _ in G.STATE_FIELDS:
+        assert torch.equal(s24[k].cpu(), want_st[k]), k
+
+
+def test_g729_encode_kernel_matches_plain(dev):
+    """Kernel K (encode_frames_scan on CUDA tensors, one launch) against
+    its plain version on the card: 19 seeded speech streams x 6 frames,
+    parameters, state and hist bit for bit; then a second launch from K's
+    state equals the plain step from the same state; and G decodes K's
+    frames to K's shadow state."""
+    from amv_tpu_torch.codecs import g729a as G
+    from amv_tpu_torch.codecs import g729a_encoder_batch as E
+    from amv_tpu_torch.kernels import g729 as K
+    b, t = 19, 6
+    sig = fixtures.speech_streams(b, 2 * t * 80, 6).astype(np.float32)
+    frames = torch.from_numpy(np.ascontiguousarray(
+        sig.reshape(b, 2 * t, 80).transpose(1, 0, 2))).to(dev)
+    st0, h0 = G.init_state(b, dev), torch.zeros((b, 160), device=dev)
+    k0 = K.ENCODE_LAUNCHES
+    st, h, parms = E.encode_frames_scan(st0, h0, frames[:t])
+    torch.cuda.synchronize()
+    assert K.ENCODE_LAUNCHES == k0 + 1
+    sp, hp, want = st0, h0, []
+    for i in range(t):
+        sp, hp, p = E.encode_frame_batch(sp, hp, frames[i])
+        want.append(p)
+    assert torch.equal(parms, torch.stack(want))
+    assert torch.equal(h, hp)
+    for k, _ in G.STATE_FIELDS:
+        assert torch.equal(st[k], sp[k]), k
+    st2, h2, parms2 = E.encode_frames_scan(st, h, frames[t:t + 2])
+    for i in range(2):
+        sp, hp, p = E.encode_frame_batch(sp, hp, frames[t + i])
+        assert torch.equal(parms2[i], p), i
+    packed = E.pack_frames(torch.cat([parms, parms2]))
+    dst, _ = G.decode_frames_scan(G.init_state(b, dev),
+                                  G.unpack_frames(packed))
+    for k in E.TRACKED:
+        assert torch.equal(dst[k], st2[k]), k

@@ -8,7 +8,7 @@ shared buffer for the warp shuffles; its launches `k<<<g, b, s, st>>>(...)`
 are rewritten into that header's launch helper.  The library is loaded
 with ctypes under the C signatures of `kernels._build`, and the kernel's
 output is held bit-exact against its plain version at small sizes
-(kernels A, T, F, D, R, X, P, L, M and G).  This
+(kernels A, T, F, D, R, X, P, L, M, G and K).  This
 checks a kernel's logic (indices, tiles, scans, barriers) where there is no
 card; what nvcc makes of it is checked on the card
 (tests/test_torch_cuda.py, chip_smoke.py).  Skipped where g++ is absent.
@@ -711,14 +711,16 @@ def _g729(lib, parms, flat):
     return flat, pcm
 
 
-@pytest.mark.parametrize("split", [12, 5])
+@pytest.mark.parametrize("split", [12, 5, 1, 2])
 def test_g729_source_matches_plain(g729_lib, monkeypatch, split):
     """Kernel G on the CPU against its plain version
     (`codecs.g729a.decode_frames_scan` on CPU tensors): erasures (leading
     ones too), the overflow redo (its whole-buffer shift), lags 0, 1 and
     19 (the interpolation in rounds), bad parity; in one launch, or in two
-    (frames 0-4, then 5-11 from the state the first returned).  PCM and
-    every state field are bit-exact."""
+    (frames 0 to split - 1, then the rest from the state the first
+    returned; a launch of 1 or 2 frames is shorter than the four-stage
+    pipeline, which fills and drains within it).  PCM and every state
+    field are bit-exact."""
     from amv_tpu_torch.codecs import g729a as G
     from amv_tpu_torch.kernels import g729 as K
     from test_torch_g729 import coverage
@@ -736,6 +738,86 @@ def test_g729_source_matches_plain(g729_lib, monkeypatch, split):
             flat, pcm = _g729(g729_lib, parms[a:b].numpy(), flat)
             pcms.append(pcm)
     np.testing.assert_array_equal(np.concatenate(pcms), want.numpy())
+    got_st = K.unflatten_state(torch.from_numpy(flat))
+    for k, _ in G.STATE_FIELDS:
+        np.testing.assert_array_equal(got_st[k].numpy(), want_st[k].numpy(),
+                                      err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def g729_encode_lib(tmp_path_factory):
+    return _lib("g729_encode.cu", tmp_path_factory)
+
+
+def _g729_encode_case(case):
+    """(state, hist, frames float32 [T, B, 80]) of a case: seeded speech;
+    silence, full-scale noise, a full-scale square wave, a sine and speech;
+    a start state with a full-scale excitation history at the largest
+    sharpening, whose LP synthesis overflows (the redo)."""
+    from amv_tpu_torch.codecs import g729a as G
+    rng = np.random.default_rng(8)
+    if case == "speech":
+        b, t = 3, 10
+        sig = fixtures.speech_streams(b, t * 80, 2)
+    else:
+        t, n = 6, 480
+        sig = np.stack([
+            np.zeros(n), np.clip(rng.standard_normal(n) * 30000, -32768,
+                                 32767),
+            np.where(np.arange(n) % 40 < 20, 32767, -32768),
+            8000 * np.sin(2 * np.pi * 440 * np.arange(n) / 8000),
+            fixtures.speechgen(n, seed=2)])
+        b = len(sig)
+    st = G.init_state(b)
+    if case == "loud state":
+        st["exc"] = torch.from_numpy(rng.integers(
+            -32768, 32768, (b, G.EXC_LEN)).astype(np.int32))
+        st["syn_filter_data"] = torch.from_numpy(rng.integers(
+            -32768, 32768, (b, 10)).astype(np.int32))
+        st["pitch_sharp"][:] = G.SHARP_MAX
+    frames = torch.from_numpy(np.ascontiguousarray(
+        sig.astype(np.float32).reshape(b, t, 80).transpose(1, 0, 2)))
+    return st, torch.zeros((b, 160)), frames
+
+
+@pytest.mark.parametrize("case,split", [("speech", 10), ("speech", 4),
+                                        ("edges", 6), ("loud state", 6)])
+def test_g729_encode_source_matches_plain(g729_encode_lib, monkeypatch,
+                                          case, split):
+    """Kernel K on the CPU against its plain version
+    (`codecs.g729a_encoder_batch.encode_frames_scan` on CPU tensors),
+    parameters, state and hist bit for bit: seeded speech in one launch
+    and in two (the second from the state and hist the first returned),
+    the edge signals, and a start state whose LP synthesis overflows."""
+    from amv_tpu_torch.codecs import g729a as G
+    from amv_tpu_torch.codecs import g729a_encoder_batch as E
+    from amv_tpu_torch.kernels import g729 as K
+    st, hist, frames = _g729_encode_case(case)
+    redo = [0]
+    synth = G.lp_synthesis_filter
+
+    def counted(lp, inp, fd, clip_output):
+        out = synth(lp, inp, fd, clip_output)
+        redo[0] += 0 if clip_output else int(out[2].sum())
+        return out
+
+    monkeypatch.setattr(G, "lp_synthesis_filter", counted)
+    want_st, want_h, want = E.encode_frames_scan(st, hist, frames)
+    assert (redo[0] > 0) == (case == "loud state")
+    flat = K.flatten_state(st).numpy().copy()
+    h = hist.numpy().copy()
+    parms = []
+    t, b = frames.shape[:2]
+    for lo, hi in ((0, split), (split, t)):
+        if lo < hi:
+            x = np.ascontiguousarray(frames[lo:hi].numpy())
+            p = np.full((hi - lo, b, 16), -1, np.int32)
+            assert g729_encode_lib.amv_g729_encode(
+                x.ctypes.data, hi - lo, b, flat.ctypes.data, h.ctypes.data,
+                p.ctypes.data, None) == 0
+            parms.append(p)
+    np.testing.assert_array_equal(np.concatenate(parms), want.numpy())
+    np.testing.assert_array_equal(h, want_h.numpy())
     got_st = K.unflatten_state(torch.from_numpy(flat))
     for k, _ in G.STATE_FIELDS:
         np.testing.assert_array_equal(got_st[k].numpy(), want_st[k].numpy(),

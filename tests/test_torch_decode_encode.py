@@ -162,8 +162,8 @@ def test_cli_q60_routes(clip, tmp_path):
 @pytest.mark.parametrize("argv", [
     ["-i", "{amv}", "{tmp}/out.bmp"],
     ["-i", "{amv}", "-pix_fmt", "rgb565", "{tmp}/out.rgb"],
-    ["-i", "{wav}", "-f", "act", "{tmp}/out.act"],
-    ["-i", "{wav}", "{tmp}/out.act"],
+    ["-i", "{amv}", "-pix_fmt", "bgr24", "{tmp}/out.raw"],
+    ["-i", "{sof2}", "-f", "amv", "{tmp}/out.amv"],
     ["-i", "{sof2}", "-f", "amv", "-s", "48x32", "{tmp}/out.amv"],
     ["-i", "{sof3}", "-f", "amv", "{tmp}/out.amv"],
 ])

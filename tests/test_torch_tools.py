@@ -186,8 +186,8 @@ def test_loop_counts_takes_the_uniform_per_sample_loop():
 def test_time_g729_runs_on_the_cpu_at_a_tiny_size():
     """amv_tpu_torch/tools/time_g729.py end to end on the CPU (the plain
     versions): G on a batch and on one stream, each held against the plain
-    frame step and decode_streams by the tool, and M with the WAVE decode;
-    no device time, ptxas or SASS there."""
+    frame step and decode_streams by the tool, K on a batch, and M with
+    the WAVE decode; no device time, ptxas, SASS or baseline there."""
     import torch
 
     from amv_tpu_torch.tools import time_g729
@@ -196,7 +196,8 @@ def test_time_g729_runs_on_the_cpu_at_a_tiny_size():
     try:
         out = time_g729.main(["--device", "cpu", "--batch", "2", "--frames",
                               "3", "--long-frames", "4", "--check-frames",
-                              "2", "--ms-seconds", "0.05", "--reps", "1"])
+                              "2", "--ms-seconds", "0.05", "--reps", "1",
+                              "--k-batch", "2", "--k-frames", "3"])
     finally:
         torch.set_num_threads(n)
     ms = out["ms"]
@@ -206,6 +207,9 @@ def test_time_g729_runs_on_the_cpu_at_a_tiny_size():
     assert (g["batch"]["streams"], g["batch"]["frames"]) == (2, 3)
     assert (g["long"]["streams"], g["long"]["frames"]) == (1, 4)
     assert g["batch"]["checked_frames"] == 2 and g["long"]["device_ms"] is None
+    assert "turns" not in g["batch"]
+    k = ms["K"]
+    assert (k["streams"], k["frames"], k["checked_frames"]) == (2, 3, 2)
 
 
 def _nvdisasm(body, kernel="_ZN4g729_decode_kernelEv", src="/x/k.cu"):
@@ -247,34 +251,67 @@ def test_line_loops_carried_chain():
     assert tool.line_loops(text, "other_kernel", "k.cu") == []
 
 
-def test_g729_floor_counts_the_recurrences():
-    """time_g729.g729_floor finds each recurrence by the lines of its
-    source (through the inline chain: the helper's own line comes first),
-    splits the synthesis into its three call sites (a fragment of a few
-    instructions the scheduler moved away is not one), and sums a frame's
-    chains: the first and last synthesis sites, the AGC and the
-    interpolation twice, the high-pass once."""
+def test_g729_floor_counts_the_recurrences(tmp_path):
+    """time_g729.g729_floor finds each pipeline stage by its block of
+    g729_decode.cu (through the inline chain: a helper of g729_common.cuh
+    counts at its call site) and each recurrence by the lines of its
+    source, and gives each stage's chain a frame: the parameter block's
+    longest chain; the excitation's first synthesis site (the redo left
+    out) and a sample's interpolation, twice; the postfilter's
+    correlation, synthesis and AGC, twice; the high-pass once.  The
+    longest stage binds."""
     from amv_tpu_torch.tools import time_g729 as tool
-    src = ["//"] * 60
-    for at, text in ((10, "bool synthesis("), (12, "return ovf;"),
-                     (20, "int v = 0;"), (21, "exc[base + n] = g729_round("),
-                     (30, "int gp = gain_coeff;"), (32, "gain_coeff = gp;"),
-                     (40, "the 100 Hz high-pass"), (44, "hz1 = x;")):
-        src[at - 1] = text
+    dec, com = ["//"] * 60, ["//"] * 20
+    for at, text in ((10, "// ---- parameters of frame t"),
+                     (20, "// ---- excitation and LP synthesis of frame t"),
+                     (30, "// ---- the postfilter of frame t"),
+                     (32, "uint32_t acc = 0;"), (33, "acc += (uint32_t)a"),
+                     (35, "int gp = gain_coeff;"), (36, "gain_coeff = gp;"),
+                     (40, "// ---- the 100 Hz high-pass of frame t"),
+                     (41, "const int x = f.pcm[n];"), (43, "hz1 = x;"),
+                     (50, "// the state after frame T")):
+        dec[at - 1] = text
+    for at, text in ((5, "bool synthesis("), (7, "return ovf;"),
+                     (12, "int v = 0;"), (14, "exc[base + n] = g729_round(")):
+        com[at - 1] = text
+    (tmp_path / "g729_decode.cu").write_text("\n".join(dec))
+    (tmp_path / "g729_common.cuh").write_text("\n".join(com))
+    # the build at 8 CTAs an SM comes first and is not counted
+    rows, addr = [".text._Z18g729_decode_kernelILi8EEvPKixxPiPs:",
+                  "        /*0000*/   IMAD R2, R2, R9, RZ ;",
+                  ".text._Z18g729_decode_kernelILi4EEvPKixxPiPs:"], 0
 
-    def chain(n, lines, r=2):
-        # n dependent instructions through R<r>, from helper line 3
-        return [(None, [3, *lines], f"IMAD R{r}, R{r}, R9, RZ")
-                for _ in range(n)]
+    def put(n, site, common=None, r=2):
+        # n dependent instructions through R<r> at decode line `site`
+        nonlocal addr
+        for _ in range(n):
+            where = (f'File "/x/g729_common.cuh", line {common} inlined at '
+                     f'"/x/g729_decode.cu", line {site}' if common else
+                     f'File "/x/g729_decode.cu", line {site}')
+            rows.append(f"        //## {where}")
+            rows.append(f"        /*{addr:04x}*/   IMAD R{r}, R{r}, R9, RZ ;")
+            addr += 0x10
 
-    filler = [(None, 50, "MOV R20, R21")] * 20
-    body = (chain(12, [11]) + filler + chain(14, [11]) + filler +
-            chain(2, [11]) + filler + chain(16, [11]) + filler +
-            chain(3, [20, 50]) + filler + chain(4, [31]) + filler +
-            chain(9, [41]) + filler + [(None, 50, "EXIT")])
-    out = tool.g729_floor(_nvdisasm(body, src="/x/g729_decode.cu"),
-                          "\n".join(src))
-    assert out["synthesis_sites"] == [12, 14, 16]     # the fragment left out
-    assert out["parts"] == {"synthesis": 56, "agc": 8, "interpolation": 6,
-                            "high-pass": 9}
-    assert out["cycles"] == tool.DEP_CYCLES * 79
+    put(30, 11)
+    for site, common, n in ((22, 6, 12), (23, 6, 14), (21, 13, 9)):
+        put(20, 25, r=20)                      # filler, chain 20 apart
+        put(n, site, common)
+    put(20, 31, r=20)
+    put(10, 33)
+    put(20, 31, r=20)
+    put(16, 34, 6)
+    put(20, 31, r=20)
+    put(11, 35)
+    put(20, 45, r=20)
+    put(20, 42)
+    out = tool.g729_floor("\n".join(rows), str(tmp_path))
+    st = out["stages"]
+    assert st["parameters"]["parts"] == {"block": 30}
+    assert st["excitation"]["parts"] == {"synthesis": 24,
+                                         "interpolation": 18}
+    assert st["postfilter"]["parts"] == {"synthesis": 32, "agc": 22,
+                                         "correlation": 20}
+    assert st["high-pass"]["parts"] == {"high-pass": 20}
+    assert st["postfilter"]["instructions"] == 10 + 16 + 11 + 3 * 20
+    assert out["binding"] == "postfilter" and out["instructions"] == 74
+    assert out["cycles"] == tool.DEP_CYCLES * 74
