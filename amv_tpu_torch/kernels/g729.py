@@ -11,9 +11,11 @@ are `codecs/g729a.py:decode_frame_batch` and `codecs/
 g729a_encoder_batch.py:encode_frame_batch`, torch ops over the streams
 and Python loops over each recurrence's steps.  Kernel G gives each
 stream a CTA of four warps, one a decoder stage, pipelined over frames;
-kernel K gives each stream a CTA of 128 threads, which split the
-encoder's searches; both keep the state in shared memory for all T
-frames.  See the sources for the designs.
+kernel K gives each stream a CTA of two warps (four while the card holds
+every stream at that size), which split the encoder's searches while warp
+0 runs its chains; both keep the state in shared memory for all T frames
+and pick their build from the number of streams inside the C entry.  See
+the sources for the designs.
 
 `decode_frames(st, parms)` and `encode_frames(st, hist, frames)` are the
 CUDA routes of `codecs.g729a.decode_frames_scan` and

@@ -8,12 +8,16 @@ sys.path, at the main paths' shapes on one GPU:
   of 60,000 frames (a 10-minute file); frames/s, the real-time factor
   and the bytes bound (10 bytes in and 160 out a frame); the first 8
   frames of every stream held against the plain version on the card;
-  and at both shapes in turns with G's one-warp design
-  (`g729_baseline.py`, built into its own library: baseline, tree, tree,
-  baseline), their outputs equal;
-* K (where the tree has it) on `chip_smoke.py` phase 16's batch: 1,024
-  seeded speech streams of 600 frames, one `encode_frames_scan` launch,
-  frames/s, its first frames held against the plain version;
+* K (where the tree has it) on seeded speech at `--k-shapes` (streams x
+  frames: `chip_smoke.py` phase 16's library of 1,024 x 600, and the same
+  frames over 4,096 streams), one `encode_frames_scan` launch, frames/s,
+  its first frames held against the plain version; in turns with K's
+  first design (`g729_encode_baseline.cu`, built into its own library:
+  baseline, tree, tree, baseline), their outputs equal; the time by phase
+  of both (each built again with -DK_PHASES, csrc/g729_encode_phases.cuh:
+  cycles a frame a CTA between clock64() stamps); their SASS (static
+  counts of instructions, shared and local loads and stores) and ptxas
+  lines;
 * M as `time_trellis.ms_readings` reads it: on phase 12's lanes (300 s
   of seeded 44,100 Hz stereo MS-ADPCM at block_align 2,048: 12,998 lanes
   of 2,034 samples), held against its plain version, also in a burst of
@@ -32,11 +36,12 @@ card's name and power limit, and the readings.
 
     PYTHONPATH=<tree> python3 amv_tpu_torch/tools/time_g729.py
 
-To compare two trees, run it from each in turns (parent, change, change,
-parent) inside one command; its helpers in `time_trellis.py` come from the
-tree on sys.path too, so a tree before this tool's is timed by its own
-`time_trellis.py`.  `--device cpu` runs the plain versions at the
-sizes given (the tests' rehearsal); it measures no device time.
+`--only K` times K alone.  To compare two trees, run it from each in
+turns (parent, change, change, parent) inside one command; its helpers
+in `time_trellis.py` come from the tree on sys.path too, so a tree
+before this tool's is timed by its own `time_trellis.py`.  `--device
+cpu` runs the plain versions at the sizes given (the tests' rehearsal);
+it measures no device time.
 """
 
 from __future__ import annotations
@@ -301,65 +306,135 @@ def listing(build, source: str, save=None) -> str:
     return text
 
 
-def baseline_library(build):
-    """Kernel G's one-warp design (`g729_baseline.SOURCE`) built with nvcc
-    into its own library beside the port's, against csrc/'s tables, and
-    loaded."""
+K_BASELINE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "g729_encode_baseline.cu")
+
+
+def k_libraries(build, sources, csrc=None):
+    """Kernel K sources built with nvcc (K's own flags; all started
+    together) into libraries of their own beside the port's, and loaded:
+    {name: CDLL} for sources {name: (path, phases)}; `phases` adds
+    -DK_PHASES (csrc/g729_encode_phases.cuh: the time by phase)."""
     import ctypes
-    import tempfile
-    from amv_tpu_torch.tools import g729_baseline
     from amv_tpu_torch.tools import time_transcode_kernel as tk
-    so = os.path.join(build.BUILD_DIR, "libg729_baseline.so")
+    csrc = csrc or tk._csrc(build)
     os.makedirs(build.BUILD_DIR, exist_ok=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        src = os.path.join(tmp, "g729_baseline.cu")
-        with open(src, "w") as f:
-            f.write(g729_baseline.SOURCE)
-        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I",
-                        tk._csrc(build), "-o", so, src], capture_output=True,
-                       text=True, check=True)
-    lib = ctypes.CDLL(so)
-    lib.amv_g729_decode.argtypes = build._SIGNATURES["amv_g729_decode"]
-    lib.amv_g729_decode.restype = ctypes.c_int
-    return lib
+    flags = [*build.NVCC_FLAGS, *build.SOURCE_FLAGS["g729_encode.cu"],
+             "-shared", "-I", csrc]
+    sos = {name: os.path.join(build.BUILD_DIR, f"libk_{name}.so")
+           for name in sources}
+    build._run([[build._nvcc(), *flags, *(["-DK_PHASES"] if ph else []),
+                 "-o", sos[name], path]
+                for name, (path, ph) in sources.items()])
+    libs = {}
+    for name, (path, ph) in sources.items():
+        lib = ctypes.CDLL(sos[name])
+        lib.amv_g729_encode.argtypes = build._SIGNATURES["amv_g729_encode"]
+        lib.amv_g729_encode.restype = ctypes.c_int
+        if ph:
+            lib.amv_g729_encode_phases.argtypes = [ctypes.c_void_p]
+            lib.amv_g729_encode_phases.restype = ctypes.c_int
+            lib.amv_g729_encode_phase_names.restype = ctypes.c_char_p
+        libs[name] = lib
+    return libs
 
 
-def decode_baseline(lib, st, parms):
-    """The one-warp G on CUDA tensors: (state after frame T, pcm)."""
+def encode_with(lib, st, hist, frames):
+    """K from `lib` (a k_libraries entry) on CUDA tensors: (state after
+    frame T, hist, parms), as `kernels.g729.encode_frames` returns them."""
     from amv_tpu_torch.kernels import _build
     from amv_tpu_torch.kernels import g729 as K
-    t, b = parms.shape[:2]
-    p = parms.to(torch.int32).contiguous()
+    t, b = frames.shape[:2]
+    x = frames.to(torch.float32).contiguous()
     flat = K.flatten_state(st)
-    pcm = torch.empty((t, b, 80), dtype=torch.int16, device=p.device)
-    _build.check(lib.amv_g729_decode(p.data_ptr(), t, b, flat.data_ptr(),
-                                     pcm.data_ptr(), _build.stream()),
-                 "baseline amv_g729_decode")
-    return K.unflatten_state(flat), pcm
+    h = hist.to(torch.float32).contiguous().clone()
+    parms = torch.empty((t, b, 16), dtype=torch.int32, device=x.device)
+    _build.check(lib.amv_g729_encode(x.data_ptr(), t, b, flat.data_ptr(),
+                                     h.data_ptr(), parms.data_ptr(),
+                                     _build.stream()), "amv_g729_encode")
+    return K.unflatten_state(flat), h, parms
 
 
-def turns(G, lib, st0, parms, reps):
-    """The one-warp G (baseline) and the tree's G on the same inputs in
-    turns (baseline, tree, tree, baseline), each the median of `reps`
-    launches by CUDA events; their PCM and states must be equal."""
-    out = {"baseline_ms": [], "pipeline_ms": []}
+def k_phases(lib, st, hist, frames):
+    """K's time by phase from a profile build: {phase: cycles a frame a
+    CTA} (thread 0's clock64() between the stamps, summed over the CTAs
+    and divided by streams x frames), the run's ms, and the total."""
+    n = frames.shape[0] * frames.shape[1]
+    buf = np.zeros(64, np.uint64)
+    lib.amv_g729_encode_phases(buf.ctypes.data)             # cleared
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a.record()
+    encode_with(lib, st, hist, frames)
+    b.record()
+    torch.cuda.synchronize()
+    lib.amv_g729_encode_phases(buf.ctypes.data)
+    names = lib.amv_g729_encode_phase_names().decode().split(",")
+    cyc = {k: float(v) / n for k, v in zip(names, buf) if v}
+    return {"cycles": cyc, "total": sum(cyc.values()),
+            "ms": a.elapsed_time(b)}
+
+
+def k_turns(E, lib, st0, h0, fr, reps):
+    """K's first design (lib: baseline) and the tree's K on the same inputs
+    in turns (baseline, tree, tree, baseline), each the median of `reps`
+    launches by CUDA events; their parameters, hist and state must be
+    equal."""
+    out = {"baseline_ms": [], "tree_ms": []}
     got = {}
-    for name in ("baseline", "pipeline", "pipeline", "baseline"):
-        fn = (lambda: decode_baseline(lib, st0, parms)) \
-            if name == "baseline" else \
-            (lambda: G.decode_frames_scan(st0, parms))
-        ms, got[name] = tt.event_ms(fn, reps, parms.device)
+    for name in ("baseline", "tree", "tree", "baseline"):
+        fn = (lambda: encode_with(lib, st0, h0, fr)) if name == "baseline" \
+            else (lambda: E.encode_frames_scan(st0, h0, fr))
+        ms, got[name] = tt.event_ms(fn, reps, fr.device)
         out[f"{name}_ms"].append(ms)
-    (sa, pa), (sb, pb) = got["baseline"], got["pipeline"]
-    assert torch.equal(pa, pb), "the pipeline's PCM != the baseline's"
-    for k, _ in G.STATE_FIELDS:
+    (sa, ha, pa), (sb, hb, pb) = got["baseline"], got["tree"]
+    assert torch.equal(pa, pb), "the tree's K parameters != the baseline's"
+    assert torch.equal(ha.view(torch.int32), hb.view(torch.int32))
+    for k in sa:
         assert torch.equal(sa[k], sb[k]), f"state {k} != the baseline's"
     return out
 
 
-def g_readings(G, fixtures, dev, args, lib=None):
-    """Kernel G on the batch and on one long stream (and, given the
-    baseline's library, in turns with it)."""
+def sass_ops(so: str, key: str):
+    """{kernel function holding key: {"instructions": n, opcode: count}}
+    of a library's sm_90a code (cuobjdump; static counts), with the shared
+    loads and stores and the local ones (the stack) picked out."""
+    from amv_tpu_torch.kernels import _build
+    from amv_tpu_torch.tools import time_transcode_kernel as tk
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    counts = collections.defaultdict(collections.Counter)
+    fn = None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if key in m.group(1) else None
+            continue
+        m = tk._INSN.match(line)
+        if fn and m and m.group(1) != "NOP":
+            counts[fn][m.group(1).split(".")[0]] += 1
+    return {f: {"instructions": sum(c.values()),
+                **{o: c[o] for o in ("LDS", "STS", "LDL", "STL", "FADD",
+                                     "FMUL", "MUFU", "BAR", "SHFL")},
+                "top": c.most_common(8)} for f, c in counts.items()}
+
+
+def ptxas_of(build, path):
+    """nvcc -Xptxas -v of one K source (K's flags): each entry function's
+    registers, stack and spills."""
+    from amv_tpu_torch.tools import time_transcode_kernel as tk
+    proc = subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, *build.SOURCE_FLAGS[
+            "g729_encode.cu"], "-I", tk._csrc(build), "-Xptxas", "-v", "-c",
+         "-o", os.devnull, path], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    return tk.ptxas_lines([(os.path.basename(path), proc)])
+
+
+def g_readings(G, fixtures, dev, args):
+    """Kernel G on the batch and on one long stream."""
     from amv_tpu_torch.kernels import g729 as K
     rng = np.random.default_rng(0)
     out = {}
@@ -402,33 +477,50 @@ def g_readings(G, fixtures, dev, args, lib=None):
         r["checked_frames"] = k
         stream = G.decode_streams(torch.from_numpy(frames).to(dev))
         assert torch.equal(stream, pcm.permute(1, 0, 2).reshape(b, -1))
-        if lib is not None:
-            r["turns"] = turns(G, lib, st0, parms, max(1, args.reps // 3))
         out[key] = r
     return out
 
 
-def k_readings(E, G, fixtures, dev, args):
-    """Kernel K on `--k-batch` seeded speech streams of `--k-frames`
-    frames (one `encode_frames_scan` launch): its time, frames/s, and its
-    first frames held against the plain version on the card."""
+def k_shape(text: str):
+    """"1024x600" -> (1024, 600): streams x frames."""
+    b, t = text.lower().split("x")
+    return int(b), int(t)
+
+
+def k_readings(E, G, fixtures, dev, args, libs=None):
+    """Kernel K on seeded speech at each of `--k-shapes` (streams x
+    frames; one `encode_frames_scan` launch): its time, frames/s, its
+    first frames held against the plain version on the card; given the
+    libraries of `k_libraries` ("baseline", and the profile builds
+    "baseline phases" and "tree phases"), in turns with the baseline and
+    the time by phase of each."""
     from amv_tpu_torch.kernels import g729 as K
-    b, t = args.k_batch, args.k_frames
-    pcm = torch.from_numpy(fixtures.speech_streams(b, t * 80, 16)).to(dev)
-    fr = pcm.float().reshape(b, t, 80).permute(1, 0, 2).contiguous()
-    st0 = G.init_state(b, dev)
-    h0 = torch.zeros((b, 160), dtype=torch.float32, device=dev)
-    l0 = K.ENCODE_LAUNCHES
-    ms, (_, _, parms) = tt.event_ms(
-        lambda: E.encode_frames_scan(st0, h0, fr), max(1, args.reps // 3),
-        dev)
-    k = min(args.check_frames, t, 2)
-    sp, hp = st0, h0
-    for i in range(k):
-        sp, hp, p = E.encode_frame_batch(sp, hp, fr[i])
-        assert torch.equal(p, parms[i]), f"K frame {i} != plain"
-    return {"streams": b, "frames": t, "ms": ms, "frames_s": b * t / ms * 1e3,
-            "launches": K.ENCODE_LAUNCHES - l0, "checked_frames": k}
+    out = {}
+    for b, t in map(k_shape, args.k_shapes.split(",")):
+        pcm = torch.from_numpy(fixtures.speech_streams(b, t * 80, 16)).to(dev)
+        fr = pcm.float().reshape(b, t, 80).permute(1, 0, 2).contiguous()
+        st0 = G.init_state(b, dev)
+        h0 = torch.zeros((b, 160), dtype=torch.float32, device=dev)
+        l0 = K.ENCODE_LAUNCHES
+        ms, (_, _, parms) = tt.event_ms(
+            lambda: E.encode_frames_scan(st0, h0, fr), max(1, args.reps // 3),
+            dev)
+        k = min(args.check_frames, t, 2)
+        sp, hp = st0, h0
+        for i in range(k):
+            sp, hp, p = E.encode_frame_batch(sp, hp, fr[i])
+            assert torch.equal(p, parms[i]), f"K frame {i} != plain"
+        r = {"streams": b, "frames": t, "ms": ms,
+             "frames_s": b * t / ms * 1e3,
+             "launches": K.ENCODE_LAUNCHES - l0, "checked_frames": k}
+        if libs:
+            r["turns"] = k_turns(E, libs["baseline"], st0, h0, fr,
+                                 max(1, args.reps // 3))
+            r["phases"] = {name: k_phases(libs[f"{name} phases"], st0, h0,
+                                          fr)
+                           for name in ("baseline", "tree")}
+        out[f"{b}x{t}"] = r
+    return out
 
 
 def main(argv=None) -> dict:
@@ -438,8 +530,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--frames", type=int, default=6000)
     ap.add_argument("--long-frames", type=int, default=60000)
     ap.add_argument("--check-frames", type=int, default=8)
-    ap.add_argument("--k-batch", type=int, default=1024)
-    ap.add_argument("--k-frames", type=int, default=600)
+    ap.add_argument("--k-shapes", default="1024x600,4096x150",
+                    help="K's streams x frames, comma-separated")
+    ap.add_argument("--only", default="M,G,K",
+                    help="the kernels to time, comma-separated")
     ap.add_argument("--ms-seconds", type=float, default=300.0,
                     help="44,100 Hz stereo MS-ADPCM for M")
     ap.add_argument("--reps", type=int, default=10)
@@ -465,6 +559,7 @@ def main(argv=None) -> dict:
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device (or --device cpu)")
+    only = set(args.only.split(","))
     srcs = [s for s in ("g729_decode.cu", "g729_encode.cu", "adpcm_ms.cu")
             if os.path.exists(os.path.join(tk._csrc(_build), s))]
     ptx = None
@@ -475,15 +570,27 @@ def main(argv=None) -> dict:
         os.path.abspath(amv_tpu_torch.__file__)))}
     out["card"] = tk.smi("name,power.limit") if dev.type == "cuda" \
         else "cpu"
-    ms = tt.ms_readings(adpcm, wav_audio, dev, args)
-    if G is not None:
-        lib = baseline_library(_build) if dev.type == "cuda" else None
-        ms["G"] = g_readings(G, fixtures, dev, args, lib)
-    if E is not None:
-        ms["K"] = k_readings(E, G, fixtures, dev, args)
+    ms = tt.ms_readings(adpcm, wav_audio, dev, args) if "M" in only else {}
+    if G is not None and "G" in only:
+        ms["G"] = g_readings(G, fixtures, dev, args)
+    if E is not None and "K" in only:
+        libs = None
+        if dev.type == "cuda" and os.path.exists(K_BASELINE):
+            tree_k = os.path.join(tk._csrc(_build), "g729_encode.cu")
+            libs = k_libraries(_build, {
+                "baseline": (K_BASELINE, False),
+                "baseline phases": (K_BASELINE, True),
+                "tree phases": (tree_k, True)})
+            out["K_sass"] = {
+                "tree": sass_ops(_build.build(), "g729_encode_kernel"),
+                "baseline": sass_ops(os.path.join(
+                    _build.BUILD_DIR, "libk_baseline.so"),
+                    "g729_encode_kernel")}
+            out["K_ptxas_baseline"] = ptxas_of(_build, K_BASELINE)
+        ms["K"] = k_readings(E, G, fixtures, dev, args, libs)
     out["ms"] = ms
     out["ptxas"] = tk.ptxas_lines(ptx) if ptx else None
-    if dev.type == "cuda":
+    if dev.type == "cuda" and only & {"M", "G"}:
         sass = {src: listing(_build, src, save=args.sass_dir and
                              os.path.join(args.sass_dir, src + ".sass"))
                 for src in srcs if src != "g729_encode.cu"}

@@ -20,9 +20,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     counts: one thread a block), logged in phase 4 with a static-count
     estimate of each T entry's issue time at its own blocks; G's source
     is also built with line information to a cubin beside the phases, for
-    its latency floor in phase 15, and G's one-warp design
-    (tools/g729_baseline.py) into a library of its own, timed in turns
-    with G in phase 15;
+    its latency floor in phase 15, and K's first design
+    (tools/g729_encode_baseline.cu) into a library of its own, with it and
+    K's source again with -DK_PHASES (the time by phase), for phase 16;
  3. a 160x120 corpus at the reference's canonical shape (16 fps, 22,050 Hz
     ADPCM audio): 4,800 frames (5 minutes) of seeded videogen/rotozoom
     pictures with noise, each C-encoded at qscale 2, muxed into an .amv
@@ -148,8 +148,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     and operations, and the latency floor: the longest pipeline stage's
     dependent chain a frame in the nvdisasm listing of the cubin built in
     phase 2, time_g729.g729_floor, at the card's highest SM clock),
-    frames/s and the real-time factor, and in turns with G's one-warp
-    design (baseline, G, G, baseline; their outputs equal); G against its
+    frames/s and the real-time factor; G against its
     plain version on the card, PCM and state, for every stream's first
     16 frames and two windows of 16 in the middle, each from the state G
     returned at that frame; two streams' first 200 frames against the
@@ -157,12 +156,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     frames 10 times, act.mux) through `cli.main -i rec.act out.wav` x3 (G
     launched once a pass; its first 6,000 frames equal stream 0 of the
     batch) and out.bit (the frames' bits), with frames/s, the stages one
-    by one (read, demux, upload + unpack, G, write), and G in turns with
-    the one-warp design on the file's stream;
+    by one (read, demux, upload + unpack, G, write);
 16. G.729A encoding: 1,024 seeded speech recordings of 6 s (600 frames
     each) through encode_streams on the card, kernel K launched once (its
     launches counted from 0): its time beside its bound (float operations
-    a frame, counted from g729_encode.cu, over the FP32 rate), frames/s;
+    a frame, counted from g729_encode.cu, over the FP32 lanes' rate: each
+    multiply and add its own instruction under -fmad=false; the shared
+    loads over the load units' rate beside it), frames/s; K in turns with
+    its first design (baseline, K, K, baseline; outputs equal) at 1,024 x
+    600 and at the same frames over 4,096 streams (x 150), and both
+    designs' time by phase on one line each;
     K against its plain version on the card (parameters, state and hist)
     for every stream's first 8 frames and a window of 8 mid-stream from
     K's returned state; the frames decoded by G to K's shadow state;
@@ -240,26 +243,49 @@ OPS_G729 = 24200
 K_STREAMS, K_FRAMES = 1024, 600      # 1,024 recordings of 6 s
 K_CHECK = 8                          # frames of each window held to plain
 K_CLI_FRAMES = 40                    # frames of cli.main -f act (host)
+K_TURNS = ((1024, 600), (4096, 150))  # K in turns with its first design
 # kernel K's float operations a frame, counted from g729_encode.cu (a
-# multiply, add, compare, select, division or square root each one).  The
-# analysis: the window, the autocorrelation's 11 x 240 multiply-adds,
-# Levinson, the grid's 1,024 points at 38 (cos5 26, the sum 11, the
-# point), the sign changes, 10 roots x 12 bisection steps at 44, the LSF
-# targets and sort, the first stage's 256 x 10 distances, the 8 least,
-# the second stage's 1,024 x 5, its minima, the exact errors:
+# multiply, add, compare, select, division, square root or sign flip each
+# one).  The analysis: the window, the autocorrelation's 11 x 240
+# multiply-adds, Levinson, the grid's 1,024 points at 38 (cos5 26, the sum
+# 11, the point), the sign changes, 10 roots x 12 bisection steps at 44,
+# the LSF targets and sort, the first stage's 256 x 10 distances, the 8
+# least, the second stage's 1,024 x 5, its minima, the exact errors:
 K_ANALYSIS = (240 + 11 * 240 * 2 + 250 + 40 + 1024 * 38 + 511 * 4
               + 10 * 12 * 44 + 85 + 80 + 256 * 10 * 3 + 224 + 1024 * 5 * 4
               + 32 * 31 + 16 * 80)
-# a subframe: the impulse and zero-input responses, the upsampled history
-# (432 x 20 multiply-adds), the pitch grid (372 candidates x 820
-# multiply-adds and 2 x 40 for the scores), the chosen vector's response
-# and gain, the backward correlations, the matrix (22,140 multiply-adds),
-# the 8,192 pulse combinations at 37, the code vector's response, the
-# 128 gain pairs and their 5 correlations:
-K_SUBFRAME = (20 + 729 + 880 + 432 * 41 + 372 * (820 * 2 + 40 * 4 + 4)
-              + 820 * 2 + 165 + 160 + 820 * 2 + 22140 * 2 + 80 + 8192 * 37
-              + 820 * 2 + 5 * 80 + 128 * 16)
-OPS_G729_ENCODE = K_ANALYSIS + 2 * K_SUBFRAME
+# a pitch candidate: 820 products and 780 sums through the impulse
+# response, its two 40-term scores and the score; the candidates that may
+# be coded: 253 in subframe 0, 30 in subframe 1
+K_CANDIDATE = 820 + 780 + 40 * 4 + 4
+K_CANDIDATES = 253 + 30
+# a subframe besides its candidates: the impulse and zero-input responses,
+# the upsampled history (432 x 20 multiply-adds), the chosen vector's
+# response and gain, the sharpened response, the residual target, d, the
+# matrix's 40 diagonals (820 multiply-adds) and its 1,600 sign flips, the
+# 8,192 pulse combinations at 12 (the prefixes: 3 a track-2 position of
+# the 64 track-0/1 pairs, 2 a pair), the code vector's response, the 128
+# gain pairs and 3 correlations:
+K_SUBFRAME = (20 + 729 + 880 + 432 * 41 + 820 * 2 + 165 + 120 + 80
+              + 820 * 2 + 820 * 2 + 1600 + 8192 * 12 + 512 * 3 + 64 * 2
+              + 820 * 2 + 128 * 16 + 3 * 80)
+OPS_G729_ENCODE = K_ANALYSIS + 2 * K_SUBFRAME + K_CANDIDATES * K_CANDIDATE
+# its shared-memory loads a frame (32-bit lanes), counted likewise: the
+# candidates' vectors and targets (283 x 80) and each thread's impulse
+# response (2 x 40 x 64 threads), the ACELP's 1 a combination, 4 a
+# track-2 position and 69 a thread (2 x (8,192 + 2,048 + 4,416)), the
+# interpolation's history (2 x 8,640), the matrix and the correlations
+# (d, y_ac, y_fc and the diagonals: 2 x 4 x 1,640), the analysis
+# (autocorrelation 5,280, grid 6,144, the quantizer's distances 7,680)
+LDS_G729_ENCODE = (K_CANDIDATES * 80 + 2 * 40 * 64
+                   + 2 * (8192 + 2048 + 4416) + 2 * 8640 + 2 * 4 * 1640
+                   + 5280 + 6144 + 7680)
+# the FP32 lanes' rate: the datasheet's 67 TFLOP/s counts a fused
+# multiply-add as 2; K, built with -fmad=false, issues each multiply and
+# each add as its own instruction
+PEAK_FP32_INSN_S = PEAK_OPS_S / 2
+# one warp-wide 32-bit shared load a clock an SM (132 SMs at 1,980 MHz)
+PEAK_LDS_S = 132 * 32 * 1.98e9
 
 # phase 12, ingest: a 5-minute capture of 320x240 I420 frames and 44,100 Hz
 # PCM through the reference's canonical `-s 160x120 -ar 22050`
@@ -421,10 +447,11 @@ def max_abs_err(pairs) -> int:
     return err
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_s: float = PEAK_OPS_S):
     """(bound in ms, what bounds it) for a function that moves nbytes and
-    does ops integer operations."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S
+    does ops operations at ops_s a second (integer operations over the
+    peak rate unless given)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / ops_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1317,7 +1344,7 @@ def mjpeg_phase(m, dev, paths, card, check, amv_data, tmp,
     log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
 
 
-def g729_phase(m, dev, paths, card, kern, extra, tmp, mhz, g_sass, g_base,
+def g729_phase(m, dev, paths, card, kern, extra, tmp, mhz, g_sass,
                n_streams=G_STREAMS, n_frames=G_FRAMES,
                file_reps=G_FILE_REPS, n_check=G_CHECK,
                n_oracle=G_ORACLE) -> None:
@@ -1328,9 +1355,7 @@ def g729_phase(m, dev, paths, card, kern, extra, tmp, mhz, g_sass, g_base,
     least pitch code), through decode_streams on the card: kernel G
     launched once, its time beside the bounds (g_sass: a future of G's
     nvdisasm listing, for its latency floor at mhz: the longest pipeline
-    stage's chain), and in turns with G's one-warp design (g_base: a
-    future of its library; baseline, G, G, baseline, outputs equal) on
-    the batch and on the file's stream; G against its plain
+    stage's chain); G against its plain
     version on the card for every stream's first n_check frames and for
     two windows of n_check frames in the middle, each from the state G
     returned at that frame; streams 0 and 3's first n_oracle frames
@@ -1377,14 +1402,12 @@ def g729_phase(m, dev, paths, card, kern, extra, tmp, mhz, g_sass, g_base,
     floor = m.tools_g.g729_floor(g_sass.result(),
                                  m.tools_t._csrc(m._build))
     frame_ms = floor["cycles"] / (mhz * 1e3)     # a frame's floor
-    base_lib = g_base.result()
-    turns = m.tools_g.turns(m.g729a, base_lib, st0, parms, 3)
     batch = {"streams": n_streams, "frames": n_frames, "ms": g_ms,
              "bound_ms": bms, "bound_by": by,
              "latency_floor_ms": n_frames * frame_ms,
              "frames_s": n_all / g_ms * 1e3,
              "real_time_factor": n_all * 10.0 / g_ms,
-             "decode_streams_s": wall, "turns": turns}
+             "decode_streams_s": wall}
     log(f"G at {n_streams} x {n_frames} frames: {g_ms:.3f} ms a launch "
         f"(median of 3, CUDA events), decode_streams {wall:.3f} s (host "
         f"clock, first call); {n_all / g_ms / 1e3:.1f} M frames/s, real-time"
@@ -1396,10 +1419,6 @@ def g729_phase(m, dev, paths, card, kern, extra, tmp, mhz, g_sass, g_base,
         f"{mhz:.0f} MHz, from the SASS built in this run; stages "
         + ", ".join(f"{k} {v['chain']} {v['parts']}"
                     for k, v in floor["stages"].items()) + ")")
-    log(f"G in turns with its one-warp design at {n_streams} x {n_frames} "
-        f"(baseline, G, G, baseline; CUDA events, median of 3 each): "
-        f"baseline {turns['baseline_ms']} ms, G {turns['pipeline_ms']} ms; "
-        "PCM and state equal")
 
     # G against its plain version: the first n_check frames of every
     # stream, then two windows from G's own state at their first frame
@@ -1490,12 +1509,10 @@ def g729_phase(m, dev, paths, card, kern, extra, tmp, mhz, g_sass, g_base,
     staged(split, "device->host + write", lambda: m.wav.write_pcm(
         os.path.join(tmp, "rec2.wav"), pcm1.reshape(-1).cpu().numpy(),
         rate1))
-    turns_1 = m.tools_g.turns(m.g729a, base_lib, m.g729a.init_state(1, dev),
-                              p1, 3)
     kern["G"]["file"] = {"frames": n_file, "cli_s": walls,
                          "frames_s": n_file / wall,
                          "real_time_factor": n_file / 100 / wall,
-                         "g_s": split["device G"], "turns": turns_1}
+                         "g_s": split["device G"]}
     log(f"{card}: G.729A, cli.main -i rec.act out.wav x3 ({n_file} frames, "
         f"{n_file / 6000:.1f} min, {len(data)} bytes): "
         f"{', '.join(f'{t:.3f}' for t in walls)} s, median {wall:.3f} s = "
@@ -1504,11 +1521,6 @@ def g729_phase(m, dev, paths, card, kern, extra, tmp, mhz, g_sass, g_base,
         f"first {n_frames} frames equal stream 0 of the batch; out.bit "
         "equal to the file's frames' bits")
     log_split("G.729A file", split)
-    log(f"G in turns with its one-warp design at 1 x {n_file} (baseline, "
-        f"G, G, baseline): baseline {turns_1['baseline_ms']} ms, G "
-        f"{turns_1['pipeline_ms']} ms = "
-        f"{1e3 * statistics.median(turns_1['pipeline_ms']) / n_file:.2f} us"
-        " a frame; PCM and state equal")
     log(f"phase 15 took {time.perf_counter() - t15:.1f} s")
 
 
@@ -1524,13 +1536,18 @@ def seg_quality(ref, out):
     return float(np.corrcoef(a, r)[0, 1]), float(seg.mean())
 
 
-def g729_encode_phase(m, dev, paths, card, kern, extra, tmp,
+def g729_encode_phase(m, dev, paths, card, kern, extra, tmp, k_libs,
                       n_streams=K_STREAMS, n_frames=K_FRAMES,
-                      n_check=K_CHECK, cli_frames=K_CLI_FRAMES) -> None:
+                      n_check=K_CHECK, cli_frames=K_CLI_FRAMES,
+                      shapes=K_TURNS) -> None:
     """Phase 16: G.729A encoding.  n_streams seeded speech recordings of
     n_frames frames through encode_streams on the card: kernel K launched
     once (its launches counted from 0), its time beside its bound (float
-    operations over the FP32 rate), frames/s; K against its plain version
+    operations over the FP32 lanes' rate, shared loads over the load
+    units'), frames/s; with k_libs (a future of time_g729.k_libraries'
+    builds; None skips this) K in turns with its first design at each of
+    `shapes` (streams x frames; outputs equal) and both designs' time by
+    phase at the first; K against its plain version
     on the card, parameters, state and hist, for every stream's first
     n_check frames and a window of n_check from K's own state mid-stream;
     the frames decoded by G to K's shadow state; decode(encode(x))'s
@@ -1565,16 +1582,55 @@ def g729_encode_phase(m, dev, paths, card, kern, extra, tmp,
     k_ms, (st_k, h_k, parms_k) = cuda_ms(
         lambda: m.g729_enc.encode_frames_scan(st0, h0, fr), 3)
     assert torch.equal(m.g729_enc.pack_frames(parms_k), packed)
-    bms, by = bound(n_all * (320 + 64), n_all * OPS_G729_ENCODE)
+    bms, by = bound(n_all * (320 + 64), n_all * OPS_G729_ENCODE,
+                    PEAK_FP32_INSN_S)
+    lds_ms = 1e3 * n_all * LDS_G729_ENCODE / PEAK_LDS_S
     batch = {"streams": n_streams, "frames": n_frames, "ms": k_ms,
-             "bound_ms": bms, "bound_by": by, "frames_s": n_all / k_ms * 1e3,
+             "bound_ms": bms, "bound_by": by, "lds_ms": lds_ms,
+             "frames_s": n_all / k_ms * 1e3,
              "real_time_factor": n_all * 10.0 / k_ms,
              "encode_streams_s": wall}
     log(f"K at {n_streams} x {n_frames} frames: {k_ms:.3f} ms a launch "
         f"(median of 3, CUDA events), encode_streams {wall:.3f} s (host "
         f"clock, first call); {n_all / k_ms * 1e3:.0f} frames/s, real-time "
         f"factor {n_all * 10.0 / k_ms:.0f}; bound {bms:.3f} ms by {by} "
-        f"({OPS_G729_ENCODE} float operations a frame over the FP32 rate)")
+        f"({OPS_G729_ENCODE} float operations a frame over the FP32 lanes' "
+        f"{PEAK_FP32_INSN_S / 1e12:.1f} T/s); shared loads "
+        f"{LDS_G729_ENCODE} a frame over {PEAK_LDS_S / 1e12:.2f} T/s: "
+        f"{lds_ms:.3f} ms")
+    if k_libs is not None:
+        libs = k_libs.result()
+        turns = {}
+        for b, t in shapes:
+            if (b, t) == (n_streams, n_frames):
+                st_t, h_t, fr_t = st0, h0, fr
+            else:
+                x_t = torch.from_numpy(m.fixtures.speech_streams(
+                    b, t * 80, 16)).to(dev)
+                fr_t = x_t.float().reshape(b, t, 80).permute(1, 0, 2) \
+                    .contiguous()
+                st_t = m.g729a.init_state(b, dev)
+                h_t = torch.zeros((b, 160), dtype=torch.float32, device=dev)
+            turns[f"{b}x{t}"] = m.tools_g.k_turns(
+                m.g729_enc, libs["baseline"], st_t, h_t, fr_t, 3)
+            log(f"K in turns with its first design at {b} x {t} (baseline, "
+                f"K, K, baseline; CUDA events, median of 3 each): baseline "
+                f"{turns[f'{b}x{t}']['baseline_ms']} ms, K "
+                f"{turns[f'{b}x{t}']['tree_ms']} ms; parameters, state and "
+                "hist equal")
+        phases = {name: m.tools_g.k_phases(libs[f"{name} phases"], st0, h0,
+                                           fr)
+                  for name in ("baseline", "tree")}
+        for name, ph in phases.items():
+            log(f"K's time by phase, {name} design, at {n_streams} x "
+                f"{n_frames} (cycles a frame a CTA, thread 0's clock64() "
+                f"between stamps; the profile build's launch "
+                f"{ph['ms']:.1f} ms): total {ph['total']:.0f}: "
+                + ", ".join(f"{k} {v:.0f}" for k, v in ph["cycles"].items()))
+        batch["turns"] = turns
+        batch["phases"] = {name: {k: round(v) for k, v in
+                                  ph["cycles"].items()}
+                           for name, ph in phases.items()}
 
     # K against its plain version: every stream's first n_check frames,
     # then a window from K's own state in the middle
@@ -1609,7 +1665,8 @@ def g729_encode_phase(m, dev, paths, card, kern, extra, tmp,
     check_ms = cuda_ms(lambda: m.g729_enc.encode_frames_scan(
         st0, h0, fr[:n_check]), 3)[0]
     n_win = n_streams * n_check
-    bms_c, by_c = bound(n_win * (320 + 64), n_win * OPS_G729_ENCODE)
+    bms_c, by_c = bound(n_win * (320 + 64), n_win * OPS_G729_ENCODE,
+                        PEAK_FP32_INSN_S)
     # the frames through G: its state is K's shadow state
     st_g, pcm_g = m.g729a.decode_frames_scan(
         m.g729a.init_state(n_streams, dev), m.g729a.unpack_frames(packed))
@@ -1695,7 +1752,11 @@ def main() -> int:
     # runs while the phases do
     pool = concurrent.futures.ThreadPoolExecutor(2)
     g_sass = pool.submit(m.tools_g.listing, m._build, "g729_decode.cu")
-    g_base = pool.submit(m.tools_g.baseline_library, m._build)
+    k_libs = pool.submit(m.tools_g.k_libraries, m._build, {
+        "baseline": (m.tools_g.K_BASELINE, False),
+        "baseline phases": (m.tools_g.K_BASELINE, True),
+        "tree phases": (os.path.join(m.tools_t._csrc(m._build),
+                                     "g729_encode.cu"), True)})
     pool.shutdown(wait=False)
     t_sass = m.tools_t.sass_counts(m._build, ("transcode_blocks_kernel",))
     max_mhz = float(subprocess.run(
@@ -2629,10 +2690,9 @@ def main() -> int:
         # ---- 14. MJPEG ingest ---------------------------------------
         mjpeg_phase(m, dev, paths, smi, check, data, tmp)
         # ---- 15. G.729A ---------------------------------------------
-        g729_phase(m, dev, paths, smi, kern, extra, tmp, max_mhz, g_sass,
-                   g_base)
+        g729_phase(m, dev, paths, smi, kern, extra, tmp, max_mhz, g_sass)
         # ---- 16. G.729A encode --------------------------------------
-        g729_encode_phase(m, dev, paths, smi, kern, extra, tmp)
+        g729_encode_phase(m, dev, paths, smi, kern, extra, tmp, k_libs)
     log(f"total {time.perf_counter() - t_start:.1f} s after the imports")
 
     kernels = []

@@ -68,6 +68,12 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int *n, K, int,
     *n = 1;
     return 0;
 }
+enum cudaFuncAttribute { cudaFuncAttributePreferredSharedMemoryCarveout = 9 };
+constexpr int cudaSharedmemCarveoutMaxShared = 100;
+template <class K>
+cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
+    return 0;
+}
 
 using std::max;
 using std::min;
@@ -184,6 +190,16 @@ inline unsigned __ballot_sync(unsigned mask, int p) {
     return r & mask;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline float __int_as_float(int x) {
+    float f;
+    std::memcpy(&f, &x, sizeof f);
+    return f;
+}
+inline int __float_as_int(float f) {
+    int x;
+    std::memcpy(&x, &f, sizeof x);
+    return x;
+}
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
 inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned s) {

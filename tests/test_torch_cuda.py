@@ -1428,3 +1428,39 @@ def test_g729_encode_kernel_matches_plain(dev):
                                   G.unpack_frames(packed))
     for k in E.TRACKED:
         assert torch.equal(dst[k], st2[k]), k
+
+
+@pytest.mark.parametrize("streams", ["3", "4 x SMs + 5", "8 x SMs + 7"])
+def test_g729_encode_kernel_builds_match_plain(dev, streams):
+    """Kernel K at stream counts that pick each of its builds and leave a
+    wave part full: 3 streams (128 threads a stream, far from a wave),
+    4 x SMs + 5 (past the 128-thread build's one wave at 4 CTAs an SM, so
+    64 threads, one wave part full) and 8 x SMs + 7 (past the 64-thread
+    build's one wave at 8 CTAs an SM): seeded speech x 3 frames against
+    the plain version on the card, parameters, state and hist bit for bit,
+    and a window from K's state equal to one launch over both."""
+    from amv_tpu_torch.codecs import g729a as G
+    from amv_tpu_torch.codecs import g729a_encoder_batch as Enc
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    b = {"3": 3, "4 x SMs + 5": 4 * sms + 5, "8 x SMs + 7": 8 * sms + 7}[
+        streams]
+    t = 3
+    sig = fixtures.speech_streams(b, t * 80, 9).astype(np.float32)
+    frames = torch.from_numpy(np.ascontiguousarray(
+        sig.reshape(b, t, 80).transpose(1, 0, 2))).to(dev)
+    st0, h0 = G.init_state(b, dev), torch.zeros((b, 160), device=dev)
+    st, h, parms = Enc.encode_frames_scan(st0, h0, frames)
+    sp, hp, want = st0, h0, []
+    for i in range(t):
+        sp, hp, p = Enc.encode_frame_batch(sp, hp, frames[i])
+        want.append(p)
+    assert torch.equal(parms, torch.stack(want))
+    assert torch.equal(h.view(torch.int32), hp.view(torch.int32))
+    for k, _ in G.STATE_FIELDS:
+        assert torch.equal(st[k], sp[k]), k
+    sa, ha, pa = Enc.encode_frames_scan(st0, h0, frames[:1])
+    sb, hb, pb = Enc.encode_frames_scan(sa, ha, frames[1:])
+    assert torch.equal(torch.cat([pa, pb]), parms)
+    assert torch.equal(hb.view(torch.int32), h.view(torch.int32))
+    for k, _ in G.STATE_FIELDS:
+        assert torch.equal(sb[k], st[k]), k

@@ -749,16 +749,39 @@ def g729_encode_lib(tmp_path_factory):
     return _lib("g729_encode.cu", tmp_path_factory)
 
 
+def _pulse_trains(periods, n, rng):
+    """Shaped pulse trains of the given periods (samples) with noise: the
+    pitch search locks onto their lags."""
+    sig = []
+    for period in periods:
+        x = np.where(np.arange(n) % period == 0, 16000.0, 0.0)
+        x = np.convolve(x, [1.0, 0.6, 0.3, -0.2, -0.4], "same")
+        sig.append(np.clip(x + rng.standard_normal(n) * 300, -32768, 32767))
+    return np.stack(sig).round()
+
+
 def _g729_encode_case(case):
     """(state, hist, frames float32 [T, B, 80]) of a case: seeded speech;
     silence, full-scale noise, a full-scale square wave, a sine and speech;
     a start state with a full-scale excitation history at the largest
-    sharpening, whose LP synthesis overflows (the redo)."""
+    sharpening, whose LP synthesis overflows (the redo); pulse trains of
+    periods 25 (a lag under 40: its vector repeats), 23 and 142
+    (subframe 1's window clamped to lags from 20 and to 134 up); two
+    streams (in the emulator's device of 2 SMs the launch takes its
+    128-thread build at up to 2 streams, its 64-thread one past that)."""
     from amv_tpu_torch.codecs import g729a as G
     rng = np.random.default_rng(8)
     if case == "speech":
         b, t = 3, 10
         sig = fixtures.speech_streams(b, t * 80, 2)
+    elif case == "speech pair":
+        b, t = 2, 8
+        sig = fixtures.speech_streams(b, t * 80, 3)
+    elif case.startswith("pulses"):
+        t = 12
+        sig = _pulse_trains((25, 23, 142) if case == "pulses" else (23, 142),
+                            t * 80, rng)
+        b = len(sig)
     else:
         t, n = 6, 480
         sig = np.stack([
@@ -780,15 +803,26 @@ def _g729_encode_case(case):
     return st, torch.zeros((b, 160)), frames
 
 
-@pytest.mark.parametrize("case,split", [("speech", 10), ("speech", 4),
-                                        ("edges", 6), ("loud state", 6)])
+def _lags(parms):
+    """Subframe 0's integer lag and subframe 1's window base, from the
+    parameters [T, B, 16]."""
+    p1 = parms[..., 5].numpy()
+    t0 = np.where(p1 < 197, (p1 + 59) // 3, p1 - 112)
+    return t0, np.clip(t0 - 5, 20, 134)
+
+
+@pytest.mark.parametrize("case,split", [
+    ("speech", 10), ("speech", 4), ("edges", 6), ("loud state", 6),
+    ("pulses", 12), ("pulses", 5), ("pulses pair", 7), ("speech pair", 8)])
 def test_g729_encode_source_matches_plain(g729_encode_lib, monkeypatch,
                                           case, split):
     """Kernel K on the CPU against its plain version
     (`codecs.g729a_encoder_batch.encode_frames_scan` on CPU tensors),
     parameters, state and hist bit for bit: seeded speech in one launch
     and in two (the second from the state and hist the first returned),
-    the edge signals, and a start state whose LP synthesis overflows."""
+    the edge signals, a start state whose LP synthesis overflows, pulse
+    trains whose lags reach under 40 and subframe 1's clamped windows, and
+    two streams (the launch's other build)."""
     from amv_tpu_torch.codecs import g729a as G
     from amv_tpu_torch.codecs import g729a_encoder_batch as E
     from amv_tpu_torch.kernels import g729 as K
@@ -804,6 +838,11 @@ def test_g729_encode_source_matches_plain(g729_encode_lib, monkeypatch,
     monkeypatch.setattr(G, "lp_synthesis_filter", counted)
     want_st, want_h, want = E.encode_frames_scan(st, hist, frames)
     assert (redo[0] > 0) == (case == "loud state")
+    if case.startswith("pulses"):
+        t0, base = _lags(want)
+        if case == "pulses":
+            assert (t0 < 40).any()
+        assert (base == 20).any() and (base == 134).any()
     flat = K.flatten_state(st).numpy().copy()
     h = hist.numpy().copy()
     parms = []

@@ -150,6 +150,25 @@ def test_ms_variants_apply_to_the_source():
     assert all(mv.rows_a_warp(k) == 32 for k in mv.DIAGNOSTICS)
 
 
+def test_k_variants_apply_to_the_source():
+    """amv_tpu_torch/tools/k_variants.py's edits of kernel K's source each
+    apply once to csrc/g729_encode.cu, change it (all but the shipped
+    one), and every copy gains the resident-CTA entry."""
+    import os
+
+    from amv_tpu_torch.tools import k_variants as kv
+    src = open(os.path.join(os.path.dirname(__file__), os.pardir,
+                            "amv_tpu_torch", "csrc", kv.SOURCE)).read()
+    out = kv.sources(src)
+    assert list(out) == list(kv.VARIANTS)
+    assert out["shipped"] == src + kv.RESIDENT
+    for name, text in out.items():
+        assert text.endswith(kv.RESIDENT)
+        assert (text == src + kv.RESIDENT) == (name == "shipped"), name
+    assert "candidate_score<true>" in out["two grid paths"]
+    assert "if (warp == 1) lp_head(S, lane, slot" in out["no head overlap"]
+
+
 def test_loop_counts_takes_the_uniform_per_sample_loop():
     """time_trellis.loop_counts on a cuobjdump-shaped listing: the
     innermost loop with a shuffle and over 200 instructions (not the outer
@@ -187,7 +206,8 @@ def test_time_g729_runs_on_the_cpu_at_a_tiny_size():
     """amv_tpu_torch/tools/time_g729.py end to end on the CPU (the plain
     versions): G on a batch and on one stream, each held against the plain
     frame step and decode_streams by the tool, K on a batch, and M with
-    the WAVE decode; no device time, ptxas, SASS or baseline there."""
+    the WAVE decode; no device time, ptxas, SASS, baseline or phases
+    there."""
     import torch
 
     from amv_tpu_torch.tools import time_g729
@@ -197,7 +217,7 @@ def test_time_g729_runs_on_the_cpu_at_a_tiny_size():
         out = time_g729.main(["--device", "cpu", "--batch", "2", "--frames",
                               "3", "--long-frames", "4", "--check-frames",
                               "2", "--ms-seconds", "0.05", "--reps", "1",
-                              "--k-batch", "2", "--k-frames", "3"])
+                              "--k-shapes", "2x3,3x2"])
     finally:
         torch.set_num_threads(n)
     ms = out["ms"]
@@ -209,7 +229,11 @@ def test_time_g729_runs_on_the_cpu_at_a_tiny_size():
     assert g["batch"]["checked_frames"] == 2 and g["long"]["device_ms"] is None
     assert "turns" not in g["batch"]
     k = ms["K"]
-    assert (k["streams"], k["frames"], k["checked_frames"]) == (2, 3, 2)
+    assert (k["2x3"]["streams"], k["2x3"]["frames"],
+            k["2x3"]["checked_frames"]) == (2, 3, 2)
+    assert (k["3x2"]["streams"], k["3x2"]["frames"]) == (3, 2)
+    assert "turns" not in k["2x3"] and "phases" not in k["2x3"]
+    assert "K_sass" not in out
 
 
 def _nvdisasm(body, kernel="_ZN4g729_decode_kernelEv", src="/x/k.cu"):
