@@ -18,32 +18,40 @@
   python -m amv_tpu_torch -i rec.act out.wav                    # G.729A
   python -m amv_tpu_torch -i rec.act out.bit                    # ITU serial
   python -m amv_tpu_torch -i in.wav -f act out.act              # G.729A enc
+  python -m amv_tpu_torch -i in.amv -pix_fmt rgb565 out.raw     # kernel Y
+  python -m amv_tpu_torch -i in.amv out.rgb                     # rgb24
+  python -m amv_tpu_torch -i in.amv --color amvlib f_%04d.bmp   # BMP frames
+  python -m amv_tpu_torch --info clip.amv                       # probe
+  python -m amv_tpu_torch --compare good.amv bad.amv            # compare_amv
+  python -m amv_tpu_torch -i in.amv --benchmark out.yuv         # utime line
   ... --device cpu                                              # plain versions
 
 Every route runs on the GPU (`--device cuda`, the default) unless the
 caller asks for the CPU; `-f act` runs the host encoder
 (`codecs/g729a_encoder.py`, as the JAX package does) after the resampling
-on the device.  The flags are `amv_tpu.cli`'s.  Still refused, each
-naming the `amv_tpu` module it waits for: .rgb/.raw (-pix_fmt) and .bmp
-outputs, progressive and lossless MJPEG input, --info and --compare.
+on the device.  The flags are `amv_tpu.cli`'s.  Every route runs under
+`utils.profiling.trace("cli")` (a torch.profiler trace when AMV_TRACE_DIR
+is set).  Still refused, naming the `amv_tpu` module it waits for:
+progressive (SOF2) and lossless (SOF3) MJPEG input.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import resource
+import struct
 import sys
+import time
 
 import numpy as np
 
 _USE_JAX = "(use python -m amv_tpu)"
 _SWS = ["bilinear", "bicubic", "point", "area", "lanczos", "gauss", "sinc",
         "spline", "experimental", "bicublin"]
-
-
-def _not_ported(what: str, module: str):
-    raise SystemExit(f"{what} is not yet ported: it needs {module} "
-                     f"{_USE_JAX}")
+_PIX_FMTS = ["rgb32", "bgr32", "rgb24", "bgr24", "rgb565", "bgr565",
+             "rgb555", "bgr555", "rgb8", "bgr8", "rgb4", "bgr4", "rgb4_byte",
+             "bgr4_byte", "monob", "yuyv422", "uyvy422"]
 
 
 def main(argv=None) -> int:
@@ -81,8 +89,10 @@ def main(argv=None) -> int:
                         "IMA-ADPCM chunks with a fact header, "
                         "AMVDec.c:447-530)")
     p.add_argument("-pix_fmt", dest="pix_fmt", default=None,
-                   help="packed pixel format of .rgb/.raw output (not yet "
-                        "ported)")
+                   choices=_PIX_FMTS,
+                   help="packed pixel format of .rgb/.raw output (default "
+                        "rgb24; libswscale's yuv2rgb family with its "
+                        "ordered dithering, kernel Y)")
     p.add_argument("-trellis", dest="trellis", action="store_true",
                    help="Viterbi ADPCM quantizer (kernel L; lower audio "
                         "distortion)")
@@ -97,16 +107,38 @@ def main(argv=None) -> int:
                    help="start decoding at this frame index")
     p.add_argument("-y", dest="overwrite", action="store_true",
                    help="overwrite output (outputs are always overwritten)")
+    p.add_argument("--compare", nargs=2, metavar=("GOOD", "BAD"),
+                   help="structural diff of two AMV files (compare_amv)")
+    p.add_argument("--info", metavar="FILE",
+                   help="print stream info (ffprobe-style) and exit")
+    p.add_argument("--color", choices=["bt601", "amvlib"], default="bt601",
+                   help="YUV->RGB of .bmp output: full-range BT.601 or "
+                        "amvlib's StoreBuffer constants")
+    p.add_argument("--benchmark", action="store_true",
+                   help="print utime, wall and maxrss after the operation "
+                        "(ffmpeg -benchmark)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; a missing "
                         "card is an error, never a silent CPU run)")
     p.add_argument("output", nargs="?", help="output file")
     args = p.parse_args(argv)
-    if not args.inputs or not args.output:
-        p.error("need -i input(s) and an output")
     if args.channels != 1:
         raise SystemExit("-ac must be 1: AMV audio is mono "
                          "(IMA-ADPCM AMV, adpcm.c mono guard)")
+    if args.info:
+        return _info(args.info)
+    if args.compare:
+        from .verify.compare import compare_amv
+        with open(args.compare[0], "rb") as fa, \
+                open(args.compare[1], "rb") as fb:
+            issues = compare_amv(fa.read(), fb.read())
+        for msg in issues:
+            print(msg)
+        print("Check successfully finished" if not issues
+              else f"{len(issues)} mismatches")
+        return 1 if issues else 0
+    if not args.inputs or not args.output:
+        p.error("need -i input(s) and an output")
 
     src_ext = os.path.splitext(args.inputs[0])[1].lower()
     out_ext = os.path.splitext(args.output)[1].lower()
@@ -120,6 +152,20 @@ def main(argv=None) -> int:
                 fps = riff.parse_header(f.read(0x140)).fps_num
         args.max_frames = max(1, int(args.duration * fps))
 
+    from .utils.profiling import trace
+    t0 = time.perf_counter()
+    try:
+        with trace("cli"):      # a torch.profiler trace under AMV_TRACE_DIR
+            return _route(args, src_ext, out_ext)
+    finally:
+        if args.benchmark:
+            ru = resource.getrusage(resource.RUSAGE_SELF)
+            print(f"bench: utime={ru.ru_utime:.3f}s "
+                  f"wall={time.perf_counter() - t0:.3f}s "
+                  f"maxrss={ru.ru_maxrss // 1024}MB")
+
+
+def _route(args, src_ext: str, out_ext: str) -> int:
     if src_ext == ".act":
         return _decode_act(args, out_ext)
     if args.format == "amv" or out_ext == ".amv":
@@ -205,10 +251,57 @@ def _encode_act(args) -> int:
     return 0
 
 
-_OUTPUTS_NOT_PORTED = {
-    ".bmp": "amv_tpu/cli.py:_write_bmp (over kernels/color.py)",
-    ".rgb": "amv_tpu/kernels/yuv2rgb_dither.py",
-    ".raw": "amv_tpu/kernels/yuv2rgb_dither.py"}
+def _info(path: str) -> int:
+    """Stream info of an .act, .avi or .amv file (`amv_tpu/cli.py:_info`,
+    the same lines)."""
+    ext = os.path.splitext(path)[1].lower()
+    with open(path, "rb") as f:
+        data = f.read()
+    if ext == ".act":
+        from .containers import act
+        frames, rate, dur = act.demux(data)
+        print(f"Input: ACT, G.729A mono {rate} Hz")
+        print(f"  {len(frames)} frames ({len(frames) * 10} ms), "
+              f"recorded duration {dur / 100:.2f} s")
+        return 0
+    if ext == ".avi":
+        from .containers import avi
+        for st in avi.demux(data):
+            if st.kind == "video":
+                print(f"Stream: video {st.codec!r} {st.width}x{st.height} "
+                      f"{st.fps_num}/{st.fps_den} fps, {len(st.chunks)} "
+                      "frames")
+            else:
+                print(f"Stream: audio fmt={st.codec!r} {st.sample_rate} Hz "
+                      f"{st.channels}ch {st.bits}bit, {len(st.chunks)} "
+                      "chunks")
+        return 0
+    from .containers import riff
+    s = riff.demux(data)
+    i = s.info
+    n_samples = sum(2 * max(len(c) - 8, 0) for c in s.audio_chunks)
+    print(f"Input: AMV, {i.width}x{i.height} @ {i.fps_num} fps, "
+          f"duration {i.duration_sec} s")
+    print(f"  Stream 0: video (AMV MJPEG-variant), {len(s.video_chunks)} "
+          "frames")
+    print(f"  Stream 1: audio (IMA-ADPCM AMV), mono {i.sample_rate} Hz, "
+          f"{len(s.audio_chunks)} chunks, {n_samples} samples")
+    return 0
+
+
+def _write_bmp(path: str, rgb: np.ndarray):
+    """One uint8 RGB frame [H, W, 3] as a 24-bit BMP: bottom-up BGR rows
+    padded to 4 bytes (`amv_tpu/cli.py:_write_bmp`)."""
+    h, w, _ = rgb.shape
+    row = (w * 3 + 3) & ~3
+    img = np.zeros((h, row), dtype=np.uint8)
+    bgr = rgb[::-1, :, ::-1]  # bottom-up, BGR
+    img[:, :w * 3] = bgr.reshape(h, w * 3)
+    hdr = b"BM" + struct.pack("<IHHI", 54 + img.size, 0, 0, 54)
+    hdr += struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, img.size, 2835,
+                       2835, 0, 0)
+    with open(path, "wb") as f:
+        f.write(hdr + img.tobytes())
 
 
 def _export_jpeg(path: str, payload: bytes, width: int, height: int):
@@ -222,14 +315,67 @@ def _export_jpeg(path: str, payload: bytes, width: int, height: int):
         f.write(b"\xFF\xD9")
 
 
+def _pixels(args, ext: str) -> int:
+    """AMV -> packed pixels (.rgb/.raw by -pix_fmt, rgb24 by default:
+    kernel Y, or the YUYV/UYVY packing) or BMP frames (.bmp by --color:
+    `kernels/color.py`; one file, or every frame when the name has %).
+    Kernels D and U decode; the planes stay on the device and one copy
+    brings the packed frames to the host."""
+    import torch
+
+    from .codecs.amv_video import decode_frames_device
+    from .containers import riff
+    from .kernels import yuv2rgb_dither as y2r
+    from .pipeline import resolve_device
+    dev = resolve_device(args.device)
+    s = riff.read(args.inputs[0])
+    w, h = s.info.width, s.info.height
+    vchunks = s.video_chunks[args.seek:]
+    if args.max_frames:
+        vchunks = vchunks[:args.max_frames]
+    if vchunks:
+        y, cb, cr = decode_frames_device(vchunks, w, h, device=dev)
+    else:
+        y = torch.zeros((0, h, w), dtype=torch.uint8, device=dev)
+        cb = torch.zeros((0, h // 2, w // 2), dtype=torch.uint8, device=dev)
+        cr = cb
+    out = args.output
+    if ext == ".bmp":
+        from .kernels.color import yuv420_to_rgb
+        rgb = yuv420_to_rgb(y, cb, cr, mode=args.color)
+        n = rgb.shape[0] if "%" in out else min(1, rgb.shape[0])
+        frames = rgb[:n].cpu().numpy()
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        for i in range(n):
+            _write_bmp(out % i if "%" in out else out, frames[i])
+        print(f"wrote {rgb.shape[0] if '%' in out else 1} BMP frame(s)")
+        return 0
+    fmt = args.pix_fmt or "rgb24"
+    if fmt == "yuyv422":
+        frames = y2r.yuv420_to_yuyv422(y, cb, cr)
+    elif fmt == "uyvy422":
+        frames = y2r.yuv420_to_uyvy422(y, cb, cr)
+    else:
+        frames = y2r.yuv420_to_packed(
+            y, cb, cr, fmt="monoblack" if fmt == "monob" else fmt)
+    # uint16/uint32 formats come as int16/int32 bits: little-endian bytes
+    host = frames.cpu().numpy()
+    host = host.astype(host.dtype.newbyteorder("<"), copy=False)
+    with open(out, "wb") as f:
+        f.write(host.tobytes())
+    print(f"wrote {out}: {frames.shape[0]} frames {w}x{h} {fmt}")
+    return 0
+
+
 def _decode(args, ext: str) -> int:
     """AMV -> PCM WAV (kernel A) or the raw ADPCM chunks (-acodec copy),
-    raw yuv420p frames (kernels D, U), an AVI of I420, MJPEG (kernels V, E)
-    or copied AMV scans and PCM, or JPEG files of the stored scans."""
+    raw yuv420p frames (kernels D, U), packed pixels or BMP frames
+    (`_pixels`), an AVI of I420, MJPEG (kernels V, E) or copied AMV scans
+    and PCM, or JPEG files of the stored scans."""
     from .containers import riff, wav
     from .pipeline.decode import decode_file
-    if ext in _OUTPUTS_NOT_PORTED:
-        _not_ported(f"{ext} output", _OUTPUTS_NOT_PORTED[ext])
+    if ext in (".rgb", ".raw", ".bmp"):
+        return _pixels(args, ext)
     if ext not in (".wav", ".yuv", ".avi", ".jpg", ".jpeg"):
         raise SystemExit(f"unsupported output format: {ext}")
     src, out = args.inputs[0], args.output

@@ -96,6 +96,15 @@ def decode_frames(payloads: list[bytes], width: int, height: int, *,
                   device):
     """Decode a batch of AMV '00dc' payloads to YUV420 planes (numpy
     uint8 [F, H, W], [F, H/2, W/2] x2) on `device`."""
+    y, cb, cr = decode_frames_device(payloads, width, height, device=device)
+    return y.cpu().numpy(), cb.cpu().numpy(), cr.cpu().numpy()
+
+
+def decode_frames_device(payloads: list[bytes], width: int, height: int, *,
+                         device):
+    """`decode_frames` whose planes stay on `device`: uint8 tensors [F, H,
+    W], [F, H/2, W/2] x2 in the payloads' order (kernel U's store undoes
+    the length sort), for a consumer there (kernel Y, `kernels/color.py`)."""
     dev = torch.device(device)
     n_mcu = ((width + 15) // 16) * ((height + 15) // 16)
     rows, lens = native.unescape_frames(payloads)
@@ -105,9 +114,8 @@ def decode_frames(payloads: list[bytes], width: int, height: int, *,
                               n_mcu * 6)
     check_decoded(ok, order)
     dc = resolve_dc(levels.reshape(len(payloads), n_mcu, 6, 64)).reshape(-1)
-    y, cb, cr = decode_planes(levels.reshape(-1, 64), dc, width, height,
-                              dst=torch.from_numpy(order).to(dev))
-    return y.cpu().numpy(), cb.cpu().numpy(), cr.cpu().numpy()
+    return decode_planes(levels.reshape(-1, 64), dc, width, height,
+                         dst=torch.from_numpy(order).to(dev))
 
 
 def encode_transform(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,

@@ -6,7 +6,7 @@ excitation memories), so the parallelism is across streams: B streams
 decode in lockstep, one frame step at a time.  The functions keep the
 JAX package's contracts:
 
-* `init_state(batch, device)`: the decoder state, a dict of int32 tensors
+* `init_state(batch, device=)`: the decoder state, a dict of int32 tensors
   with a leading batch axis (the fields of `amv_tpu/codecs/g729a.py:
   init_state`);
 * `unpack_frames`: packed frames uint8 [T, B, 10] -> parameters int32
@@ -170,8 +170,9 @@ def parity_check(p1, p0):
 
 # ---------------------------------------------------------------- state
 
-def init_state(batch: int, device="cpu") -> dict:
-    """The state of `batch` decoders before their first frame."""
+def init_state(batch: int, *, device) -> dict:
+    """The state of `batch` decoders before their first frame, on
+    `device` (no default: a forgotten device must not mean the CPU)."""
     z = lambda *s: torch.zeros((batch,) + s, dtype=torch.int32,
                                device=device)
     full = lambda v, *s: torch.full((batch,) + s, v, dtype=torch.int32,
@@ -651,6 +652,6 @@ def decode_streams(frames) -> torch.Tensor:
     t, b = frames.shape[:2]
     if t == 0:
         return torch.zeros((b, 0), dtype=torch.int16, device=frames.device)
-    _, pcm = decode_frames_scan(init_state(b, frames.device),
+    _, pcm = decode_frames_scan(init_state(b, device=frames.device),
                                 unpack_frames(frames))
     return pcm.permute(1, 0, 2).reshape(b, t * 2 * SUBFRAME)

@@ -582,7 +582,7 @@ def encode_streams(pcm) -> torch.Tensor:
     b, n = pcm.shape[0], pcm.shape[1] // FRAME
     frames = pcm[:, :n * FRAME].float().reshape(b, n, FRAME) \
         .permute(1, 0, 2).contiguous()
-    st = G.init_state(b, pcm.device)
+    st = G.init_state(b, device=pcm.device)
     hist = torch.zeros((b, 160), dtype=torch.float32, device=pcm.device)
     _, _, parms = encode_frames_scan(st, hist, frames)
     return pack_frames(parms)

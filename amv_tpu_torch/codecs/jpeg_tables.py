@@ -8,6 +8,8 @@ The port's own copy of what it reads from `amv_tpu/bitstream/jpeg_tables.py`:
 * the standard JPEG K.3 Huffman tables (mjpeg.c:65-126);
 * the MPEG-1 default intra matrix, the basis of the encoder's quantizer
   (mpeg12data.c, applied at mpegvideo_enc.c:2866-2876);
+* amvlib's own ~Q75 pair (`AMVLIB_QUANT_LUMA` / `_CHROMA`,
+  AmvJpeg.c:30-61), for its decoder (`codecs/amvlib_video.py`);
 * canonical code assignment and the flat 16-bit-peek decode table;
 * the headers written with these tables: the K.3 DHT segment (`DHT_K3`),
   `canned_jpeg_header` (the one the reference's AMV decoder prepends,
@@ -137,6 +139,25 @@ MPEG1_INTRA_MATRIX = np.array([
     26, 27, 29, 34, 38, 46, 56, 69,
     27, 29, 35, 38, 46, 56, 69, 83,
 ], dtype=np.int32)
+
+# amvlib's fixed ~Q75 pair (C-AMVDecoder/amvlib/AmvJpeg.c:30-61), read by
+# its own decoder (codecs/amvlib_video.py, kernel W) index for index
+# against the zigzag-ordered levels.
+AMVLIB_QUANT_LUMA = np.array([
+    0x08, 0x06, 0x06, 0x07, 0x06, 0x05, 0x08, 0x07,
+    0x07, 0x07, 0x09, 0x09, 0x08, 0x0A, 0x0C, 0x14,
+    0x0D, 0x0C, 0x0B, 0x0B, 0x0C, 0x19, 0x12, 0x13,
+    0x0F, 0x14, 0x1D, 0x1A, 0x1F, 0x1E, 0x1D, 0x1A,
+    0x1C, 0x1C, 0x20, 0x24, 0x2E, 0x27, 0x20, 0x22,
+    0x2C, 0x27, 0x1C, 0x1C, 0x28, 0x37, 0x29, 0x2C,
+    0x30, 0x31, 0x34, 0x34, 0x34, 0x1F, 0x27, 0x39,
+    0x3D, 0x38, 0x32, 0x3C, 0x2E, 0x33, 0x34, 0x32,
+], dtype=np.int32)
+
+AMVLIB_QUANT_CHROMA = np.array(
+    [0x09, 0x09, 0x09, 0x0C, 0x0B, 0x0C, 0x18, 0x0D,
+     0x0D, 0x18, 0x32, 0x21, 0x1C, 0x21, 0x32, 0x32] + [0x32] * 48,
+    dtype=np.int32)
 
 
 def build_huffman_codes(bits: np.ndarray, vals: np.ndarray):

@@ -53,6 +53,8 @@ _SIGNATURES = {
     "amv_g729_decode": [_P, _I64, _I64, _P, _P, _P],
     "amv_g729_state_words": [],
     "amv_g729_encode": [_P, _I64, _I64, _P, _P, _P, _P],
+    "amv_yuv2rgb_packed": [_P, _P, _P, _P, _P, _P, _P],
+    "amv_amvlib_idct": [_P, _P, _P, _P, _P, _P, _I32, _P],
 }
 # a source's flags beyond NVCC_FLAGS: kernel K's float sums must round as
 # its plain version's separate torch multiplies and adds do

@@ -149,7 +149,8 @@ def _transcode(levels, dc, qmat, size, with_pix, repeat=1):
     geom = _geometry(size, n)
     if levels.device.type == "cpu" and dc.device.type == "cpu":
         if repeat > 1:
-            levels = levels[wrap_index(levels.shape[0], repeat, levels.device)]
+            levels = levels[wrap_index(levels.shape[0], repeat,
+                                       device=levels.device)]
         return transcode_blocks_plain(levels, dc, qmat, geom, with_pix)
     _build.require_cuda(levels, dc)
     return _launch(levels.contiguous(), dc.contiguous(), qmat, geom,
@@ -199,7 +200,7 @@ def has_pad(geom) -> bool:
     return w != 16 * mb_w or h != 16 * mb_h
 
 
-def wrap_index(n_base: int, repeat: int, device=None) -> torch.Tensor:
+def wrap_index(n_base: int, repeat: int, *, device) -> torch.Tensor:
     """The base block each output block of the repeat-times wrap reads:
     int64 [n_base * repeat] (transcode_zz_wrap's tiling of the [64, 8, nm]
     view along m)."""

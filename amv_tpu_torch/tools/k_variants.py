@@ -497,7 +497,7 @@ def main(argv=None) -> dict:
     b, t = tg.k_shape(args.shape)
     pcm = torch.from_numpy(fixtures.speech_streams(b, t * 80, 16)).to(dev)
     fr = pcm.float().reshape(b, t, 80).permute(1, 0, 2).contiguous()
-    st0 = G.init_state(b, dev)
+    st0 = G.init_state(b, device=dev)
     h0 = torch.zeros((b, 160), dtype=torch.float32, device=dev)
     got, ms = {}, {n: [] for n in names}
     for i in list(range(len(names))) + list(range(len(names)))[::-1]:

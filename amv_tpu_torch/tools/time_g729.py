@@ -443,7 +443,7 @@ def g_readings(G, fixtures, dev, args):
         frames = fixtures.g729_frames(rng, t, b, erasure=0.01,
                                       bad_parity=0.01, high_pitch=0.05)
         parms = G.unpack_frames(torch.from_numpy(frames).to(dev))
-        st0 = G.init_state(b, dev)
+        st0 = G.init_state(b, device=dev)
         l0 = K.LAUNCHES
         ms, (st, pcm) = tt.event_ms(
             lambda: G.decode_frames_scan(st0, parms), args.reps, dev)
@@ -469,7 +469,7 @@ def g_readings(G, fixtures, dev, args):
              "real_time_factor": n * 10.0 / ms,
              "bytes_bound_ms": 1e3 * n * BYTES_A_FRAME / 3.35e12}
         k = min(args.check_frames, t)
-        sp, want = G.init_state(b, dev), []
+        sp, want = G.init_state(b, device=dev), []
         for i in range(k):
             sp, w = G.decode_frame_batch(sp, parms[i])
             want.append(w)
@@ -499,7 +499,7 @@ def k_readings(E, G, fixtures, dev, args, libs=None):
     for b, t in map(k_shape, args.k_shapes.split(",")):
         pcm = torch.from_numpy(fixtures.speech_streams(b, t * 80, 16)).to(dev)
         fr = pcm.float().reshape(b, t, 80).permute(1, 0, 2).contiguous()
-        st0 = G.init_state(b, dev)
+        st0 = G.init_state(b, device=dev)
         h0 = torch.zeros((b, 160), dtype=torch.float32, device=dev)
         l0 = K.ENCODE_LAUNCHES
         ms, (_, _, parms) = tt.event_ms(

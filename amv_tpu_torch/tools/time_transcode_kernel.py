@@ -282,7 +282,8 @@ def main(reps: int = 30) -> None:
     q = encoder_qmat(2)
     deq = idct.dequantize(lv_t, dc_t).to(torch.int16)
     base = lv_t[:N_WRAP * NB]
-    dc_w = dc_t[:base.shape[0]][T.wrap_index(base.shape[0], WRAP, "cuda")]
+    dc_w = dc_t[:base.shape[0]][T.wrap_index(base.shape[0], WRAP,
+                                             device="cuda")]
     second = ref_adpcm.encode(fixtures.audiogen(1.0, 22050, seed=0),
                               round(22050 / 16), 22050)
     pay, pred, sidx, _ = amv_audio.chunk_arrays(second * (N // 16))

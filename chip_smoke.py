@@ -6,17 +6,18 @@ the AMV encode, the q60 quantizer, odd picture sizes, the served
 transcode on CUDA streams, the encode's ingest (AVI input, -s
 rescaling, -ar resampling, every WAVE format), the trellis quantizer
 (-trellis, kernel L), baseline MJPEG in and out, G.729A decoding
-(kernel G) with the ACT routes, and G.729A encoding (kernel K, and the
-host encoder behind `-f act`).
+(kernel G) with the ACT routes, G.729A encoding (kernel K, and the
+host encoder behind `-f act`), and the pixel outputs (kernel Y, `.bmp`)
+and amvlib's decoder and API (kernel W).
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; nothing is caught):
  1. the card: nvidia-smi name and power limit, torch.cuda required;
- 2. build the fifteen CUDA sources from amv_tpu_torch/csrc (nvcc, sm_90a,
+ 2. build the seventeen CUDA sources from amv_tpu_torch/csrc (nvcc, sm_90a,
     one nvcc per source, all started together), and log the registers,
     spills and shared memory ptxas gives kernels D, E, Q, V, T, A, X, P,
-    F, L, M, G and K, and kernel T's SASS instructions (cuobjdump, static
+    F, L, M, G, K, Y and W, and kernel T's SASS instructions (cuobjdump, static
     counts: one thread a block), logged in phase 4 with a static-count
     estimate of each T entry's issue time at its own blocks; G's source
     is also built with line information to a cubin beside the phases, for
@@ -172,7 +173,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     decode(encode(x))'s corr and segSNR; then `cli.main -i speech.wav -f
     act --max-frames 40` on a 22,050 Hz stereo WAV (the host encoder after
     the resampling on the card), timed, its file decoded by G against the
-    resampled mono input.
+    resampled mono input;
+17. (run after phase 4, on the corpus of phase 3: 4,800 frames) pixel
+    outputs and amvlib:
+    kernel Y against its plain version, bit for bit, in all 15 formats
+    (and the 16-bit ones undithered, rgb24 in limited range), YUYV/UYVY on
+    the card against the CPU, each format's first 4 frames against the
+    scalar oracle (verify/ref_yuv2rgb.py, in 4 worker processes); kernel
+    W's planes and RGB entries against their plain versions on every
+    frame, and its RGB entry at one frame; each with its median time
+    (CUDA events), device time (torch.profiler), its time in bursts of 20
+    launches, bound and ptxas lines;
+    cli.main -pix_fmt rgb24 out.rgb, -pix_fmt rgb565 out.raw and
+    f_%04d.bmp under --color bt601 and amvlib, each timed (D, U and Y
+    launched for the pixel dumps) and split by stage (read + demux, device
+    decode, Y or color, device->host, write); AmvOpen ->
+    AmvReadNextFrame / AmvVideoDecode over every frame on the card (D and
+    W once a frame), frames/s, the first 64 equal to the batch decode
+    decode_frames_amvlib_rgb.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -181,7 +199,9 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import multiprocessing
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -287,6 +307,14 @@ PEAK_FP32_INSN_S = PEAK_OPS_S / 2
 # one warp-wide 32-bit shared load a clock an SM (132 SMs at 1,980 MHz)
 PEAK_LDS_S = 132 * 32 * 1.98e9
 
+# phase 17, pixel outputs and amvlib, on the corpus of phase 3
+OPS_PIXEL = 30       # a packed pixel (yuv2rgb_packed.cu: 3 table indices,
+                     # clamps and reads, the offsets' adds, sum and pack)
+OPS_AMVLIB = 1300    # an amvlib block (amvlib_idct.cu: 64 dequant products,
+                     # 8 rows of ~63 and 8 columns of ~86 operations, the
+                     # +128, the DC scan and the store's index arithmetic)
+Y_ORACLE = 4         # frames of each format held to the scalar oracle
+
 # phase 12, ingest: a 5-minute capture of 320x240 I420 frames and 44,100 Hz
 # PCM through the reference's canonical `-s 160x120 -ar 22050`
 AVI_W, AVI_H, AVI_RATE = 320, 240, 44100
@@ -315,8 +343,9 @@ def log(msg: str) -> None:
 
 def import_port() -> SimpleNamespace:
     """The port's modules this script drives; nothing of JAX or amv_tpu."""
-    from amv_tpu_torch import cli, native, pipeline
+    from amv_tpu_torch import amvlib_api, cli, native, pipeline
     from amv_tpu_torch.codecs import amv_audio, amv_video, jpeg_tables
+    from amv_tpu_torch.codecs import amvlib_video
     from amv_tpu_torch.codecs import g729a, mjpeg, wav_audio
     from amv_tpu_torch.codecs import g729a_encoder_batch as g729_enc
     from amv_tpu_torch.bitstream import jpeg_parse
@@ -333,6 +362,7 @@ def import_port() -> SimpleNamespace:
     from amv_tpu_torch.kernels import entropy_records as R
     from amv_tpu_torch.kernels import record_pack as RP
     from amv_tpu_torch.kernels import transcode as T
+    from amv_tpu_torch.kernels import yuv2rgb_dither as Y
     from amv_tpu_torch.pipeline import decode, encode
     from amv_tpu_torch.pipeline import serving as S
     from amv_tpu_torch.pipeline import transcode as P
@@ -341,7 +371,7 @@ def import_port() -> SimpleNamespace:
     from amv_tpu_torch.tools import time_transcode_kernel as tools_t
     from amv_tpu_torch.verify import fixtures, ref_adpcm, ref_g729
     from amv_tpu_torch.verify import ref_trellis
-    from amv_tpu_torch.verify import ref_wav_audio
+    from amv_tpu_torch.verify import ref_wav_audio, ref_yuv2rgb
     return SimpleNamespace(**locals())
 
 
@@ -488,23 +518,27 @@ def timed_cli(m, argv, runs=3):
 
 def ptxas_start(m):
     """nvcc -Xptxas -v of kernels D's and R's, E's, Q's, V's, T's, A's, X's,
-    P's, F's, L's, M's, G's and K's sources, started beside the build (the
-    object goes nowhere)."""
+    P's, F's, L's, M's, G's, K's, Y's and W's sources, started beside the
+    build (the object goes nowhere)."""
     return m.tools_t.ptxas_start(m._build, (
         "entropy_decode.cu", "entropy_encode.cu", "adpcm_encode.cu",
         "encode_fused.cu", "transcode.cu", "adpcm_decode.cu",
         "record_expand.cu", "record_pack.cu", "fdct.cu", "adpcm_trellis.cu",
-        "adpcm_ms.cu", "g729_decode.cu", "g729_encode.cu"))
+        "adpcm_ms.cu", "g729_decode.cu", "g729_encode.cu",
+        "yuv2rgb_packed.cu", "amvlib_idct.cu"))
 
 
-def ptxas_log(m, procs) -> None:
+def ptxas_log(m, procs) -> dict:
     """Each kernel's registers, spills and shared memory, as ptxas says
-    (stack and spill lines only where they are not all 0)."""
-    for name, lines in m.tools_t.ptxas_lines(procs).items():
+    (stack and spill lines only where they are not all 0); returns
+    {source: lines}."""
+    lines_of = m.tools_t.ptxas_lines(procs)
+    for name, lines in lines_of.items():
         for line in lines:
             if not line.split(": ", 1)[1].startswith(
                     "0 bytes stack frame, 0 bytes spill stores, 0 bytes"):
                 log(f"ptxas {name} {line}")
+    return lines_of
 
 
 def reset_launches(m):
@@ -513,7 +547,7 @@ def reset_launches(m):
     m.adpcm.DECODE_LAUNCHES = m.adpcm.ENCODE_LAUNCHES = 0
     m.R.RECORD_LAUNCHES = m.R.EXPAND_LAUNCHES = m.RP.LAUNCHES = 0
     m.L.LAUNCHES = m.adpcm.MS_LAUNCHES = m.G.LAUNCHES = 0
-    m.G.ENCODE_LAUNCHES = 0
+    m.G.ENCODE_LAUNCHES = m.Y.LAUNCHES = m.amvlib_video.LAUNCHES = 0
 
 
 def launches(m):
@@ -525,7 +559,8 @@ def launches(m):
             "R": m.R.RECORD_LAUNCHES, "X": m.R.EXPAND_LAUNCHES,
             "P": m.RP.LAUNCHES, "L": m.L.LAUNCHES,
             "M": m.adpcm.MS_LAUNCHES, "G": m.G.LAUNCHES,
-            "K": m.G.ENCODE_LAUNCHES}
+            "K": m.G.ENCODE_LAUNCHES, "Y": m.Y.LAUNCHES,
+            "W": m.amvlib_video.LAUNCHES}
 
 
 def route_bytes(m, pays, w, h, enc):
@@ -1394,7 +1429,7 @@ def g729_phase(m, dev, paths, card, kern, extra, tmp, mhz, g_sass,
     assert pcm.shape == (n_streams, n_frames * 80) and \
         pcm.dtype == torch.int16
     parms = m.g729a.unpack_frames(fr)
-    st0 = m.g729a.init_state(n_streams, dev)
+    st0 = m.g729a.init_state(n_streams, device=dev)
     g_ms, (st_end, pcm_g) = cuda_ms(
         lambda: m.g729a.decode_frames_scan(st0, parms), 3)
     assert torch.equal(pcm_g.permute(1, 0, 2).reshape(n_streams, -1), pcm)
@@ -1505,7 +1540,7 @@ def g729_phase(m, dev, paths, card, kern, extra, tmp, mhz, g_sass,
     p1 = staged(split, "upload + unpack", lambda: m.g729a.unpack_frames(
         m.pipeline.upload(fr1[:, None], dev)))
     _, pcm1 = staged(split, "device G", lambda: m.g729a.decode_frames_scan(
-        m.g729a.init_state(1, dev), p1))
+        m.g729a.init_state(1, device=dev), p1))
     staged(split, "device->host + write", lambda: m.wav.write_pcm(
         os.path.join(tmp, "rec2.wav"), pcm1.reshape(-1).cpu().numpy(),
         rate1))
@@ -1577,7 +1612,7 @@ def g729_encode_phase(m, dev, paths, card, kern, extra, tmp, k_libs,
         packed.dtype == torch.uint8
     fr = x.float().reshape(n_streams, n_frames, 80).permute(1, 0, 2) \
         .contiguous()
-    st0 = m.g729a.init_state(n_streams, dev)
+    st0 = m.g729a.init_state(n_streams, device=dev)
     h0 = torch.zeros((n_streams, 160), dtype=torch.float32, device=dev)
     k_ms, (st_k, h_k, parms_k) = cuda_ms(
         lambda: m.g729_enc.encode_frames_scan(st0, h0, fr), 3)
@@ -1609,7 +1644,7 @@ def g729_encode_phase(m, dev, paths, card, kern, extra, tmp, k_libs,
                     b, t * 80, 16)).to(dev)
                 fr_t = x_t.float().reshape(b, t, 80).permute(1, 0, 2) \
                     .contiguous()
-                st_t = m.g729a.init_state(b, dev)
+                st_t = m.g729a.init_state(b, device=dev)
                 h_t = torch.zeros((b, 160), dtype=torch.float32, device=dev)
             turns[f"{b}x{t}"] = m.tools_g.k_turns(
                 m.g729_enc, libs["baseline"], st_t, h_t, fr_t, 3)
@@ -1669,7 +1704,8 @@ def g729_encode_phase(m, dev, paths, card, kern, extra, tmp, k_libs,
                         PEAK_FP32_INSN_S)
     # the frames through G: its state is K's shadow state
     st_g, pcm_g = m.g729a.decode_frames_scan(
-        m.g729a.init_state(n_streams, dev), m.g729a.unpack_frames(packed))
+        m.g729a.init_state(n_streams, device=dev),
+        m.g729a.unpack_frames(packed))
     for k in m.g729_enc.TRACKED:
         assert torch.equal(st_g[k], st_k[k]), f"G's {k} != K's"
     dec = pcm_g.permute(1, 0, 2).reshape(n_streams, -1).cpu().numpy()
@@ -1722,6 +1758,269 @@ def g729_encode_phase(m, dev, paths, card, kern, extra, tmp, k_libs,
     log(f"phase 16 took {time.perf_counter() - t16:.1f} s")
 
 
+def device_ms(fn, names, reps=5, tries=3):
+    """Device milliseconds a call of fn spends in kernels whose name holds
+    one of `names`, from torch.profiler's kernel times over reps calls;
+    None (logged, with the events it saw) when the profiler records no
+    such kernel in `tries` sessions: on the H100 a session now and then
+    records the runtime calls but not the kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, seen = 0.0, []
+        for ev in prof.key_averages():
+            t = getattr(ev, "device_time_total", None)
+            t = getattr(ev, "cuda_time_total", 0) if t is None else t
+            seen.append(ev.key[:60])
+            if any(n in ev.key for n in names):
+                us += t
+        if us > 0:
+            return us / 1e3 / reps
+    log(f"torch.profiler saw no device time for {names} in {tries} "
+        f"sessions (not measured); its events: {seen}")
+    return None
+
+
+def burst_ms(fn, reps=20):
+    """Milliseconds a call of fn over reps calls issued back to back
+    between two CUDA events (the launches queue ahead of the card, so the
+    host work around each is hidden): the median of 3 bursts."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def pixel_phase(m, dev, paths, card, check, extra, kern, data, pays, tmp,
+                ptx, n_oracle=Y_ORACLE, oracle_workers=4) -> None:
+    """Phase 17: pixel outputs and amvlib on the corpus (data, its
+    payloads pays).  Kernel Y against its plain version, bit for bit, in
+    every format at the corpus's size (the 16-bit formats also undithered),
+    YUYV/UYVY on the card against the CPU, and every format's first
+    n_oracle frames against the scalar oracle (verify/ref_yuv2rgb.py, in a
+    pool of worker processes); kernel W's two entries against their plain
+    versions on every frame; for each the median CUDA-event ms, the device
+    ms (torch.profiler), the bound and ptxas's lines.  Then cli.main to
+    .rgb (rgb24), .raw (rgb565) and %04d.bmp under both --color values,
+    each timed and split by stage (read + demux, decode: D, U; convert: Y
+    or color; device->host; write), and AmvOpen -> AmvReadNextFrame /
+    AmvVideoDecode over every frame on the card, frames/s, each frame equal
+    to decode_frames_amvlib_rgb's batch."""
+    import torch
+    t17 = time.perf_counter()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    n = len(pays)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        oracle_workers, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        y, cb, cr = m.amv_video.decode_frames_device(pays, W, H, device=dev)
+        host = [p[:n_oracle].cpu().numpy() for p in (y, cb, cr)]
+        oracle = {fmt: [pool.submit(m.ref_yuv2rgb.ref_yuv420_to_packed,
+                                    host[0][i], host[1][i], host[2][i], fmt)
+                        for i in range(n_oracle)]
+                  for fmt in m.Y._FORMATS}
+        px = n * H * W
+
+        def y_bytes(got):
+            return px * 3 // 2 + got[0].numel() * got[0].element_size()
+
+        outs = {}
+        for fmt in m.Y._FORMATS:
+            key = "Y" if fmt == "rgb24" else f"Y {fmt}"
+            outs[fmt] = check(
+                key, lambda: (m.Y.yuv420_to_packed(y, cb, cr, fmt=fmt),),
+                lambda: (m.Y.yuv420_to_packed_plain(y, cb, cr, fmt=fmt),),
+                f"{n} frames {W}x{H}, {fmt}", y_bytes, px * OPS_PIXEL)[0]
+            kern[key]["device_ms"] = device_ms(
+                lambda: m.Y.yuv420_to_packed(y, cb, cr, fmt=fmt),
+                ("yuv2rgb_packed",))
+            kern[key]["burst_ms"] = burst_ms(
+                lambda: m.Y.yuv420_to_packed(y, cb, cr, fmt=fmt))
+        pairs = []
+        for fmt in ("rgb565", "bgr565", "rgb555", "bgr555"):
+            pairs.append((m.Y.yuv420_to_packed(y, cb, cr, fmt=fmt,
+                                               dither=False),
+                          m.Y.yuv420_to_packed_plain(y, cb, cr, fmt=fmt,
+                                                     dither=False)))
+        pairs.append((m.Y.yuv420_to_packed(y, cb, cr, "rgb24", False),
+                      m.Y.yuv420_to_packed_plain(y, cb, cr, "rgb24", False)))
+        extra("Y undithered", pairs, f"{n} frames, the 16-bit formats "
+              "undithered and rgb24 in limited range")
+        cpu = [p.cpu() for p in (y, cb, cr)]
+        pk = [(m.Y.yuv420_to_yuyv422(y, cb, cr).cpu(),
+               m.Y.yuv420_to_yuyv422(*cpu)),
+              (m.Y.yuv420_to_uyvy422(y, cb, cr).cpu(),
+               m.Y.yuv420_to_uyvy422(*cpu))]
+        extra("Y yuv422", pk, f"{n} frames of YUYV and UYVY (torch.stack on "
+              "the card against the CPU)")
+        del pk, pairs, cpu
+        n_orc = 0
+        for fmt, futs in oracle.items():
+            got = outs[fmt][:n_oracle].cpu().numpy()
+            depth = m.Y._FORMATS[fmt][0]
+            if depth == 32:
+                got = got.view(np.uint32)
+            elif depth in (15, 16):
+                got = got.view(np.uint16)
+            for i, fut in enumerate(futs):
+                want = fut.result()
+                if not np.array_equal(got[i], want):
+                    raise AssertionError(f"Y {fmt} frame {i} differs from "
+                                         "the scalar oracle")
+                n_orc += 1
+        log(f"Y: the first {n_oracle} frames of every format equal the "
+            f"scalar oracle ({n_orc} frame-formats)")
+        kern["Y"]["formats_ms"] = {f: kern["Y" if f == "rgb24" else
+                                        f"Y {f}"]["ms"] for f in outs}
+        kern["Y"]["ptxas"] = ptx.get("yuv2rgb_packed.cu", [])
+        del outs, y, cb, cr
+
+        # kernel W: both entries against their plain versions
+        n_mcu = ((W + 15) // 16) * ((H + 15) // 16)
+        nb = n_mcu * 6
+        rows, lens = m.native.unescape_frames(pays)
+        lv, ok = m.D.decode_scans(torch.from_numpy(rows).to(dev),
+                                  torch.from_numpy(lens).to(dev), nb)
+        assert bool(ok.all())
+        lv = lv.view(n, n_mcu, 6, 64)
+        in_b = n * nb * 128
+        ops_w = n * nb * OPS_AMVLIB
+        check("W planes", lambda: m.amvlib_video.decode_transform_amvlib(
+            lv, W // 16, (H + 15) // 16, W, H),
+            lambda: m.amvlib_video.decode_transform_amvlib_plain(
+                lv, W // 16, (H + 15) // 16, W, H),
+            f"{n} frames, the int32 planes", in_b + n * H * W * 6, ops_w)
+        rgb_w = check("W", lambda: (m.amvlib_video.decode_rgb_amvlib(
+            lv, W, H),), lambda: (m.amvlib_video.rgb_amvlib_plain(
+                *m.amvlib_video.decode_transform_amvlib_plain(
+                    lv, W // 16, (H + 15) // 16, W, H)),),
+            f"{n} frames, the RGB entry", in_b + n * H * W * 3, ops_w)[0]
+        for key, fn in (
+                ("W", lambda: m.amvlib_video.decode_rgb_amvlib(lv, W, H)),
+                ("W planes", lambda: m.amvlib_video.decode_transform_amvlib(
+                    lv, W // 16, (H + 15) // 16, W, H))):
+            kern[key]["device_ms"] = device_ms(fn, ("amvlib_idct",))
+            kern[key]["burst_ms"] = burst_ms(fn)
+        log(f"Y rgb24 device {kern['Y']['device_ms']} ms, bursts "
+            f"{kern['Y']['burst_ms']:.4f} ms; W RGB device "
+            f"{kern['W']['device_ms']} ms, bursts {kern['W']['burst_ms']:.4f}"
+            f" ms; W planes device {kern['W planes']['device_ms']} ms, "
+            f"bursts {kern['W planes']['burst_ms']:.4f} ms (torch.profiler; "
+            "20 launches back to back between CUDA events)")
+        kern["W"]["ptxas"] = ptx.get("amvlib_idct.cu", [])
+        one = lv[:1].clone()
+        kern["W"]["one_frame_ms"] = cuda_ms(
+            lambda: m.amvlib_video.decode_rgb_amvlib(one, W, H), 20)[0]
+        batch = m.amvlib_video.decode_frames_amvlib_rgb(pays, W, H,
+                                                        device=dev)
+        assert torch.equal(batch, rgb_w)
+        del lv, rows, lens, one
+
+        # the CLI routes, timed, then split by stage
+        src = os.path.join(tmp, "corpus.amv")
+        with open(src, "wb") as f:
+            f.write(data)
+        routes = (("pixel rgb24", ["-pix_fmt", "rgb24", "out.rgb"]),
+                  ("pixel rgb565", ["-pix_fmt", "rgb565", "out.raw"]),
+                  ("bmp bt601", ["--color", "bt601", "bt601/f_%04d.bmp"]),
+                  ("bmp amvlib", ["--color", "amvlib", "amvlib/f_%04d.bmp"]))
+        for key, argv in routes:
+            argv = argv[:-1] + [os.path.join(tmp, argv[-1])]
+            reset_launches(m)
+            t0 = time.perf_counter()
+            assert m.cli.main(["-i", src, *argv, "--device", dev.type]) == 0
+            wall = time.perf_counter() - t0
+            paths[key] = launches(m)
+            assert paths[key]["D"] > 0 and paths[key]["U"] > 0
+            assert (paths[key]["Y"] > 0) == key.startswith("pixel"), paths
+            split = {}
+            s = staged(split, "read + demux", lambda: m.riff.read(src))
+            planes = staged(split, "device decode (D, U)", lambda: (
+                m.amv_video.decode_frames_device(s.video_chunks, W, H,
+                                                 device=dev)))
+            if key.startswith("pixel"):
+                fmt = argv[1]
+                conv = staged(split, "device Y", lambda: (
+                    m.Y.yuv420_to_packed(*planes, fmt=fmt)))
+            else:
+                conv = staged(split, "device color", lambda: (
+                    m.color.yuv420_to_rgb(*planes, mode=argv[1])))
+            hst = staged(split, "device->host", lambda: conv.cpu().numpy())
+            if key.startswith("pixel"):
+                with open(argv[-1], "rb") as f:
+                    assert f.read() == hst.tobytes(), key
+                staged(split, "write", lambda: open(
+                    os.path.join(tmp, "again"), "wb").write(hst.tobytes()))
+            else:
+                d = os.path.dirname(argv[-1])
+                with open(os.path.join(d, "f_0007.bmp"), "rb") as f:
+                    first = f.read()
+                staged(split, "write", lambda: [m.cli._write_bmp(
+                    os.path.join(d, f"g_{i:04d}.bmp"), hst[i])
+                    for i in range(n)])
+                with open(os.path.join(d, "g_0007.bmp"), "rb") as f:
+                    assert f.read() == first, key
+                assert len(os.listdir(d)) == 2 * n
+                shutil.rmtree(d)
+            kern.setdefault("pixel cli", {})[key] = {
+                "wall_s": wall, "frames_s": n / wall, "split_s": split}
+            log(f"{card}: cli.main -i corpus.amv {' '.join(argv[:-1])} "
+                f"{os.path.basename(argv[-1])}: {n} frames in {wall:.3f} s ="
+                f" {n / wall:.1f} frames/s; launches {paths[key]}")
+            log_split(key, split)
+            del planes, conv, hst
+
+        # the amvlib API, a frame a call
+        amv = m.amvlib_api.AmvOpen(src, device=dev.type)
+        assert amv is not None and amv.device.type == dev.type
+        reset_launches(m)
+        t0 = time.perf_counter()
+        k = 0
+        while True:
+            assert m.amvlib_api.AmvReadNextFrame(amv) == 0
+            if amv.framebuf.framenum < 0:
+                break
+            assert m.amvlib_api.AmvVideoDecode(amv) == 0
+            if k < 64 and not np.array_equal(
+                    amv.videobuf, batch[k].flip(0).flip(-1).cpu().numpy()):
+                raise AssertionError(f"AmvVideoDecode frame {k} differs "
+                                     "from the batch decode")
+            k += 1
+        sync()
+        wall = time.perf_counter() - t0
+        paths["amvlib api"] = launches(m)
+        assert k == n and paths["amvlib api"]["W"] == n and \
+            paths["amvlib api"]["D"] == n, paths["amvlib api"]
+        m.amvlib_api.AmvClose(amv)
+        kern["W"]["api"] = {"frames": n, "s": wall, "frames_s": n / wall}
+        log(f"{card}: AmvOpen -> AmvReadNextFrame/AmvVideoDecode over {n} "
+            f"frames on {dev.type}: {wall:.3f} s = {n / wall:.1f} frames/s "
+            f"(a frame a call: D and W launched once each); the first "
+            f"{min(64, n)} equal the batch decode; launches "
+            f"{paths['amvlib api']}")
+        del batch, rgb_w
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    log(f"phase 17 took {time.perf_counter() - t17:.1f} s")
+
+
 def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1747,7 +2046,7 @@ def main() -> int:
     m.native.library()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
         f"{' '.join(m._build.NVCC_FLAGS)}; host C library with gcc)")
-    ptxas_log(m, ptxas)
+    ptx = ptxas_log(m, ptxas)
     # G's listing with line information, for its floor in phase 15; nvcc
     # runs while the phases do
     pool = concurrent.futures.ThreadPoolExecutor(2)
@@ -1889,7 +2188,7 @@ def main() -> int:
     # the plain version runs in slices of whole MCUs
     base = lvf[:N_CHECK * nb]
     n_wrap = base.shape[0] * WRAP
-    widx = m.T.wrap_index(base.shape[0], WRAP, dev)
+    widx = m.T.wrap_index(base.shape[0], WRAP, device=dev)
     dc_wrap = dc_a[:base.shape[0]][widx]
     step = 6 << 18
 
@@ -2089,14 +2388,29 @@ def main() -> int:
     extra("D extra", [(lv_k, lv_p), (ok_k, ok_p)],
           f"{N_CHECK} frames + 8 malformed (ok {ok_k[N_CHECK:].tolist()})")
     assert ok_k[:N_CHECK].all() and not ok_k[N_CHECK + 1], ok_k[N_CHECK:]
-    for name, r_c, l_c, b_c in d_cases(m, rows[:N_PAD], lens[:N_PAD], nb,
-                                        rng):
+    cases = d_cases(m, rows[:N_PAD], lens[:N_PAD], nb, rng)
+    # the plain decoder loops to the longest frame whatever the batch, so
+    # the cases at the corpus's stride share one plain call (each its own
+    # kernel launch)
+    flat = [c for c in cases if c[1].shape[1] == rows.shape[1]]
+    lv_f, ok_f = m.D.decode_scans_plain(
+        torch.from_numpy(np.concatenate([c[1] for c in flat])).to(dev),
+        torch.from_numpy(np.concatenate([c[2] for c in flat])).to(dev), nb,
+        budget=torch.cat([m.D.token_budget(torch.from_numpy(c[2]), nb,
+                                           rows.shape[1]) if c[3] is None
+                          else c[3] for c in flat]).to(dev))
+    plain_of = {c[0]: (lv_f[i * N_PAD:(i + 1) * N_PAD],
+                       ok_f[i * N_PAD:(i + 1) * N_PAD])
+                for i, c in enumerate(flat)}
+    del lv_f, ok_f
+    for name, r_c, l_c, b_c in cases:
         rt_c = torch.from_numpy(r_c).to(dev)
         lt_c = torch.from_numpy(l_c).to(dev)
         kw = {} if b_c is None else {"budget": b_c.to(dev)}
         *got, rounds_c = m.D.decode_scans(rt_c, lt_c, nb, rounds=True, **kw)
-        extra(f"D {name}", zip(got, m.D.decode_scans_plain(rt_c, lt_c, nb,
-                                                           **kw)),
+        want = plain_of.get(name) or m.D.decode_scans_plain(rt_c, lt_c, nb,
+                                                            **kw)
+        extra(f"D {name}", zip(got, want),
               f"{N_PAD} corpus scans, {name} (ok {int(got[1].sum())} of "
               f"{N_PAD}; sync rounds max {int(rounds_c.max())})")
         if name.startswith("fail") or name == "budget":
@@ -2258,6 +2572,10 @@ def main() -> int:
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     paths = {}
+    # ---- 17. pixel outputs and amvlib (on the corpus, after 4) ---------
+    with tempfile.TemporaryDirectory() as tmp:
+        pixel_phase(m, dev, paths, smi, check, extra, kern, data, pays,
+                    tmp, ptx)
     with tempfile.TemporaryDirectory() as tmp:
         # ---- 5. the transcode through the CLI -------------------------
         want = c_transcode(m, pays, W, H)
@@ -2732,7 +3050,13 @@ def main() -> int:
              "no TPU kernel)", "G"),
             ("K", "g729_encode", "g729 encode", "g729_encode.cu",
              "amv_tpu/codecs/g729a_encoder_tpu.py:437 encode_frame_batch (XLA "
-             "lax.scan; no TPU kernel)", "K")):
+             "lax.scan; no TPU kernel)", "K"),
+            ("Y", "yuv2rgb_packed", "pixel rgb24", "yuv2rgb_packed.cu",
+             "amv_tpu/kernels/yuv2rgb_dither.py:283 yuv420_to_packed (XLA "
+             "ops; no TPU kernel)", "Y"),
+            ("W", "amvlib_idct", "amvlib api", "amvlib_idct.cu",
+             "amv_tpu/codecs/amvlib_video.py:116 decode_transform_amvlib "
+             "(XLA ops; no TPU kernel)", "W")):
         err = max(v for k, v in errs.items() if k.split()[0] == key)
         kernels.append({
             "name": name, "route": "cuda",
@@ -2762,6 +3086,11 @@ def main() -> int:
                else {k: v for k, v in kern[key].items() if k not in (
                    "ms", "plain_ms", "bound_ms", "bound_by")}
                if key in ("G", "K")
+               else {k: v for k, v in kern[key].items() if k not in (
+                   "ms", "plain_ms", "bound_ms", "bound_by")}
+               | ({"planes": kern["W planes"]} if key == "W" else
+                  {"cli": kern["pixel cli"]})
+               if key in ("Y", "W")
                else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,7 @@ file imports only the port (its own copies of the host layer and the
 oracles), so it runs where `amv_tpu` cannot be built.
 """
 
+import os
 import struct
 
 import numpy as np
@@ -380,7 +381,7 @@ def test_transcode_kernel_other_entries_match_plain(dev, qscale):
                           .astype(np.int32)).to(dev)
     got_w = T.transcode_blocks_pix(base, dc, q, repeat=repeat)
     want_w = T.transcode_blocks_plain(
-        base[T.wrap_index(n_base, repeat, dev)], dc, q)
+        base[T.wrap_index(n_base, repeat, device=dev)], dc, q)
     torch.cuda.synchronize()
     for g, w in zip(got + got_w, want + want_w):
         assert torch.equal(g, w)
@@ -735,7 +736,7 @@ def test_transcode_kernel_all_entries_at_sizes(dev, w, h):
     dc_w = dc[:2 * nb].repeat(repeat)
     got_w = T.transcode_blocks_pix(base, dc_w, q, repeat=repeat)
     want_w = T.transcode_blocks_plain(
-        base[T.wrap_index(base.shape[0], repeat, dev)], dc_w, q)
+        base[T.wrap_index(base.shape[0], repeat, device=dev)], dc_w, q)
     torch.cuda.synchronize()
     for g, x in zip(got + (got_lv,) + got_deq + got_w,
                     want + want[:1] + want_deq + want_w):
@@ -1301,15 +1302,16 @@ def test_g729_kernel_matches_plain(dev):
     from amv_tpu_torch.kernels import g729 as K
     frames = _g729_frames(24, 67, 0)
     parms = G.unpack_frames(frames)
-    want_st, want = G.decode_frames_scan(G.init_state(67), parms)
+    want_st, want = G.decode_frames_scan(G.init_state(67, device="cpu"), parms)
     g0 = K.LAUNCHES
-    st, pcm = G.decode_frames_scan(G.init_state(67, dev), parms.to(dev))
+    st, pcm = G.decode_frames_scan(G.init_state(67, device=dev), parms.to(dev))
     torch.cuda.synchronize()
     assert K.LAUNCHES == g0 + 1
     assert torch.equal(pcm.cpu(), want)
     for k, _ in G.STATE_FIELDS:
         assert torch.equal(st[k].cpu(), want_st[k]), k
-    sa, pa = G.decode_frames_scan(G.init_state(67, dev), parms[:9].to(dev))
+    sa, pa = G.decode_frames_scan(G.init_state(67, device=dev),
+                                  parms[:9].to(dev))
     sb, pb = G.decode_frames_scan(sa, parms[9:].to(dev))
     assert torch.equal(torch.cat([pa, pb]).cpu(), want)
     for k, _ in G.STATE_FIELDS:
@@ -1363,8 +1365,8 @@ def test_g729_kernel_past_one_wave_matches_plain(dev):
     from amv_tpu_torch.codecs import g729a as G
     b = 4 * torch.cuda.get_device_properties(dev).multi_processor_count + 7
     parms = G.unpack_frames(_g729_frames(5, b, 7))
-    want_st, want = G.decode_frames_scan(G.init_state(b), parms)
-    st, pcm = G.decode_frames_scan(G.init_state(b, dev), parms.to(dev))
+    want_st, want = G.decode_frames_scan(G.init_state(b, device="cpu"), parms)
+    st, pcm = G.decode_frames_scan(G.init_state(b, device=dev), parms.to(dev))
     assert torch.equal(pcm.cpu(), want)
     for k, _ in G.STATE_FIELDS:
         assert torch.equal(st[k].cpu(), want_st[k]), k
@@ -1378,16 +1380,17 @@ def test_g729_kernel_one_stream_6000_frames(dev):
     from amv_tpu_torch.codecs import g729a as G
     frames = _g729_frames(6000, 3, 5)[:, 1:2].copy()
     parms = G.unpack_frames(torch.from_numpy(frames).to(dev))
-    st, pcm = G.decode_frames_scan(G.init_state(1, dev), parms)
-    sw, parts = G.init_state(1, dev), []
+    st, pcm = G.decode_frames_scan(G.init_state(1, device=dev), parms)
+    sw, parts = G.init_state(1, device=dev), []
     for lo, hi in ((0, 7), (7, 3001), (3001, 6000)):
         sw, p = G.decode_frames_scan(sw, parms[lo:hi])
         parts.append(p)
     assert torch.equal(torch.cat(parts), pcm)
     for k, _ in G.STATE_FIELDS:
         assert torch.equal(sw[k], st[k]), k
-    want_st, want = G.decode_frames_scan(G.init_state(1), parms[:24].cpu())
-    s24, p24 = G.decode_frames_scan(G.init_state(1, dev), parms[:24])
+    want_st, want = G.decode_frames_scan(G.init_state(1, device="cpu"),
+                                         parms[:24].cpu())
+    s24, p24 = G.decode_frames_scan(G.init_state(1, device=dev), parms[:24])
     assert torch.equal(p24.cpu(), want) and torch.equal(pcm[:24].cpu(), want)
     for k, _ in G.STATE_FIELDS:
         assert torch.equal(s24[k].cpu(), want_st[k]), k
@@ -1406,7 +1409,7 @@ def test_g729_encode_kernel_matches_plain(dev):
     sig = fixtures.speech_streams(b, 2 * t * 80, 6).astype(np.float32)
     frames = torch.from_numpy(np.ascontiguousarray(
         sig.reshape(b, 2 * t, 80).transpose(1, 0, 2))).to(dev)
-    st0, h0 = G.init_state(b, dev), torch.zeros((b, 160), device=dev)
+    st0, h0 = G.init_state(b, device=dev), torch.zeros((b, 160), device=dev)
     k0 = K.ENCODE_LAUNCHES
     st, h, parms = E.encode_frames_scan(st0, h0, frames[:t])
     torch.cuda.synchronize()
@@ -1424,7 +1427,7 @@ def test_g729_encode_kernel_matches_plain(dev):
         sp, hp, p = E.encode_frame_batch(sp, hp, frames[t + i])
         assert torch.equal(parms2[i], p), i
     packed = E.pack_frames(torch.cat([parms, parms2]))
-    dst, _ = G.decode_frames_scan(G.init_state(b, dev),
+    dst, _ = G.decode_frames_scan(G.init_state(b, device=dev),
                                   G.unpack_frames(packed))
     for k in E.TRACKED:
         assert torch.equal(dst[k], st2[k]), k
@@ -1448,7 +1451,7 @@ def test_g729_encode_kernel_builds_match_plain(dev, streams):
     sig = fixtures.speech_streams(b, t * 80, 9).astype(np.float32)
     frames = torch.from_numpy(np.ascontiguousarray(
         sig.reshape(b, t, 80).transpose(1, 0, 2))).to(dev)
-    st0, h0 = G.init_state(b, dev), torch.zeros((b, 160), device=dev)
+    st0, h0 = G.init_state(b, device=dev), torch.zeros((b, 160), device=dev)
     st, h, parms = Enc.encode_frames_scan(st0, h0, frames)
     sp, hp, want = st0, h0, []
     for i in range(t):
@@ -1464,3 +1467,119 @@ def test_g729_encode_kernel_builds_match_plain(dev, streams):
     assert torch.equal(hb.view(torch.int32), h.view(torch.int32))
     for k, _ in G.STATE_FIELDS:
         assert torch.equal(sb[k], st[k]), k
+
+
+@pytest.mark.parametrize("h,w", [(120, 160), (98, 174), (32, 40)])
+def test_yuv2rgb_kernel_matches_plain(dev, h, w):
+    """Kernel Y in every format (and the 16-bit formats undithered, the
+    limited range) against its plain version; 174 wide leaves a short last
+    group of 8 pixels and odd row strides."""
+    from amv_tpu_torch.kernels import yuv2rgb_dither as Y
+    rng = np.random.default_rng(h + w)
+    planes = [torch.from_numpy(rng.integers(0, 256, (5, hh, ww), np.uint8))
+              for hh, ww in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+    planes[0][0] = 255
+    planes[1][1] = 0
+    on = [p.to(dev) for p in planes]
+    l0 = Y.LAUNCHES
+    n = 0
+    for fmt in Y._FORMATS:
+        if fmt == "monoblack" and w % 8:
+            continue
+        for kw in ({}, {"dither": False}, {"full_range": False}):
+            got = Y.yuv420_to_packed(*on, fmt=fmt, **kw)
+            want = Y.yuv420_to_packed_plain(*planes, fmt=fmt, **kw)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype, fmt
+            assert torch.equal(got.cpu(), want), (fmt, kw)
+            n += 1
+    assert Y.LAUNCHES - l0 == n
+
+
+@pytest.mark.parametrize("w,h,f", [(160, 120, 40), (25, 33, 7),
+                                   (48, 32, 300)])
+def test_amvlib_kernel_matches_plain(dev, w, h, f):
+    """Kernel W, both entries, on random levels with some large DCs (the
+    int32 wrap of the row pass)."""
+    from amv_tpu_torch.codecs import amvlib_video as AV
+    rng = np.random.default_rng(w * h)
+    mb_w, mb_h = (w + 15) // 16, (h + 15) // 16
+    lv = np.zeros((f, mb_w * mb_h, 6, 64), np.int16)
+    mask = rng.random(lv.shape) < 0.2
+    lv[mask] = rng.integers(-80, 81, mask.sum())
+    lv[..., 0] = rng.integers(-300, 301, lv.shape[:3])
+    lv[0, :, :, 0] = 32000
+    lv[0, :, :, 1:4] = rng.integers(-32768, 32768, lv[0, :, :, 1:4].shape)
+    lvt = torch.from_numpy(lv)
+    want = AV.decode_transform_amvlib(lvt, mb_w, mb_h, w, h)
+    got = AV.decode_transform_amvlib(lvt.to(dev), mb_w, mb_h, w, h)
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert torch.equal(g.cpu(), x)
+    if w % 2 == 0 and h % 2 == 0:
+        rgb = AV.decode_rgb_amvlib(lvt.to(dev), w, h)
+        assert torch.equal(rgb.cpu(), AV.decode_rgb_amvlib(lvt, w, h))
+
+
+def _pixel_clip(tmp_path, n=20, h=120, w=160):
+    rng = np.random.default_rng(9)
+    y, cb, cr = fixtures.rotozoom(n, h, w)
+    y = np.clip(y.astype(np.int16) + rng.integers(-6, 7, y.shape), 0,
+                255).astype(np.uint8)
+    src = tmp_path / "in.amv"
+    src.write_bytes(PE.encode_to_bytes(y, cb, cr,
+                                       fixtures.audiogen(n / 16, seed=9),
+                                       device="cpu"))
+    return str(src)
+
+
+def test_cli_pixel_routes_cuda_match_cpu(dev, tmp_path):
+    """Every -pix_fmt to .raw and .bmp under both --color values through
+    cli.main on the card: D, U and Y (or color) launched, bytes equal to the
+    CPU route's."""
+    from amv_tpu_torch import cli
+    from amv_tpu_torch.kernels import yuv2rgb_dither as Y
+    src = _pixel_clip(tmp_path)
+    for fmt in cli._PIX_FMTS:
+        outs = []
+        for d in ("cuda", "cpu"):
+            out = tmp_path / f"{fmt}_{d}.raw"
+            y0, u0 = Y.LAUNCHES, U.LAUNCHES
+            assert cli.main(["-i", src, "-pix_fmt", fmt, str(out),
+                             "--device", d]) == 0
+            if d == "cuda":
+                assert U.LAUNCHES > u0
+                assert (Y.LAUNCHES > y0) == (fmt not in ("yuyv422",
+                                                         "uyvy422"))
+            outs.append(out.read_bytes())
+        assert outs[0] == outs[1], fmt
+    for color in ("bt601", "amvlib"):
+        for d in ("cuda", "cpu"):
+            assert cli.main(["-i", src, "--color", color,
+                             str(tmp_path / d / "f_%02d.bmp"), "--device",
+                             d]) == 0
+        for name in sorted(os.listdir(tmp_path / "cpu")):
+            assert (tmp_path / "cuda" / name).read_bytes() == \
+                (tmp_path / "cpu" / name).read_bytes()
+
+
+def test_amvlib_api_cuda_matches_cpu(dev, tmp_path):
+    """AmvOpen on the card (the default): AmvVideoDecode through D and W,
+    AmvAudioDecode through A, equal to device="cpu"."""
+    from amv_tpu_torch import amvlib_api as A
+    from amv_tpu_torch.codecs import amvlib_video as AV
+    src = _pixel_clip(tmp_path, n=6)
+    amv, ref = A.AmvOpen(src), A.AmvOpen(src, device="cpu")
+    assert amv.device.type == "cuda"
+    w0 = AV.LAUNCHES
+    for _ in range(6):
+        assert A.AmvReadNextFrame(amv) == A.AmvReadNextFrame(ref) == 0
+        assert A.AmvVideoDecode(amv) == A.AmvVideoDecode(ref) == 0
+        assert A.AmvAudioDecode(amv) == A.AmvAudioDecode(ref) == 0
+        np.testing.assert_array_equal(amv.videobuf, ref.videobuf)
+        np.testing.assert_array_equal(amv.audiobuf, ref.audiobuf)
+    assert AV.LAUNCHES - w0 == 6
+    assert A.AmvCreateWavFileFromAmvFile(amv, 0, str(tmp_path / "a.wav")) \
+        == A.AmvCreateWavFileFromAmvFile(ref, 0, str(tmp_path / "b.wav")) == 0
+    assert (tmp_path / "a.wav").read_bytes() == \
+        (tmp_path / "b.wav").read_bytes()

@@ -8,7 +8,7 @@ shared buffer for the warp shuffles; its launches `k<<<g, b, s, st>>>(...)`
 are rewritten into that header's launch helper.  The library is loaded
 with ctypes under the C signatures of `kernels._build`, and the kernel's
 output is held bit-exact against its plain version at small sizes
-(kernels A, T, F, D, R, X, P, L, M, G and K).  This
+(kernels A, T, F, D, R, X, P, L, M, G, K, Y and W).  This
 checks a kernel's logic (indices, tiles, scans, barriers) where there is no
 card; what nvcc makes of it is checked on the card
 (tests/test_torch_cuda.py, chip_smoke.py).  Skipped where g++ is absent.
@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from amv_tpu_torch import native
+from amv_tpu_torch.codecs import amvlib_video as AV
 from amv_tpu_torch.codecs.amv_video import encoder_qmat
 from amv_tpu_torch.codecs.jpeg_tables import DEC_FAST, REC_FAST
 from amv_tpu_torch.kernels import _build
@@ -36,6 +37,7 @@ from amv_tpu_torch.kernels import entropy_records as ER
 from amv_tpu_torch.kernels import fdct as F
 from amv_tpu_torch.kernels import record_pack as RP
 from amv_tpu_torch.kernels import transcode as T
+from amv_tpu_torch.kernels import yuv2rgb_dither as Y
 from amv_tpu_torch.verify import fixtures, ref_adpcm
 from test_torch_record_sync import boundaries, cut, zrl_scan
 
@@ -158,7 +160,7 @@ def test_transcode_source_matches_plain(transcode_lib, case):
         got_lv, got_px = _transcode(transcode_lib, lv, dc, q,
                                     (1, 1, 16, 16), 1, True, repeat)
         want_lv, want_px = T.transcode_blocks_plain(
-            torch.from_numpy(lv)[T.wrap_index(n_base, repeat)],
+            torch.from_numpy(lv)[T.wrap_index(n_base, repeat, device="cpu")],
             torch.from_numpy(dc), q)
     else:
         size = sizes[case]
@@ -729,7 +731,7 @@ def test_g729_source_matches_plain(g729_lib, monkeypatch, split):
     assert redo > 0 and least == 0
     assert g729_lib.amv_g729_state_words() == K.STATE_WORDS
     parms = G.unpack_frames(frames)
-    st0 = G.init_state(3)
+    st0 = G.init_state(3, device="cpu")
     want_st, want = G.decode_frames_scan(st0, parms)
     flat = K.flatten_state(st0).numpy()
     pcms = []
@@ -791,7 +793,7 @@ def _g729_encode_case(case):
             8000 * np.sin(2 * np.pi * 440 * np.arange(n) / 8000),
             fixtures.speechgen(n, seed=2)])
         b = len(sig)
-    st = G.init_state(b)
+    st = G.init_state(b, device="cpu")
     if case == "loud state":
         st["exc"] = torch.from_numpy(rng.integers(
             -32768, 32768, (b, G.EXC_LEN)).astype(np.int32))
@@ -861,3 +863,89 @@ def test_g729_encode_source_matches_plain(g729_encode_lib, monkeypatch,
     for k, _ in G.STATE_FIELDS:
         np.testing.assert_array_equal(got_st[k].numpy(), want_st[k].numpy(),
                                       err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def yuv2rgb_lib(tmp_path_factory):
+    return _lib("yuv2rgb_packed.cu", tmp_path_factory)
+
+
+@pytest.mark.parametrize("fmt", sorted(Y._FORMATS) + ["rgb565 undithered",
+                                                      "bgr24 limited"])
+def test_yuv2rgb_source_matches_plain(yuv2rgb_lib, fmt):
+    """Kernel Y in every format: widths whose last group of 8 pixels is
+    short (22, 10) or whole (16, 40), planes that start off a vector
+    boundary, and saturated pixels that reach the arena clamp."""
+    fmt, _, mode = fmt.partition(" ")
+    dither, full_range = mode != "undithered", mode != "limited"
+    key = (fmt, full_range, dither, 0, 65536, 65536)
+    rng = np.random.default_rng(sorted(Y._FORMATS).index(fmt))
+    for h, w, skip in ((6, 22, 1), (4, 10, 0), (8, 16, 3), (2, 40, 0)):
+        if fmt == "monoblack" and w % 8:
+            continue
+        f = 3
+        y = rng.integers(0, 256, (f, h, w), np.uint8)
+        c = [rng.integers(0, 256, (f, h // 2, w // 2), np.uint8)
+             for _ in range(2)]
+        y[0] = rng.choice([0, 255], (h, w))
+        c[0][0] = rng.choice([0, 255], (h // 2, w // 2))
+        bufs = []
+        for a in (y, *c):
+            buf = np.zeros(a.size + skip + 16, np.uint8)
+            base = (-buf.ctypes.data) % 16 + skip
+            buf[base:base + a.size] = a.reshape(-1)
+            bufs.append((buf, buf.ctypes.data + base))
+        shape, dtype, _ = Y._out_shape(fmt, (f,), h, w)
+        out = torch.zeros(shape, dtype=dtype)
+        tables = Y.kernel_tables(*key)
+        rc = yuv2rgb_lib.amv_yuv2rgb_packed(
+            bufs[0][1], bufs[1][1], bufs[2][1], tables.ctypes.data,
+            Y.kernel_geometry(key, f, h, w), out.data_ptr(), None)
+        assert rc == 0
+        want = Y.yuv420_to_packed_plain(
+            *(torch.from_numpy(a) for a in (y, *c)), fmt, full_range, dither)
+        np.testing.assert_array_equal(out.numpy(), want.numpy(),
+                                      err_msg=f"{fmt} {h}x{w}")
+
+
+@pytest.fixture(scope="module")
+def amvlib_lib(tmp_path_factory):
+    return _lib("amvlib_idct.cu", tmp_path_factory)
+
+
+@pytest.mark.parametrize("w,h,f,large", [(25, 33, 2, False),
+                                         (48, 32, 3, False),
+                                         (48, 32, 2, True),
+                                         (160, 120, 2, False),
+                                         (320, 64, 1, False)])
+def test_amvlib_source_matches_plain(amvlib_lib, w, h, f, large):
+    """Kernel W's two entries: the int32 planes (odd 25x33 too: partial
+    MCUs, rows and columns cropped) and the RGB (even sizes), with DC
+    levels large enough that the row pass's products and shifts wrap;
+    160x120 and 320x64 frames (80 MCUs: 3 chunks of at most 32, the last
+    partial; 80 in 2 rows) carry the DC prediction across chunks."""
+    rng = np.random.default_rng(w + h + large)
+    mb_w, mb_h = (w + 15) // 16, (h + 15) // 16
+    lv = np.zeros((f, mb_w * mb_h, 6, 64), np.int16)
+    mask = rng.random(lv.shape) < 0.2
+    lv[mask] = rng.integers(-60, 61, mask.sum())
+    lv[..., 0] = rng.integers(-200, 201, lv.shape[:3])
+    if large:
+        lv[..., 0] = rng.integers(30000, 32768, lv.shape[:3])
+        lv[..., 1:9] = rng.integers(-32768, 32768, lv[..., 1:9].shape)
+    lvt = torch.from_numpy(lv)
+    tables, geo = AV.kernel_args(f, w, h)
+    want = AV.decode_transform_amvlib_plain(lvt, mb_w, mb_h, w, h)
+    got = [torch.full_like(p, 7777) for p in want]
+    assert amvlib_lib.amv_amvlib_idct(
+        lvt.data_ptr(), tables.ctypes.data, geo,
+        *(p.data_ptr() for p in got), 0, None) == 0
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), x.numpy())
+    if w % 2 == 0 and h % 2 == 0:
+        rgb = torch.zeros((f, h, w, 3), dtype=torch.uint8)
+        assert amvlib_lib.amv_amvlib_idct(
+            lvt.data_ptr(), tables.ctypes.data, geo, rgb.data_ptr(), None,
+            None, 1, None) == 0
+        np.testing.assert_array_equal(rgb.numpy(),
+                                      AV.rgb_amvlib_plain(*want).numpy())

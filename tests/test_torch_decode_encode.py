@@ -13,6 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from amv_tpu import cli as jcli  # noqa: E402
 from amv_tpu.containers import riff as jax_riff  # noqa: E402
 from amv_tpu.pipeline import batch as jax_batch  # noqa: E402
 from amv_tpu.pipeline import decode as jax_decode  # noqa: E402
@@ -20,8 +21,10 @@ from amv_tpu.pipeline import encode as jax_encode  # noqa: E402
 from amv_tpu.pipeline import transcode as jax_transcode  # noqa: E402
 from amv_tpu.verify import fixtures, ref_adpcm  # noqa: E402
 from amv_tpu_torch import cli, native  # noqa: E402
+from amv_tpu_torch.codecs import g729a as G  # noqa: E402
 from amv_tpu_torch.codecs import mjpeg as MJ  # noqa: E402
 from amv_tpu_torch.containers import avi, riff, wav  # noqa: E402
+from amv_tpu_torch.kernels import transcode as T  # noqa: E402
 from amv_tpu_torch.pipeline import batch as PB  # noqa: E402
 from amv_tpu_torch.pipeline import decode as PD  # noqa: E402
 from amv_tpu_torch.pipeline import encode as PE  # noqa: E402
@@ -168,6 +171,10 @@ def test_cli_q60_routes(clip, tmp_path):
     ["-i", "{sof3}", "-f", "amv", "{tmp}/out.amv"],
 ])
 def test_cli_unported_routes_exit_nonzero(clip, tmp_path, argv):
+    """Progressive (SOF2) and lossless (SOF3) MJPEG input exit non-zero,
+    naming the module they wait for, and write nothing; the .bmp and
+    -pix_fmt .rgb/.raw outputs, refused until kernel Y, write
+    `amv_tpu.cli`'s bytes."""
     y, cb, cr, pcm, data = clip
     paths = {"amv": tmp_path / "in.amv", "yuv": tmp_path / "in.yuv",
              "wav": tmp_path / "in.wav", "tmp": tmp_path,
@@ -183,6 +190,15 @@ def test_cli_unported_routes_exit_nonzero(clip, tmp_path, argv):
         paths[key].write_bytes(avi.mux(
             y, cb, cr, pcm, fps=16, sample_rate=22050,
             video_chunks=[c.replace(b"\xFF\xC0", sof, 1) for c in base]))
+    if argv[1] == "{amv}":
+        out = argv[-1].format(**paths)
+        assert _run(*(a.format(**paths) for a in argv)) == 0
+        want = str(tmp_path / "jax") + os.path.splitext(out)[1]
+        assert jcli.main([a.format(**paths) for a in argv[:-1]] + [want]) \
+            == 0
+        with open(out, "rb") as a, open(want, "rb") as b:
+            assert a.read() == b.read()
+        return
     with pytest.raises(SystemExit) as e:
         _run(*(a.format(**paths) for a in argv))
     assert "not yet ported: it needs amv_tpu/" in str(e.value.code)
@@ -193,6 +209,12 @@ def test_explicit_device_contract(clip, tmp_path):
     y, cb, cr, pcm, data = clip
     with pytest.raises(TypeError):
         PD.decode_bytes(data)                      # no default device
+    with pytest.raises(TypeError):
+        G.init_state(2)
+    with pytest.raises(TypeError):
+        T.wrap_index(16, 2)
+    assert G.init_state(2, device="cpu")["exc"].device.type == "cpu"
+    assert T.wrap_index(16, 2, device="cpu").device.type == "cpu"
     with pytest.raises(TypeError):
         PE.encode_to_bytes(y, cb, cr, pcm)
     if not torch.cuda.is_available():

@@ -147,7 +147,7 @@ def test_state_windows_chain():
     frames = fixtures.g729_frames(rng, 12, 3, erasure=0.1, bad_parity=0.1,
                                   high_pitch=0.2)
     parms = G.unpack_frames(frames)
-    st0 = G.init_state(3)
+    st0 = G.init_state(3, device="cpu")
     st_a, pcm_a = G.decode_frames_scan(st0, parms[:5])
     st_b, pcm_b = G.decode_frames_scan(st_a, parms[5:])
     st_c, pcm_c = G.decode_frames_scan(st0, parms)
@@ -219,7 +219,7 @@ def test_cpu_route_launches_nothing():
     """CPU tensors take the plain version; the kernel's wrapper refuses
     them."""
     l0 = K.LAUNCHES
-    st = G.init_state(1)
+    st = G.init_state(1, device="cpu")
     st, pcm = G.decode_frames_scan(st, torch.zeros((2, 1, 16),
                                                    dtype=torch.int32))
     assert pcm.shape == (2, 1, 80) and K.LAUNCHES == l0

@@ -255,8 +255,8 @@ def test_batch_shadow_state_tracks_decoder():
     pack_parameters_batch's."""
     b, t = 2, 12
     sig = fixtures.speech_streams(b, t * 80, 4).astype(np.float32)
-    st, hist = G.init_state(b), torch.zeros((b, 160))
-    dst = G.init_state(b)
+    st, hist = G.init_state(b, device="cpu"), torch.zeros((b, 160))
+    dst = G.init_state(b, device="cpu")
     for f in range(t):
         st, hist, p = E.encode_frame_batch(
             st, hist, torch.from_numpy(sig[:, f * 80:(f + 1) * 80]))
@@ -278,5 +278,5 @@ def test_encode_streams_cpu_route_launches_nothing():
     assert K.ENCODE_LAUNCHES == k0
     assert E.encode_streams(np.zeros((3, 79), np.int16)).shape == (0, 3, 10)
     with pytest.raises(ValueError, match="CUDA"):
-        K.encode_frames(G.init_state(1), torch.zeros((1, 160)),
+        K.encode_frames(G.init_state(1, device="cpu"), torch.zeros((1, 160)),
                         torch.zeros((2, 1, 80)))

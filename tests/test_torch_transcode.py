@@ -138,11 +138,16 @@ def test_cli_matches_library(tmp_path):
         cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert dst.read_bytes() == P.transcode_bytes(data, qscale=3, device="cpu")
+    bmp = tmp_path / "out.bmp"
     res = subprocess.run(
-        [sys.executable, "-m", "amv_tpu_torch", "-i", str(src), "out.bmp",
+        [sys.executable, "-m", "amv_tpu_torch", "-i", str(src), str(bmp),
          "--device", "cpu"], cwd=ROOT, capture_output=True, text=True,
         timeout=120)
-    assert res.returncode != 0 and "not yet ported" in res.stderr
+    assert res.returncode == 0, res.stderr
+    assert res.stdout == "wrote 1 BMP frame(s)\n"
+    h, w = 48, 64
+    assert bmp.read_bytes()[:2] == b"BM" and \
+        len(bmp.read_bytes()) == 54 + h * ((w * 3 + 3) & ~3)
 
 
 def _port_sources():
@@ -182,7 +187,12 @@ def test_port_never_imports_jax():
             "amv_tpu_torch.kernels.adpcm_trellis",
             "amv_tpu_torch.verify.ref_trellis",
             "amv_tpu_torch.codecs.mjpeg",
-            "amv_tpu_torch.bitstream.jpeg_parse"} <= set(mods)
+            "amv_tpu_torch.bitstream.jpeg_parse",
+            "amv_tpu_torch.amvlib_api", "amv_tpu_torch.codecs.amvlib_video",
+            "amv_tpu_torch.kernels.yuv2rgb_dither",
+            "amv_tpu_torch.verify.ref_yuv2rgb",
+            "amv_tpu_torch.verify.compare",
+            "amv_tpu_torch.utils.profiling"} <= set(mods)
     pat = re.compile(r"^\s*(import amv_tpu\b|from amv_tpu(\.|\s+import\b))",
                      re.M)
     hits = [f for f in _port_sources() if pat.search(open(f).read())]

@@ -40,7 +40,7 @@ def test_wrap_matches_jax():
     np.testing.assert_array_equal(got_pix.numpy(), np.asarray(pix).T)
     np.testing.assert_array_equal(got_lv.numpy(),
                                   np.asarray(lv).T[:, ZIGZAG])
-    idx = T.wrap_index(n_base, repeat)
+    idx = T.wrap_index(n_base, repeat, device="cpu")
     assert idx[nm_base * repeat] == nm_base        # row s = 1 starts there
     assert not torch.equal(idx, torch.arange(n_base * repeat) % n_base)
 
