@@ -31,8 +31,8 @@ caller asks for the CPU; `-f act` runs the host encoder
 (`codecs/g729a_encoder.py`, as the JAX package does) after the resampling
 on the device.  The flags are `amv_tpu.cli`'s.  Every route runs under
 `utils.profiling.trace("cli")` (a torch.profiler trace when AMV_TRACE_DIR
-is set).  Still refused, naming the `amv_tpu` module it waits for:
-progressive (SOF2) and lossless (SOF3) MJPEG input.
+is set).  MJPG AVI input may be baseline, progressive (SOF2) or lossless
+(SOF3, YUV, gray or RGB) frames.
 """
 
 from __future__ import annotations
@@ -46,7 +46,6 @@ import time
 
 import numpy as np
 
-_USE_JAX = "(use python -m amv_tpu)"
 _SWS = ["bilinear", "bicubic", "point", "area", "lanczos", "gauss", "sinc",
         "spline", "experimental", "bicublin"]
 _PIX_FMTS = ["rgb32", "bgr32", "rgb24", "bgr24", "rgb565", "bgr565",
@@ -517,10 +516,7 @@ def _encode(args) -> int:
             vst.chunks, vst.index = vst.chunks[start:], vst.index[start:]
         if args.max_frames:
             vst.chunks = vst.chunks[:args.max_frames]
-        try:
-            y, cb, cr = avi.extract_yuv420(vst, device=dev)
-        except NotImplementedError as e:
-            raise SystemExit(f"{e} {_USE_JAX}") from None
+        y, cb, cr = avi.extract_yuv420(vst, device=dev)
         src_wh = (vst.width, vst.height)
         if wh and src_wh != wh:
             y, cb, cr = _rescale(args, (y, cb, cr), src_wh, wh, dev)

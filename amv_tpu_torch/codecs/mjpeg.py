@@ -1,20 +1,25 @@
-"""Standard baseline MJPEG on a device: the port of `amv_tpu/codecs/
-mjpeg.py`'s baseline decode and its encode.
+"""Standard MJPEG on a device: the port of `amv_tpu/codecs/mjpeg.py`'s
+decode (baseline SOF0, progressive SOF2 and lossless SOF3 frames) and its
+encode.
 
 Decode (`decode_mjpeg_frames`): the frames' headers are parsed on the host
 (`bitstream/jpeg_parse.py`; quant and Huffman tables per frame, 4:2:0,
-4:2:2, 4:4:4 or gray sampling, DRI/RSTn restart markers).  Frames of
-4:2:0 sampling with the stock K.3 tables and no restart markers go
-through kernel D, the AMV scan decoder, as the JAX package sends them to
-its AMV decoder; every other frame goes to the host C decoder
-(`native.decode_scans_custom`), batched by table set.  The transform runs
-on the device: DC prediction as a restart-segmented cumsum per component,
-dequant with the int16 wrap, kernel I's `idct_put`, and the top-down
-assembly with its crop.  Two-field interlaced packets decode as fields
-and are row-interleaved (mjpegdec.c:263-283, :339, :712-713).  Still
-refused, each naming its module: progressive SOF2
-(`amv_tpu/bitstream/jpeg_progressive.py`) and lossless SOF3
-(`amv_tpu/bitstream/jpeg_lossless.py`).
+4:2:2, 4:4:4 or gray sampling, DRI/RSTn restart markers).  Baseline
+frames of 4:2:0 sampling with the stock K.3 tables and no restart markers
+go through kernel D, the AMV scan decoder, as the JAX package sends them
+to its AMV decoder; every other baseline frame goes to the host C decoder
+(`native.decode_scans_custom`), batched by table set.  Progressive frames
+decode scan by scan on the host (`bitstream/jpeg_progressive.py`: the
+Python marker parse, then one C call a frame) into levels with the
+absolute DC.  The transform runs on the device: DC prediction as a
+restart-segmented cumsum per component (or the absolute DC of a
+progressive frame), dequant with the int16 wrap, kernel I's `idct_put`,
+and the top-down assembly with its crop.  Two-field interlaced packets
+decode as fields and are row-interleaved (mjpegdec.c:263-283, :339,
+:712-713).  Lossless frames (`decode_lossless_frames`) have no transform:
+one host C walk a frame (`bitstream/jpeg_lossless.py`) gives the planes,
+which go up in one copy a batch.  The frames' host C calls run on
+HOST_THREADS threads.
 
 Encode (`encode_mjpeg_frames`): 4:2:0 without restart markers runs the
 AMV encode's kernels V and E on the flipped planes (V's own flip cancels
@@ -37,6 +42,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..bitstream import jpeg_lossless, jpeg_progressive
 from ..bitstream.jpeg_parse import parse_jpeg
 from ..kernels.encode_fused import encode_planes
 from ..kernels.entropy_decode import decode_scans
@@ -61,11 +67,6 @@ COMP_OF_BLOCK = {"420": (0, 0, 0, 0, 1, 2), "422": (0, 0, 1, 2),
                  "444": (0, 1, 2), "gray": (0,)}
 _MCU = {"420": (16, 16), "422": (16, 8), "444": (8, 8), "gray": (8, 8)}
 _SOF_SAMPLING = {"420": 0x22, "422": 0x21, "444": 0x11}
-_NOT_PORTED = {
-    0xC2: ("progressive (SOF2)", "amv_tpu/bitstream/jpeg_progressive.py"),
-    0xC3: ("lossless (SOF3)", "amv_tpu/bitstream/jpeg_lossless.py "
-                              "(amv_tpu/codecs/mjpeg.py:"
-                              "decode_lossless_frames)")}
 
 
 def _tables_are_k3(frame) -> bool:
@@ -168,16 +169,6 @@ def _sof_field(data: bytes, height: bool) -> int:
     return 0
 
 
-def _refuse_unported(payloads) -> None:
-    """Raise NotImplementedError naming the module a progressive or a
-    lossless frame waits for."""
-    for p in payloads:
-        what = _NOT_PORTED.get(_sof_field(p, height=False))
-        if what:
-            raise NotImplementedError(f"{what[0]} MJPEG is not yet ported: "
-                                      f"it needs {what[1]}")
-
-
 # ------------------------------------------------------------ decode
 
 def seg_cumsum(x: torch.Tensor, seg_len: int) -> torch.Tensor:
@@ -225,35 +216,44 @@ def assemble(pix: torch.Tensor, layout: str, mb_w: int, mb_h: int,
 
 
 def dequantize(levels_zz: torch.Tensor, qm_zz, layout: str,
-               restart: int = 0) -> torch.Tensor:
+               restart: int = 0, dc_absolute: bool = False) -> torch.Tensor:
     """The decode's dequant on the levels' device: levels int16 [F, M, nb,
-    64] zigzag (slot 0 the DC difference), qm_zz int [nb, 64] each block's
+    64] zigzag (slot 0 the DC difference, or with dc_absolute the absolute
+    quantized DC of a progressive frame), qm_zz int [nb, 64] each block's
     quant table in zigzag order -> raster coefficients int16 [F, M, nb, 8,
     8], kernel I's input.  DC prediction per component (restarting every
-    `restart` MCUs, +1024 bias), levels x table wrapped to int16."""
+    `restart` MCUs; none for an absolute DC), +1024 bias, levels x table
+    wrapped to int16."""
     f, m, nb = levels_zz.shape[:3]
     dev = levels_zz.device
     comp_of = COMP_OF_BLOCK[layout]
     lv = levels_zz.to(torch.int32)
     qm = torch.as_tensor(np.asarray(qm_zz, np.int32), device=dev)
-    # the blocks of each component are contiguous in MCU order in every
-    # layout, so the DC chains concatenate back without a scatter
-    parts = []
-    for c in sorted(set(comp_of)):
-        b0, k = comp_of.index(c), comp_of.count(c)
-        x = lv[:, :, b0:b0 + k, 0].reshape(f, m * k) * qm[b0, 0]
-        parts.append((seg_cumsum(x, restart * k) + 1024).reshape(f, m, k))
     deq = _w16(lv * qm)
-    deq[..., 0] = _w16(torch.cat(parts, dim=2))
+    if dc_absolute:
+        deq[..., 0] = _w16(lv[..., 0] * qm[:, 0] + 1024)
+    else:
+        # the blocks of each component are contiguous in MCU order in
+        # every layout, so the DC chains concatenate back without a
+        # scatter
+        parts = []
+        for c in sorted(set(comp_of)):
+            b0, k = comp_of.index(c), comp_of.count(c)
+            x = lv[:, :, b0:b0 + k, 0].reshape(f, m * k) * qm[b0, 0]
+            parts.append((seg_cumsum(x, restart * k) + 1024).reshape(f, m,
+                                                                     k))
+        deq[..., 0] = _w16(torch.cat(parts, dim=2))
     raster = deq[..., torch.as_tensor(T.UNZIGZAG, device=dev).long()]
     return raster.to(torch.int16).reshape(f, m, nb, 8, 8)
 
 
 def transform(levels_zz: torch.Tensor, qm_zz, layout: str, mb_w: int,
-              mb_h: int, width: int, height: int, restart: int = 0):
-    """`amv_tpu.codecs.mjpeg._transform` (baseline: differential DC) on the
-    levels' device: `dequantize`, kernel I's idct_put, `assemble`."""
-    pix = idct_put(dequantize(levels_zz, qm_zz, layout, restart))
+              mb_h: int, width: int, height: int, restart: int = 0,
+              dc_absolute: bool = False):
+    """`amv_tpu.codecs.mjpeg._transform` on the levels' device:
+    `dequantize`, kernel I's idct_put, `assemble`."""
+    pix = idct_put(dequantize(levels_zz, qm_zz, layout, restart,
+                              dc_absolute))
     return assemble(pix, layout, mb_w, mb_h, width, height)
 
 
@@ -263,10 +263,13 @@ def _hkey(f):
         tuple(map(tuple, f.scan_components)) + (f.restart_interval,)
 
 
-def _qkey(f):
+def _qkey(f, prog: bool):
+    """The transform's run key: the blocks' quant tables, the restart
+    interval and the DC convention (a progressive frame's DC is absolute,
+    its restarts resolved by the scan decode)."""
+    ri = 0 if prog else f.restart_interval
     return b"".join(f.quant[tq].tobytes() for (_, _, _, tq) in
-                    f.mcu_blocks()) + bytes([f.restart_interval & 0xFF,
-                                             f.restart_interval >> 8])
+                    f.mcu_blocks()) + bytes([ri & 0xFF, ri >> 8, prog])
 
 
 def _scan_levels(frames, n_mcu: int, nb: int, layout: str, dev):
@@ -302,6 +305,33 @@ def _scan_levels(frames, n_mcu: int, nb: int, layout: str, dev):
     return levels
 
 
+def _threads(fn, items) -> None:
+    """fn(part) over items split into HOST_THREADS runs, on as many
+    threads (the host C calls drop the GIL); re-raises the error of the
+    earliest part that failed."""
+    parts = [p for p in np.array_split(np.asarray(items), HOST_THREADS)
+             if len(p)]
+    with ThreadPoolExecutor(len(parts)) as ex:
+        list(ex.map(fn, parts))
+
+
+def _progressive_levels(scans, n_mcu: int, nb: int, dev) -> torch.Tensor:
+    """Levels int16 [F, n_mcu, nb, 64] (absolute DC) of parsed progressive
+    frames (`jpeg_progressive.parse_scans`) on dev: each frame's scans in
+    one host C call, the frames on HOST_THREADS threads into one host
+    buffer (pinned for a CUDA dev), then one upload."""
+    buf = torch.empty((len(scans), n_mcu, nb, 64), dtype=torch.int16,
+                      pin_memory=dev.type == "cuda")
+    out = buf.numpy()
+
+    def run(part):
+        for j in part:
+            out[j] = jpeg_progressive.decode_scans(scans[j])[0]
+
+    _threads(run, range(len(scans)))
+    return buf.to(dev, non_blocking=True)
+
+
 def _host_decode(frames, n_mcu: int, nb: int, dev) -> torch.Tensor:
     """The host C decode of frames of one table set -> levels int16 [F,
     n_mcu, nb, 64] on dev: the frames split over HOST_THREADS threads (the
@@ -319,20 +349,20 @@ def _host_decode(frames, n_mcu: int, nb: int, dev) -> torch.Tensor:
             restart_interval=f.restart_interval,
             out=out[part[0]:part[-1] + 1])
 
-    parts = [p for p in np.array_split(np.arange(len(frames)),
-                                       HOST_THREADS) if len(p)]
-    with ThreadPoolExecutor(len(parts)) as ex:
-        list(ex.map(run, parts))          # re-raises a decoder's error
+    _threads(run, range(len(frames)))
     return buf.to(dev, non_blocking=True)
 
 
 def decode_mjpeg_frames(payloads: list[bytes], org_height: int = 0, *,
                         device, batch_frames: int | None = None):
-    """Decode baseline MJPEG frames on `device` -> (y, cb, cr) uint8
-    tensors, top-down: chroma None for gray, half-width for 4:2:2,
-    half-size for 4:2:0, full-size for 4:4:4; equal to `amv_tpu.codecs.
-    mjpeg.decode_mjpeg_frames`' planes.  All frames share geometry and
-    sampling; tables and restart intervals may vary per frame.
+    """Decode MJPEG frames on `device` -> (y, cb, cr) uint8 tensors,
+    top-down: chroma None for gray, half-width for 4:2:2, half-size for
+    4:2:0, full-size for 4:4:4; equal to `amv_tpu.codecs.mjpeg.
+    decode_mjpeg_frames`' planes.  Baseline (SOF0) and progressive (SOF2)
+    frames may mix; lossless (SOF3) frames, YUV or gray, come alone
+    (`decode_lossless_frames`; an RGB-mode stream raises).  All frames
+    share geometry and sampling; tables and restart intervals may vary per
+    frame.
 
     org_height is the container's frame height: when the coded height is
     less than 3/4 of it, or without it when a packet holds two complete
@@ -348,8 +378,31 @@ def decode_mjpeg_frames(payloads: list[bytes], org_height: int = 0, *,
             # (mjpegdec.c:890-914), top-field-first otherwise
             return decode_interlaced_frames(payloads, None, device=dev,
                                             batch_frames=batch_frames)
-    _refuse_unported(payloads)
-    frames = [parse_jpeg(p) for p in payloads]
+    sofs = [_sof_field(p, height=False) for p in payloads]
+    if 0xC3 in sofs:
+        if any(m != 0xC3 for m in sofs):
+            raise ValueError("cannot mix lossless and DCT frames")
+        mode, planes = decode_lossless_frames(payloads, device=dev,
+                                              batch_frames=batch_frames)
+        if mode == "rgb":
+            raise ValueError("RGB-mode lossless stream: use "
+                             "decode_lossless_frames")
+        if len(planes) == 1:
+            return planes[0], None, None
+        if len(planes) != 3:
+            raise ValueError("unsupported lossless component count")
+        return tuple(planes)
+    frames, scans = [], {}
+    for i, p in enumerate(payloads):
+        if sofs[i] == 0xC2:
+            scans[i] = jpeg_progressive.parse_scans(p)
+            f = scans[i].frame
+            # the scan bookkeeping mcu_blocks() reads
+            f.scan_components = [(ci, 0, 0)
+                                 for ci in range(len(f.components))]
+            frames.append(f)
+        else:
+            frames.append(parse_jpeg(p))
     f0 = frames[0]
     layout, nb, mcu_w, mcu_h = _layout_of(f0)
     for f in frames[1:]:
@@ -362,19 +415,37 @@ def decode_mjpeg_frames(payloads: list[bytes], org_height: int = 0, *,
     step = batch_frames or n
     out = None
     for a in range(0, n, step):
-        part = frames[a:a + step]
-        levels = _scan_levels(part, mb_w * mb_h, nb, layout, dev)
-        # quant tables and the restart interval may vary per frame
+        z = min(n, a + step)
+        prog = [i - a for i in range(a, z) if i in scans]
+        base = [i - a for i in range(a, z) if i not in scans]
+        parts = []
+        if base:
+            parts.append((base, _scan_levels([frames[a + i] for i in base],
+                                             mb_w * mb_h, nb, layout, dev)))
+        if prog:
+            parts.append((prog, _progressive_levels(
+                [scans[a + i] for i in prog], mb_w * mb_h, nb, dev)))
+        if len(parts) == 1:
+            levels = parts[0][1]
+        else:                                   # a mixed batch
+            levels = torch.empty((z - a, mb_w * mb_h, nb, 64),
+                                 dtype=torch.int16, device=dev)
+            for idxs, lv in parts:
+                levels[torch.as_tensor(idxs, device=dev)] = lv
+        # quant tables, the restart interval and the DC convention may
+        # vary per frame
         runs = {}
-        for i, f in enumerate(part):
-            runs.setdefault(_qkey(f), []).append(i)
+        for i in range(z - a):
+            runs.setdefault(_qkey(frames[a + i], a + i in scans),
+                            []).append(i)
         for idxs in runs.values():
-            f = part[idxs[0]]
+            f, absolute = frames[a + idxs[0]], a + idxs[0] in scans
             qm = np.stack([f.quant[tq].astype(np.int32)
                            for (_, _, _, tq) in f.mcu_blocks()])
             sel = torch.as_tensor(idxs, device=dev)
             planes = transform(levels[sel], qm, layout, mb_w, mb_h, w, h,
-                               restart=f.restart_interval)
+                               restart=0 if absolute else f.restart_interval,
+                               dc_absolute=absolute)
             if out is None:
                 out = [None if p is None else torch.empty(
                     (n, *p.shape[1:]), dtype=torch.uint8, device=dev)
@@ -383,6 +454,58 @@ def decode_mjpeg_frames(payloads: list[bytes], org_height: int = 0, *,
                 if p is not None:
                     dst[sel + a] = p
     return tuple(out)
+
+
+def decode_lossless_frames(payloads: list[bytes], *, device,
+                           batch_frames: int | None = None):
+    """Decode lossless (SOF3) JPEG frames on `device` -> (mode, planes),
+    equal to `amv_tpu.codecs.mjpeg.decode_lossless_frames`: mode "rgb"
+    with three full-size [F, H, W] uint8 tensors in the reference's RGB32
+    byte order (B, G, R: mjpegdec.c ljpeg_decode_rgb_scan:544-561), or
+    mode "yuv" with one [F, ...] tensor per component at its sampled size
+    (gray: one); (None, None) for no frames.  All frames share geometry
+    and mode (mjpegdec.c:1254-1261 SOF3 dispatch); predictors, the point
+    transform and the colour transform are per frame.
+
+    Each frame is one host C walk (`jpeg_lossless.decode_into`), the
+    frames of a batch (batch_frames, all by default) on HOST_THREADS
+    threads into one host buffer (pinned for a CUDA device: the caching
+    host allocator keeps it until its copy has run), which goes up in one
+    copy."""
+    dev = resolve_device(device)
+    if not payloads:
+        return None, None
+    tables = {}
+    p0 = jpeg_lossless.parse_frame(payloads[0], tables)
+    shapes = p0.shapes
+    size = [r * c for r, c in shapes]
+    off = np.cumsum([0] + size)
+    n = len(payloads)
+    step = batch_frames or n
+    planes = torch.empty((n, int(off[-1])), dtype=torch.uint8, device=dev)
+    for a in range(0, n, step):
+        z = min(n, a + step)
+        buf = planes[a:z] if dev.type == "cpu" else torch.empty(
+            (z - a, int(off[-1])), dtype=torch.uint8, pin_memory=True)
+        host = buf.numpy()
+
+        def run(part):
+            for i in part:
+                p = p0 if i == 0 else jpeg_lossless.parse_frame(payloads[i],
+                                                                tables)
+                if p.rgb != p0.rgb or p.shapes != shapes:
+                    # the JAX package decodes the frame before it compares
+                    jpeg_lossless.decode_lossless(payloads[i], tables=tables)
+                    raise ValueError("lossless frames must share "
+                                     "geometry/mode")
+                jpeg_lossless.decode_into(p, host[i - a], off[:-1])
+
+        _threads(run, range(a, z))
+        if dev.type != "cpu":
+            planes[a:z].copy_(buf, non_blocking=True)
+    return ("rgb" if p0.rgb else "yuv"), [
+        planes[:, o:o + s].reshape(n, r, c).contiguous()
+        for o, s, (r, c) in zip(off.tolist(), size, shapes)]
 
 
 def _interleave_fields(top: torch.Tensor, bottom: torch.Tensor):
@@ -413,7 +536,6 @@ def decode_interlaced_frames(payloads: list[bytes],
         fields.append(p[s[0][0]:s[0][1]])
         fields.append(p[s[1][0]:s[1][1]])
     if interlace_polarity is None:
-        _refuse_unported(fields[:1])
         pol = parse_jpeg(fields[0]).avi1_polarity
         interlace_polarity = 1 if pol == 2 else 0
     y, cb, cr = decode_mjpeg_frames(

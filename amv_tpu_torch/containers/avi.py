@@ -13,10 +13,14 @@ avi.py` (the reference pipeline's input and output).
   DIBs, RGB555 and BI_BITFIELDS RGB565, BGR24 (rows padded to 4 bytes)
   and BGRX32 (RGB DIBs are bottom-up), the RGB ones through
   `kernels.color.rgb_to_yuv420_bt601`.  MJPG/JPEG streams decode
-  through `codecs.mjpeg` (baseline frames, BATCH_FRAMES a batch) and go
-  to 4:2:0 on the device: 4:4:4 chroma by the rounded 2x2 mean, 4:2:2 by
-  the rounded mean of row pairs (odd widths cropped to w/2), gray with
-  chroma 128, interlaced frames cropped to the container's height;
+  through `codecs.mjpeg` (baseline and progressive frames, BATCH_FRAMES
+  a batch) and go to 4:2:0 on the device: 4:4:4 chroma by the rounded 2x2
+  mean, 4:2:2 by the rounded mean of row pairs (odd widths cropped to
+  w/2), gray with chroma 128, interlaced frames cropped to the container's
+  height.  A stream whose first frame is lossless (SOF3) goes through
+  `codecs.mjpeg.decode_lossless_frames` (BATCH_FRAMES a batch): RGB mode
+  through `rgb_to_yuv420_bt601`, YUV and gray through the same 4:2:0
+  reductions, without the interlace crop;
 * `extract_pcm`: the audio stream to mono int16 on the device
   (`codecs.wav_audio`);
 * mux: an AVI of I420 video and mono s16 PCM with an idx1 index (copied).
@@ -377,6 +381,12 @@ def mjpeg_to_yuv420(y, cb, cr, w: int, h: int):
         y = y[:, :h]
         if cb is not None:
             cb, cr = cb[:, :h // ratio], cr[:, :h // ratio]
+    return _to_yuv420(y, cb, cr, w, h)
+
+
+def _to_yuv420(y, cb, cr, w: int, h: int):
+    """Decoded planes of a w x h stream -> 4:2:0: gray with chroma 128,
+    4:4:4 and 4:2:2 chroma reduced by rounded means, others as they are."""
     if cb is None:                                      # gray
         gray = torch.full((y.shape[0], h // 2, w // 2), 128,
                           dtype=torch.uint8, device=y.device)
@@ -404,8 +414,27 @@ def extract_yuv420(st: AviStream, *, device):
     dev = resolve_device(device)
     w, h, n = st.width, st.height, len(st.chunks)
     if n and bytes(st.codec).upper().startswith((b"MJPG", b"JPEG")):
-        from ..codecs.mjpeg import decode_mjpeg_frames
-        return mjpeg_to_yuv420(*decode_mjpeg_frames(
+        from ..codecs import mjpeg
+        if mjpeg._sof_field(st.chunks[0], height=False) == 0xC3:
+            mode, planes = mjpeg.decode_lossless_frames(
+                st.chunks, device=dev, batch_frames=BATCH_FRAMES)
+            if mode == "yuv":
+                return _to_yuv420(planes[0], *(planes[1:3] if len(planes)
+                                               == 3 else (None, None)), w, h)
+            # planes in the reference's RGB32 byte order (B, G, R)
+            out = None
+            for a in range(0, n, BATCH_FRAMES):
+                rgb = torch.stack([planes[2][a:a + BATCH_FRAMES],
+                                   planes[1][a:a + BATCH_FRAMES],
+                                   planes[0][a:a + BATCH_FRAMES]], dim=-1)
+                part = rgb_to_yuv420_bt601(rgb)
+                if out is None:
+                    out = [torch.empty((n, *p.shape[1:]), dtype=torch.uint8,
+                                       device=dev) for p in part]
+                for dst, p in zip(out, part):
+                    dst[a:a + BATCH_FRAMES] = p
+            return tuple(out)
+        return mjpeg_to_yuv420(*mjpeg.decode_mjpeg_frames(
             st.chunks, org_height=h, device=dev, batch_frames=BATCH_FRAMES),
             w, h)
     planes = (torch.empty((n, h, w), dtype=torch.uint8, device=dev),

@@ -3,9 +3,12 @@
 The same Python signatures as `amv_tpu.native.entropy_native` for what the
 port uses: the host byte passes of the video paths (`unescape_frames`,
 `escape_frames`), the baseline MJPEG scan decode with a frame's own tables
-(`decode_scans_custom`) and its K.3 scan pack (`pack_scans_generic`), and
+(`decode_scans_custom`) and its K.3 scan pack (`pack_scans_generic`), the
+progressive frame decode (`ProgressivePlan`, `progressive_frame`), and
 the single-core C reference oracles (`ref_decode_frame`,
-`ref_encode_frame`, `ref_adpcm_decode`).
+`ref_encode_frame`, `ref_adpcm_decode`).  `lossless_frame` is the port's
+own: the lossless (SOF3) walk the JAX package runs in Python.  Each call
+drops the GIL (a plain ctypes call), so frames decode on several threads.
 
 At first use gcc compiles entropy.c into build/amv_tpu_torch/ at the
 repository root (beside the CUDA library); the library is rebuilt when
@@ -50,6 +53,11 @@ _SIGNATURES = {   # name -> (restype, argtypes)
     "amv_pack_scans_generic": (ctypes.c_int64, [
         _P16, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P8, ctypes.c_int,
         _P8, ctypes.c_int64, _P64, _P64]),
+    "amv_progressive_frame": (ctypes.c_int, [
+        ctypes.c_char_p, _P64, _P64, ctypes.c_int, _P32, _P64, _P64, _P8,
+        _P8, _P8, _P32]),
+    "amv_lossless_frame": (ctypes.c_int, [
+        ctypes.c_char_p, ctypes.c_int64, _P32, _P32, _P64, _P8, _P8, _P64]),
 }
 
 _lib = None
@@ -251,6 +259,96 @@ def pack_scans_generic(levels: np.ndarray, comp_of,
         raise ValueError(f"native scan pack overflowed (rc={rc})")
     return [buf[o:o + n].tobytes() for o, n in zip(offsets.tolist(),
                                                    lens.tolist())]
+
+
+class ProgressivePlan:
+    """Prepacked per-header arrays for amv_progressive_frame.  All of this
+    depends only on the frame's header (tables, SOF, SOS parameters), so a
+    stream of same-header frames packs once."""
+    __slots__ = ("n", "blk_all", "blk_off", "tab16", "cis16", "ht", "meta")
+
+    def __init__(self, blks, tabsels, cisels, htabs_list, metas):
+        n = self.n = len(metas)
+        blks = [np.ascontiguousarray(b, np.int64) for b in blks]
+        self.blk_off = np.zeros(n + 1, np.int64)
+        np.cumsum([len(b) for b in blks], out=self.blk_off[1:])
+        self.blk_all = (np.concatenate(blks) if blks else
+                        np.zeros(0, np.int64))
+        self.tab16 = np.zeros((n, 16), np.uint8)
+        self.cis16 = np.zeros((n, 16), np.uint8)
+        for s in range(n):
+            self.tab16[s, :len(tabsels[s])] = tabsels[s]
+            self.cis16[s, :len(cisels[s])] = cisels[s]
+        self.ht = np.ascontiguousarray(np.stack(htabs_list), np.uint8)
+        if self.ht.shape != (n, 4, 273):
+            raise ValueError(f"Huffman snapshots {self.ht.shape}, "
+                             f"not ({n}, 4, 273)")
+        self.meta = np.ascontiguousarray(
+            np.asarray(metas, np.int32).reshape(n, 6))
+
+
+def progressive_frame(scans: list, coef: np.ndarray,
+                      plan: ProgressivePlan) -> None:
+    """All progressive scans of one frame in a single C call
+    (amv_progressive_frame).  scans[s] = that scan's escaped bytes; plan
+    carries the prepacked header-derived arrays (block maps, table
+    selectors, Huffman snapshots, (ss, se, ah, al, ri, bpu) rows).  coef
+    int32 [NB_total, 64], C-contiguous, is modified in place; a malformed
+    scan raises ValueError (the caller restarts with the Python scan
+    decoder)."""
+    if coef.dtype != np.int32 or not coef.flags.c_contiguous or \
+            coef.ndim != 2 or coef.shape[1] != 64 or len(scans) != plan.n:
+        raise ValueError("progressive_frame needs C-contiguous int32 "
+                         f"[NB, 64] coefficients and {plan.n} scans")
+    # every block index of the plan must land inside coef
+    if plan.blk_all.size and int(plan.blk_all.max()) >= coef.shape[0]:
+        raise ValueError("progressive plan indexes past the coefficients")
+    blob, off, lens = _blob(scans)
+    rc = library().amv_progressive_frame(
+        blob, off.ctypes.data_as(_P64), lens.ctypes.data_as(_P64), plan.n,
+        plan.meta.ctypes.data_as(_P32), plan.blk_all.ctypes.data_as(_P64),
+        plan.blk_off.ctypes.data_as(_P64), plan.tab16.ctypes.data_as(_P8),
+        plan.cis16.ctypes.data_as(_P8), plan.ht.ctypes.data_as(_P8),
+        coef.ctypes.data_as(_P32))
+    if rc != 0:
+        raise ValueError(f"progressive frame decode failed (rc={rc})")
+
+
+_LOSSLESS_ERRORS = {-1: "out of memory", -2: "expected RSTn",
+                    -3: "invalid Huffman code", -4: "bad geometry"}
+
+
+def lossless_frame(scan: bytes, geom, samp, crop, luts: np.ndarray,
+                   out: np.ndarray, out_off) -> None:
+    """One lossless (SOF3) frame's Huffman walk and prediction
+    (amv_lossless_frame), `bitstream.jpeg_lossless.decode_lossless`'s
+    samples: scan the escaped scan bytes; geom (rgb, mb_w, mb_h, n_planes,
+    predictor, pt, bits, xform, restart interval); samp [n_planes, 2] each
+    plane's h, v; crop [n_planes, 2] each output plane's rows and columns;
+    luts uint8 [n_planes, 2, 65536] each plane's decode table (symbols,
+    lengths); plane i written to the C-contiguous uint8 out at out_off[i],
+    rows back to back.  A malformed scan raises ValueError."""
+    geom = np.ascontiguousarray(geom, np.int32)
+    n = int(geom[3])
+    samp = np.ascontiguousarray(samp, np.int32).reshape(-1, 2)
+    crop = np.ascontiguousarray(crop, np.int64).reshape(-1, 2)
+    out_off = np.ascontiguousarray(out_off, np.int64)
+    if geom.shape != (9,) or samp.shape[0] != n or crop.shape[0] != n or \
+            out_off.shape != (n,) or luts.dtype != np.uint8 or \
+            luts.shape != (n, 2, 65536) or not luts.flags.c_contiguous or \
+            out.dtype != np.uint8 or not out.flags.c_contiguous:
+        raise ValueError("lossless_frame: inconsistent plane arguments")
+    ends = out_off + crop[:, 0] * crop[:, 1]
+    if n and (out_off.min() < 0 or int(ends.max()) > out.size):
+        raise ValueError("lossless_frame: planes past the output buffer")
+    rc = library().amv_lossless_frame(
+        scan, len(scan), geom.ctypes.data_as(_P32),
+        samp.ctypes.data_as(_P32), crop.ctypes.data_as(_P64),
+        luts.ctypes.data_as(_P8), out.ctypes.data_as(_P8),
+        out_off.ctypes.data_as(_P64))
+    if rc != 0:
+        raise ValueError(f"lossless frame decode failed: "
+                         f"{_LOSSLESS_ERRORS.get(rc, rc)}")
 
 
 def ref_decode_frame(payload: bytes, width: int, height: int):

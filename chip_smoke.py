@@ -5,10 +5,11 @@ entropy encoders), the record-IR decode, the AMV decode (video and audio),
 the AMV encode, the q60 quantizer, odd picture sizes, the served
 transcode on CUDA streams, the encode's ingest (AVI input, -s
 rescaling, -ar resampling, every WAVE format), the trellis quantizer
-(-trellis, kernel L), baseline MJPEG in and out, G.729A decoding
-(kernel G) with the ACT routes, G.729A encoding (kernel K, and the
-host encoder behind `-f act`), and the pixel outputs (kernel Y, `.bmp`)
-and amvlib's decoder and API (kernel W).
+(-trellis, kernel L), baseline MJPEG in and out, progressive (SOF2) and
+lossless (SOF3) MJPEG input, G.729A decoding (kernel G) with the ACT
+routes, G.729A encoding (kernel K, and the host encoder behind `-f act`),
+and the pixel outputs (kernel Y, `.bmp`) and amvlib's decoder and API
+(kernel W).
 
     python3 chip_smoke.py
 
@@ -131,9 +132,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     pictures encoded on the card by encode_mjpeg_frames in 4:2:2 with a
     restart interval of 5 MCUs, F launched, tiled to 4,800 frames, and
     44,100 Hz PCM) through `cli.main -i cam.avi -f amv -r 16 -s 160x120
-    -ac 1 -ar 22050 -trellis` x3, frames/s: every frame through the host
-    C scan decoder, I, V, E, Q and L launched; the card's decoded and
-    scaled planes of the first 160 frames equal the CPU route's, the
+    -ac 1 -ar 22050 -trellis` x2 (two passes leave room for phase 18),
+    frames/s: every frame through the host C scan decoder, I, V, E, Q
+    and L launched; the card's decoded and scaled planes of the first 160
+    frames equal the CPU route's, the
     video C's encode of them, the audio the trellis encode of the
     resampled PCM (first 8 chunks = the numpy oracle); F and I against
     their plain versions at this path's shapes; the stages one by one
@@ -165,15 +167,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     multiply and add its own instruction under -fmad=false; the shared
     loads over the load units' rate beside it), frames/s; K in turns with
     its first design (baseline, K, K, baseline; outputs equal) at 1,024 x
-    600 and at the same frames over 4,096 streams (x 150), and both
-    designs' time by phase on one line each;
+    600, and both designs' time by phase on one line each;
     K against its plain version on the card (parameters, state and hist)
     for every stream's first 8 frames and a window of 8 mid-stream from
     K's returned state; the frames decoded by G to K's shadow state;
     decode(encode(x))'s corr and segSNR; then `cli.main -i speech.wav -f
-    act --max-frames 40` on a 22,050 Hz stereo WAV (the host encoder after
+    act --max-frames 16` on a 22,050 Hz stereo WAV (the host encoder after
     the resampling on the card), timed, its file decoded by G against the
-    resampled mono input;
+    resampled mono input (16 frames and K's turns at one shape, which
+    leave room for phase 18);
 17. (run after phase 4, on the corpus of phase 3: 4,800 frames) pixel
     outputs and amvlib:
     kernel Y against its plain version, bit for bit, in all 15 formats
@@ -190,7 +192,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     decode, Y or color, device->host, write); AmvOpen ->
     AmvReadNextFrame / AmvVideoDecode over every frame on the card (D and
     W once a frame), frames/s, the first 64 equal to the batch decode
-    decode_frames_amvlib_rgb.
+    decode_frames_amvlib_rgb;
+18. (run after phase 14, on 8 of its pictures) progressive and lossless
+    MJPEG input: the pictures encoded by the port, progressive (the
+    coefficients of the baseline encode at qscale 2, Al 1 and refinement
+    scans) and lossless (4:2:0, predictor 1), in 4 worker processes, each
+    set tiled to a 5-minute 4,800-frame MJPG AVI with 44,100 Hz PCM
+    (prog.avi, ll.avi) through `cli.main -i X.avi -f amv -r 16 -s 160x120
+    -ac 1 -ar 22050` x3, frames/s: I, V, E, Q launched for SOF2, V, E, Q
+    and not I for SOF3; the card's planes of the 8 distinct frames equal
+    the CPU route's, the progressive ones the baseline decode of the same
+    coefficients (through D), the lossless ones the pictures and the
+    plain Python walk's (in the workers); video equal to the C encoder of
+    the scaled planes, audio to the CPU route's; each file's stages one
+    by one (read, demux, header parse, host C walk on 8 threads, upload,
+    dequant, I, assembly, 4:2:0, scale, V, E, escape, audio, mux); 64
+    check frames at 96x64, card = CPU (predictors 1-7 and point transform
+    2, restart interval 1, RGB plain, RCT and Pegasus, progressive Al 0
+    and 2, per-scan Huffman table redefinition); I against its plain
+    version at a 1,024-frame 4:2:0 320x240 batch.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -262,8 +282,8 @@ OPS_G729 = 24200
 # phase 16, G.729A encoding: a dictaphone's library of recordings in bulk
 K_STREAMS, K_FRAMES = 1024, 600      # 1,024 recordings of 6 s
 K_CHECK = 8                          # frames of each window held to plain
-K_CLI_FRAMES = 40                    # frames of cli.main -f act (host)
-K_TURNS = ((1024, 600), (4096, 150))  # K in turns with its first design
+K_CLI_FRAMES = 16                    # frames of cli.main -f act (host)
+K_TURNS = ((1024, 600),)             # K in turns with its first design
 # kernel K's float operations a frame, counted from g729_encode.cu (a
 # multiply, add, compare, select, division, square root or sign flip each
 # one).  The analysis: the window, the autocorrelation's 11 x 240
@@ -315,6 +335,9 @@ OPS_AMVLIB = 1300    # an amvlib block (amvlib_idct.cu: 64 dequant products,
                      # +128, the DC scan and the store's index arithmetic)
 Y_ORACLE = 4         # frames of each format held to the scalar oracle
 
+# phase 18, progressive and lossless MJPEG: distinct pictures of phase 14
+PROG_UNIQUE = 8
+
 # phase 12, ingest: a 5-minute capture of 320x240 I420 frames and 44,100 Hz
 # PCM through the reference's canonical `-s 160x120 -ar 22050`
 AVI_W, AVI_H, AVI_RATE = 320, 240, 44100
@@ -348,7 +371,8 @@ def import_port() -> SimpleNamespace:
     from amv_tpu_torch.codecs import amvlib_video
     from amv_tpu_torch.codecs import g729a, mjpeg, wav_audio
     from amv_tpu_torch.codecs import g729a_encoder_batch as g729_enc
-    from amv_tpu_torch.bitstream import jpeg_parse
+    from amv_tpu_torch.bitstream import jpeg_lossless, jpeg_parse
+    from amv_tpu_torch.bitstream import jpeg_progressive
     from amv_tpu_torch.containers import act, avi, riff, wav
     from amv_tpu_torch.kernels import _build, adpcm, fdct, idct
     from amv_tpu_torch.kernels import g729 as G
@@ -370,7 +394,7 @@ def import_port() -> SimpleNamespace:
     from amv_tpu_torch.tools import time_serving as tools_s
     from amv_tpu_torch.tools import time_transcode_kernel as tools_t
     from amv_tpu_torch.verify import fixtures, ref_adpcm, ref_g729
-    from amv_tpu_torch.verify import ref_trellis
+    from amv_tpu_torch.verify import ref_jpeg, ref_trellis
     from amv_tpu_torch.verify import ref_wav_audio, ref_yuv2rgb
     return SimpleNamespace(**locals())
 
@@ -1167,16 +1191,17 @@ def trellis_phase(m, dev, paths, card, check, kern, pics, pcm, tmp,
 
 
 def mjpeg_phase(m, dev, paths, card, check, amv_data, tmp,
-                n_frames=N_FRAMES, n_unique=N_UNIQUE, n_fmt=N_FMT) -> None:
+                n_frames=N_FRAMES, n_unique=N_UNIQUE, n_fmt=N_FMT):
     """Phase 14: a camera's MJPG AVI (the port's own 4:2:2 encode with a
     restart interval of 5 MCUs, n_unique seeded 320x240 pictures tiled to
     n_frames, 44,100 Hz PCM) through the canonical `-f amv -r 16 -s
-    160x120 -ac 1 -ar 22050 -trellis` (cli.main x3): F launched by the
+    160x120 -ac 1 -ar 22050 -trellis` (cli.main x2): F launched by the
     encode, I, V, E, Q and L by the conversion, every frame through the
     host C scan decoder; the card's planes equal the CPU route's, the
     video the C encoder's of them; the stages one by one; a 4:2:0
     `-vcodec mjpeg` file of the port decoded through kernel D; 4:2:0,
-    4:4:4 and gray with restart intervals 0 and 1, card against CPU."""
+    4:4:4 and gray with restart intervals 0 and 1, card against CPU.
+    Returns the pictures (y, cb, cr), for phase 18."""
     import torch
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     cpu = torch.device("cpu")
@@ -1225,16 +1250,16 @@ def mjpeg_phase(m, dev, paths, card, check, amv_data, tmp,
     reset_launches(m)
     h0 = m.mjpeg.HOST_FRAMES
     wall, walls = timed_cli(m, ["-i", src, *argv, dst, "--device",
-                                dev.type])
+                                dev.type], runs=2)
     paths["mjpeg ingest"] = launches(m)
     host = m.mjpeg.HOST_FRAMES - h0
     assert all(paths["mjpeg ingest"][k] > 0 for k in "IVEQL") and \
-        paths["mjpeg ingest"]["D"] == 0 and host == 3 * n_frames, \
+        paths["mjpeg ingest"]["D"] == 0 and host == 2 * n_frames, \
         (paths, host)
     with open(dst, "rb") as f:
         out = m.riff.demux(f.read())
     log(f"{card}: mjpeg ingest, cli.main -i cam.avi -f amv -r 16 -s 160x120"
-        f" -ac 1 -ar 22050 -trellis x3, {n_frames} frames in "
+        f" -ac 1 -ar 22050 -trellis x2, {n_frames} frames in "
         f"{', '.join(f'{t:.3f}' for t in walls)} s, median {wall:.3f} s = "
         f"{n_frames / wall:.1f} frames/s; {host} frames through the host C "
         f"scan decoder; launches {paths['mjpeg ingest']}")
@@ -1377,6 +1402,347 @@ def mjpeg_phase(m, dev, paths, card, check, amv_data, tmp,
         "equal the CPU route's; ms (host clock, one call): " +
         ", ".join(f"{k} {v * 1e3:.1f}" for k, v in ms.items()))
     log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
+    return pics
+
+
+def _redefined_tables_frame(m):
+    """An 8x8 gray progressive frame whose two AC scans use different
+    Huffman tables under the same id (1, 0), as libjpeg/mozjpeg's
+    optimized output redefines them between scans; its coefficients are
+    DC 5, AC1 3 and AC6 -2."""
+    T, R = m.jpeg_tables, m.ref_jpeg
+
+    def table(lens_vals):
+        bits, vals = np.zeros(17, np.int32), [v for _, v in lens_vals]
+        for n, _ in lens_vals:
+            bits[n] += 1
+        return bits, np.array(vals, np.int32)
+
+    def dht(tc, bits, vals):
+        body = bytes([tc << 4]) + bytes(bits[1:].astype(np.uint8)) + \
+            bytes(vals.astype(np.uint8))
+        return b"\xFF\xC4" + (len(body) + 2).to_bytes(2, "big") + body
+
+    def scan(ss, se, puts):
+        bw = R.BitWriter()
+        for n, v in puts:
+            bw.put_bits(n, v)
+        bw.put_bits((-bw.bit_count()) & 7, 0xFF)
+        return b"\xFF\xDA\x00\x08\x01\x01\x00" + bytes([ss, se, 0]) + \
+            R.escape_ff(bw.flush())
+
+    def code(t, sym):
+        sizes, codes = T.build_huffman_codes(*t)
+        return int(sizes[sym]), int(codes[sym])
+
+    dc = table([(3, k) for k in range(8)])
+    ta = table([(2, 0x02), (2, 0x00)])
+    tb = table([(1, 0x00), (2, 0x02)])
+    return (b"\xFF\xD8\xFF\xDB\x00\x43\x00" + bytes([1] * 64) +
+            dht(0, *dc) + dht(1, *ta) +
+            b"\xFF\xC2\x00\x0B\x08\x00\x08\x00\x08\x01\x01\x11\x00" +
+            scan(0, 0, [code(dc, 3), (3, 0b101)]) +
+            scan(1, 5, [code(ta, 2), (2, 0b11), code(ta, 0)]) +
+            dht(1, *tb) + scan(6, 63, [code(tb, 2), (2, 0b01), code(tb, 0)])
+            + b"\xFF\xD9")
+
+
+def sof2_sof3_phase(m, dev, paths, card, check, tmp, pics,
+                    n_frames=N_FRAMES, n_unique=PROG_UNIQUE,
+                    workers=4) -> None:
+    """Phase 18: progressive (SOF2) and lossless (SOF3) MJPEG input.
+    n_unique of phase 14's 320x240 pictures, encoded progressive (the
+    coefficients of the port's baseline encode at qscale 2, DC made
+    absolute; Al 1 and refinement scans) and lossless (4:2:0, predictor 1)
+    by the port's encoders in a pool of worker processes, each set tiled
+    to n_frames in a 5-minute MJPG AVI with 44,100 Hz PCM, through the
+    canonical `-f amv -r 16 -s 160x120 -ac 1 -ar 22050` (cli.main x3):
+    I, V, E, Q launched for SOF2, V, E, Q (not I) for SOF3; the stages one
+    by one; the card's planes of the distinct frames equal the CPU
+    route's, the progressive ones the baseline decode of the same
+    coefficients, the lossless ones the pictures and the plain Python
+    walk's (in the workers); the audio the CPU route's; 8 x n_unique
+    check frames at 96x64, card = CPU (predictors 1-7, RGB plain, RCT and
+    Pegasus, point transform 2, restart interval 1, progressive Al 0 and
+    2, per-scan table redefinition); I against its plain version at this
+    path's shape."""
+    import torch
+    t18 = time.perf_counter()
+    cpu = torch.device("cpu")
+    y, cb, cr = (np.ascontiguousarray(p[:n_unique]) for p in pics)
+    mb_w, mb_h = AVI_W // 16, AVI_H // 16
+    zz = torch.as_tensor(m.jpeg_tables.ZIGZAG, device=dev).long()
+
+    def levels(planes, w, h):
+        """Zigzag levels of the port's baseline encode (qscale 2)."""
+        blocks = m.mjpeg.extract_blocks_topdown(
+            *(torch.from_numpy(p).to(dev) for p in planes), "420",
+            (w + 15) // 16, (h + 15) // 16)
+        return m.fdct.fdct_quantize(blocks.contiguous(), m.jpeg_tables.
+                                    encoder_qmat(QSCALE))[..., zz].cpu().numpy()
+
+    lv = levels((y, cb, cr), AVI_W, AVI_H)
+    prog_lv = lv.copy()
+    prog_lv[..., 0] -= 128          # the progressive DC is absolute
+    # the 64 check frames, at 96x64
+    cw, ch = 96, 64
+    cy, ccb, ccr = y[:, :ch, :cw], cb[:, :ch // 2, :cw // 2], \
+        cr[:, :ch // 2, :cw // 2]
+    clv = levels((cy, ccb, ccr), cw, ch)
+    clv[..., 0] -= 128
+    enc_p, enc_l = m.jpeg_progressive.encode_progressive, \
+        m.jpeg_lossless.encode_lossless
+    pool = concurrent.futures.ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        jobs = {"prog": [pool.submit(enc_p, prog_lv[i], (AVI_W, AVI_H))
+                         for i in range(n_unique)],
+                "ll": [pool.submit(enc_l, [y[i], cb[i], cr[i]], 1)
+                       for i in range(n_unique)]}
+        k = range(n_unique)
+        checks = {
+            "predictors 1-7, pt 2": [pool.submit(
+                enc_l, [cy[i], ccb[i], ccr[i]], 1 + i % 7,
+                2 if i == 7 else 0) for i in k],
+            "restart interval 1": [pool.submit(
+                enc_l, [cy[i], ccb[i], ccr[i]], 1 + i % 7, 0, False, False,
+                False, 8, 1) for i in k],
+            **{f"rgb {x}": [pool.submit(
+                enc_l, [cy[i], cy[i][::-1].copy(), cy[i][:, ::-1].copy()],
+                1 + i % 7, 0, True, x == "pegasus", x == "rct") for i in k]
+               for x in ("plain", "rct", "pegasus")},
+            **{f"progressive al {a}": [pool.submit(enc_p, clv[i], (cw, ch),
+                                                   "420", a, a) for i in k]
+               for a in (0, 2)}}
+        prog = [f.result() for f in jobs["prog"]]
+        ll = [f.result() for f in jobs["ll"]]
+        plain = [pool.submit(m.jpeg_lossless.decode_lossless, p, False)
+                 for p in ll]
+        checks = {key: [f.result() for f in fs] for key, fs in checks.items()}
+        checks["per-scan tables"] = [_redefined_tables_frame(m)] * n_unique
+        plain = [f.result() for f in plain]
+    finally:
+        pool.shutdown()
+    base = [m.mjpeg.jpeg_header_with_tables(
+        AVI_W, AVI_H, m.jpeg_tables.encoder_quant_matrix(QSCALE)[
+            m.jpeg_tables.ZIGZAG]) + s + b"\xFF\xD9"
+        for s in m.native.pack_scans_generic(lv, m.mjpeg.COMP_OF_BLOCK["420"])]
+    pcm_in = m.fixtures.audiogen(n_frames / FPS, AVI_RATE, seed=18)
+    files = {}
+    for name, frames in (("prog", prog), ("ll", ll)):
+        tiled = [frames[i % n_unique] for i in range(n_frames)]
+        files[name] = os.path.join(tmp, f"{name}.avi")
+        for path, n, a in ((files[name], n_frames, pcm_in),
+                           (os.path.join(tmp, f"{name}_warm.avi"), 16,
+                            pcm_in[:AVI_RATE])):
+            geom = np.broadcast_to(np.uint8(0), (n, AVI_H, AVI_W))
+            with open(path, "wb") as f:
+                f.write(m.avi.mux(geom, geom, geom, a, fps=FPS,
+                                  sample_rate=AVI_RATE,
+                                  video_chunks=tiled[:n]))
+    log(f"sof2/sof3 input: {n_unique} of phase 14's {AVI_W}x{AVI_H} "
+        f"pictures encoded by the port in {workers} worker processes, "
+        f"progressive (Al 1 + refinement, {min(map(len, prog))}-"
+        f"{max(map(len, prog))} bytes) and lossless (4:2:0, predictor 1, "
+        f"{min(map(len, ll))}-{max(map(len, ll))} bytes), each tiled to "
+        f"{n_frames} frames with {len(pcm_in)} samples of 44,100 Hz PCM: "
+        f"prog.avi {os.path.getsize(files['prog'])} bytes, ll.avi "
+        f"{os.path.getsize(files['ll'])} bytes; "
+        f"{time.perf_counter() - t18:.1f} s")
+
+    argv = ["-f", "amv", "-r", str(FPS), "-s", f"{W}x{H}", "-ac", "1",
+            "-ar", str(RATE)]
+    frame_size = m.encode.av_rescale_near(RATE, 1, FPS)
+    audio = None
+    for name, want_kernels in (("prog", "IVEQ"), ("ll", "VEQ")):
+        src, dst = files[name], os.path.join(tmp, f"{name}.amv")
+        m.cli.main(["-i", os.path.join(tmp, f"{name}_warm.avi"), *argv,
+                    os.path.join(tmp, "w.amv"), "--device", dev.type])
+        torch.cuda.synchronize()
+        reset_launches(m)
+        wall, walls = timed_cli(m, ["-i", src, *argv, dst, "--device",
+                                    dev.type])
+        key = {"prog": "progressive ingest", "ll": "lossless ingest"}[name]
+        paths[key] = launches(m)
+        assert all(paths[key][k] > 0 for k in want_kernels) and \
+            (name == "prog" or paths[key]["I"] == 0) and \
+            paths[key]["D"] == 0, paths[key]
+        log(f"{card}: {key}, cli.main -i {name}.avi -f amv -r 16 -s 160x120 "
+            f"-ac 1 -ar 22050 x3, {n_frames} frames in "
+            f"{', '.join(f'{t:.3f}' for t in walls)} s, median {wall:.3f} s"
+            f" = {n_frames / wall:.1f} frames/s; launches {paths[key]}")
+        with open(dst, "rb") as f:
+            out = m.riff.demux(f.read())
+
+        # the distinct frames: the card's planes against the CPU route's,
+        # and the video against the C encoder of them
+        vst, ast = m.avi.read(src)
+        head = m.avi.AviStream("video", codec=vst.codec, width=vst.width,
+                               height=vst.height,
+                               chunks=vst.chunks[:n_unique])
+        planes = {}
+        for d in (dev, cpu):
+            dec = m.avi.extract_yuv420(head, device=d)
+            planes[d.type] = [t.cpu() for t in (*dec, *m.scale.resize_yuv420(
+                *dec, H, W))]
+        assert all(torch.equal(a, b) for a, b in zip(planes[dev.type],
+                                                     planes["cpu"])), name
+        if name == "prog":
+            got = m.mjpeg.decode_mjpeg_frames(base, device=dev)
+            assert all(torch.equal(a, b.cpu()) for a, b in
+                       zip(planes["cpu"][:3], got)), \
+                "progressive planes differ from the baseline decode"
+        else:
+            for a, b in zip(planes["cpu"][:3], (y, cb, cr)):
+                assert np.array_equal(a.numpy(), b), "lossless != pictures"
+            for i, (mode, pl, _) in enumerate(plain):
+                assert mode == "yuv" and all(np.array_equal(
+                    a[i].numpy(), b) for a, b in zip(planes["cpu"][:3], pl))
+        sy, scb, scr = (t.numpy() for t in planes["cpu"][3:])
+        uniq = [m.native.ref_encode_frame(sy[i], scb[i], scr[i], QSCALE)
+                for i in range(n_unique)]
+        assert out.video_chunks == [uniq[i % n_unique]
+                                    for i in range(n_frames)], name
+        # both files carry the same PCM: the CPU route's audio once (phase
+        # 12 holds this route against the ADPCM oracle)
+        if audio is None:
+            pcm_r = m.resample.resample_pcm(
+                m.avi.extract_pcm(ast, device=cpu), AVI_RATE, RATE,
+                device=cpu).numpy()
+            audio = m.amv_audio.encode_stream(pcm_r, frame_size, RATE,
+                                              device=cpu)
+        assert out.audio_chunks == audio, name
+        log(f"{name}: the card's decoded and scaled planes of the "
+            f"{n_unique} distinct frames equal the CPU route's" +
+            (", and the baseline decode of the same coefficients"
+             if name == "prog" else ", the pictures, and the plain Python "
+             "walk's (decode_lossless(native=False), in the workers)") +
+            "; video byte-identical to the C encoder of them; audio the "
+            "CPU route's")
+
+        # the stages one by one, all frames at once, a sync after each
+        split = {}
+
+        def read():
+            with open(src, "rb") as f:
+                return f.read()
+
+        data = staged(split, "read", read)
+        vst, ast = staged(split, "demux", lambda: m.avi.demux(data))
+        chunks, dec = vst.chunks, None
+        if name == "prog":
+            scans = staged(split, "parse headers", lambda: [
+                m.jpeg_progressive.parse_scans(c) for c in chunks])
+            host = torch.empty((n_frames, mb_w * mb_h, 6, 64),
+                               dtype=torch.int16, pin_memory=True)
+            hn = host.numpy()
+
+            def walk(part):
+                for j in part:
+                    hn[j] = m.jpeg_progressive.decode_scans(scans[j])[0]
+
+            staged(split, "host C walk", lambda: m.mjpeg._threads(
+                walk, range(n_frames)))
+            lv_d = staged(split, "upload", lambda: host.to(
+                dev, non_blocking=True))
+            f0 = scans[0].frame
+            qm = np.stack([f0.quant[c[3]] for c in f0.components
+                           for _ in range(c[1] * c[2])])
+            raster = staged(split, "device dequant", lambda: (
+                m.mjpeg.dequantize(lv_d, qm, "420", dc_absolute=True)))
+            del lv_d, host, hn, scans
+            pix = staged(split, "device I (idct_put)",
+                         lambda: m.idct.idct_put(raster))
+            dec = staged(split, "device assembly", lambda: [
+                t.clone() for t in m.mjpeg.assemble(pix, "420", mb_w, mb_h,
+                                                    AVI_W, AVI_H)])
+            del pix
+            p420 = staged(split, "device to 4:2:0", lambda: (
+                m.avi.mjpeg_to_yuv420(*dec, AVI_W, AVI_H)))
+        else:
+            tables = {}
+            ps = staged(split, "parse headers", lambda: [
+                m.jpeg_lossless.parse_frame(c, tables) for c in chunks])
+            size = [r * c for r, c in ps[0].shapes]
+            off = np.cumsum([0] + size)
+            host = torch.empty((n_frames, int(off[-1])), dtype=torch.uint8,
+                               pin_memory=True)
+            hn = host.numpy()
+
+            def walk(part):
+                for j in part:
+                    m.jpeg_lossless.decode_into(ps[j], hn[j], off[:-1])
+
+            staged(split, "host C walk", lambda: m.mjpeg._threads(
+                walk, range(n_frames)))
+            pl_d = staged(split, "upload", lambda: host.to(
+                dev, non_blocking=True))
+            del ps, host, hn
+            p420 = staged(split, "device to 4:2:0", lambda: (
+                m.avi._to_yuv420(*(pl_d[:, o:o + s].reshape(
+                    n_frames, r, c).contiguous() for o, s, (r, c) in zip(
+                        off.tolist(), size, ((AVI_H, AVI_W),
+                                             (AVI_H // 2, AVI_W // 2),
+                                             (AVI_H // 2, AVI_W // 2)))),
+                    AVI_W, AVI_H)))
+            del pl_d
+        scaled = staged(split, "device scale", lambda: (
+            m.scale.resize_yuv420(*p420, H, W)))
+        lv_e = staged(split, "device V", lambda: m.V.encode_planes(
+            *scaled, QSCALE))
+        bits = staged(split, "device E count", lambda: m.E.count_bits(lv_e))
+        words, bits, _ = staged(split, "device E", lambda: (
+            m.E.encode_levels(lv_e, m.amv_video.used_words(bits))))
+        w_np, b_np = staged(split, "device->host words", lambda: (
+            words.cpu().numpy(), bits.cpu().numpy()))
+        vch = staged(split, "escape", lambda: m.native.escape_frames(w_np,
+                                                                     b_np))
+        pcm_d = staged(split, "audio extract", lambda: m.avi.extract_pcm(
+            ast, device=dev))
+        pcm_h = staged(split, "device resample + to host", lambda: (
+            m.resample.resample_pcm(pcm_d, AVI_RATE, RATE,
+                                    device=dev).cpu().numpy()))
+        achunks = staged(split, "audio Q", lambda: (
+            m.amv_audio.encode_stream(pcm_h, frame_size, RATE, device=dev)))
+        staged(split, "mux", lambda: m.riff.mux(
+            vch, achunks, width=W, height=H, fps=FPS, sample_rate=RATE))
+        assert vch == out.video_chunks and achunks == out.audio_chunks, name
+        log_split(f"{card}: {key}", split, f"; {n_frames} frames, all at "
+                  "once (the CLI decodes and scales in batches of 1,024)")
+        if name == "prog":
+            batch = min(n_frames, m.avi.BATCH_FRAMES)
+            check("I progressive", lambda: (m.idct.idct_put(raster[:batch]),),
+                  lambda: (m.idct.idct_put_plain(
+                      raster[:batch].reshape(-1, 64)).reshape(
+                      raster[:batch].shape),),
+                  f"{raster[:batch].numel() // 64} blocks ({batch} frames of "
+                  "4:2:0, the CLI's batch)", raster[:batch].numel() * 3,
+                  raster[:batch].numel() // 64 * OPS_IDCT)
+            del raster
+        del data, vst, dec, p420, scaled, lv_e, words
+
+    # the 64 check frames, card against CPU
+    for key, frames in checks.items():
+        if key.startswith("rgb"):
+            got = m.mjpeg.decode_lossless_frames(frames, device=dev)
+            want = m.mjpeg.decode_lossless_frames(frames, device=cpu)
+            assert got[0] == want[0] == "rgb", key
+            got, want = got[1], want[1]
+        else:
+            got = m.mjpeg.decode_mjpeg_frames(frames, device=dev)
+            want = m.mjpeg.decode_mjpeg_frames(frames, device=cpu)
+        assert all((a is None and b is None) or torch.equal(a.cpu(), b)
+                   for a, b in zip(got, want)), key
+    lv8, _ = m.jpeg_progressive.decode_progressive(checks["per-scan tables"][0])
+    assert lv8[0, 0, 0] == 5 and lv8[0, 0, 1] == 3 and lv8[0, 0, 6] == -2
+    rgb = m.avi.AviStream("video", codec=b"MJPG", width=cw, height=ch,
+                          chunks=checks["rgb rct"])
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(
+        m.avi.extract_yuv420(rgb, device=dev),
+        m.avi.extract_yuv420(rgb, device=cpu))), "rgb extract"
+    log(f"{card}: {sum(map(len, checks.values()))} check frames at {cw}x{ch}"
+        f" ({', '.join(checks)}): planes on the card equal the CPU route's")
+    log(f"phase 18 took {time.perf_counter() - t18:.1f} s")
 
 
 def g729_phase(m, dev, paths, card, kern, extra, tmp, mhz, g_sass,
@@ -3006,7 +3372,10 @@ def main() -> int:
         # ---- 13. trellis --------------------------------------------
         trellis_phase(m, dev, paths, smi, check, kern, pics, pcm, tmp)
         # ---- 14. MJPEG ingest ---------------------------------------
-        mjpeg_phase(m, dev, paths, smi, check, data, tmp)
+        pics14 = mjpeg_phase(m, dev, paths, smi, check, data, tmp)
+        # ---- 18. progressive and lossless MJPEG ingest ----------------
+        sof2_sof3_phase(m, dev, paths, smi, check, tmp, pics14)
+        del pics14
         # ---- 15. G.729A ---------------------------------------------
         g729_phase(m, dev, paths, smi, kern, extra, tmp, max_mhz, g_sass)
         # ---- 16. G.729A encode --------------------------------------
@@ -3076,7 +3445,12 @@ def main() -> int:
                      "sass_a_block": sass_t}
                if key == "T"
                else {"wrap_ms": kern["A wrap"]["ms"]} if key == "A"
-               else {"layout_ms": kern["I"]["ms"]} if key == "I"
+               else {"layout_ms": kern["I"]["ms"],
+                     "progressive_ms": kern["I progressive"]["ms"],
+                     "progressive_plain_ms": kern["I progressive"]["plain_ms"],
+                     "progressive_bound_ms": kern["I progressive"]["bound_ms"],
+                     "progressive_launches": paths["progressive ingest"]["I"]}
+               if key == "I"
                else {"layout_ms": kern["F"]["ms"],
                      "raster_corpus_ms": kern["F raster"]["ms"]} if key == "F"
                else {"rounds": kern[key]["rounds"],

@@ -20,7 +20,8 @@ from amv_tpu.containers import avi as jax_avi  # noqa: E402
 from amv_tpu.pipeline import encode as jax_encode  # noqa: E402
 from amv_tpu.verify import fixtures  # noqa: E402
 from amv_tpu_torch import cli  # noqa: E402
-from amv_tpu_torch.codecs import mjpeg  # noqa: E402
+from amv_tpu_torch.bitstream import jpeg_lossless  # noqa: E402
+from amv_tpu_torch.bitstream import jpeg_progressive  # noqa: E402
 from amv_tpu_torch.containers import avi  # noqa: E402
 
 
@@ -167,21 +168,35 @@ def test_extract_yuv420_matches_jax(codec, bits, kw, monkeypatch):
         assert g.dtype == torch.uint8 and np.array_equal(g.numpy(), w)
 
 
-def test_extract_yuv420_refusals():
+def test_extract_yuv420_refusals(monkeypatch):
+    """Progressive (SOF2) and lossless (SOF3) MJPEG streams, once refused,
+    give the JAX package's planes (lossless in YUV 4:2:0, 4:2:2, gray and
+    RGB modes, in batches of 2 frames); other codecs and short frames are
+    refused by both."""
     rng = np.random.default_rng(9)
-    # progressive (SOF2) and lossless (SOF3) MJPEG: a baseline frame with
-    # its SOF0 marker byte changed, refused naming the JAX module
-    base = mjpeg.encode_mjpeg_frames(
-        rng.integers(0, 256, (1, 16, 16), dtype=np.uint8),
-        *rng.integers(0, 256, (2, 1, 8, 8), dtype=np.uint8), device="cpu")
-    for sof, module in ((b"\xff\xc2", "jpeg_progressive"),
-                        (b"\xff\xc3", "jpeg_lossless")):
-        frame = base[0].replace(b"\xff\xc0", sof, 1)
-        with pytest.raises(NotImplementedError,
-                           match=f"not yet ported.*amv_tpu/bitstream/{module}"):
-            avi.extract_yuv420(avi.AviStream("video", codec=b"MJPG", width=16,
-                                             height=16, chunks=[frame]),
-                               device="cpu")
+    monkeypatch.setattr(avi, "BATCH_FRAMES", 2)
+    pics = [rng.integers(0, 256, (16, 16), dtype=np.uint8) for _ in range(5)]
+    lv = np.zeros((1, 6, 64), np.int16)
+    lv[0, :, :10] = rng.integers(-20, 21, (6, 10))
+    streams = {
+        "sof2": [jpeg_progressive.encode_progressive(lv * k, (16, 16))
+                 for k in (1, 2, 3)],
+        "sof3 420": [jpeg_lossless.encode_lossless(
+            [p, p[:8, :8], p[8:, 8:]], predictor=4) for p in pics],
+        "sof3 422": [jpeg_lossless.encode_lossless(
+            [p, p[:, :8], p[:, 8:]], predictor=2) for p in pics],
+        "sof3 gray": [jpeg_lossless.encode_lossless([p], predictor=7)
+                      for p in pics],
+        "sof3 rgb": [jpeg_lossless.encode_lossless(
+            [p, p.T, p[::-1]], predictor=6, rgb=True, pegasus=True)
+            for p in pics]}
+    for key, chunks in streams.items():
+        spec = dict(codec=b"MJPG", width=16, height=16, chunks=chunks)
+        got = avi.extract_yuv420(avi.AviStream("video", **spec), device="cpu")
+        want = jax_avi.extract_yuv420(jax_avi.AviStream("video", **spec))
+        for g, w in zip(got, want):
+            assert g.dtype == torch.uint8, key
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     for codec, bits in ((b"H264", 24), (b"XVID", 12)):
         st = dict(codec=codec, width=16, height=16, bits=bits,
                   chunks=[bytes(rng.integers(0, 256, 1000, dtype=np.uint8))])

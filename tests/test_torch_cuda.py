@@ -21,7 +21,8 @@ torch = pytest.importorskip("torch")
 from amv_tpu_torch import native  # noqa: E402
 from amv_tpu_torch.codecs import amv_audio, amv_video  # noqa: E402
 from amv_tpu_torch.codecs.amv_video import encoder_qmat  # noqa: E402
-from amv_tpu_torch.codecs.jpeg_tables import ENC_TABLES, ZIGZAG  # noqa: E402
+from amv_tpu_torch.codecs.jpeg_tables import (  # noqa: E402
+    ENC_TABLES, ZIGZAG, encoder_quant_matrix)
 from amv_tpu_torch.containers import riff  # noqa: E402
 from amv_tpu_torch.kernels import adpcm as AQ  # noqa: E402
 from amv_tpu_torch.kernels import decode_fused as U  # noqa: E402
@@ -1256,6 +1257,82 @@ def test_idct_put_and_fdct_quantize_at_mjpeg_shapes(dev):
     q = encoder_qmat(2)
     assert torch.equal(F.fdct_quantize(pix.to(dev), q).cpu(),
                        F.fdct_quantize(pix, q))
+
+
+def _sof2_sof3_frames(n, h, w, seed):
+    """n seeded pictures as progressive (SOF2: the coefficients of the
+    port's baseline encode, DC made absolute, Al 1 and refinement scans)
+    and lossless (SOF3) 4:2:0 frames, the lossless ones also in RGB mode."""
+    from amv_tpu_torch.bitstream import jpeg_lossless as PL
+    from amv_tpu_torch.bitstream import jpeg_progressive as PP
+    from amv_tpu_torch.codecs import mjpeg as M
+    y, cb, cr = fixtures.videogen(n, h, w, seed=seed)
+    cb, cr = cb[:, :h // 2, :w // 2], cr[:, :h // 2, :w // 2]
+    blocks = M.extract_blocks_topdown(
+        *(torch.from_numpy(np.ascontiguousarray(p)) for p in (y, cb, cr)),
+        "420", (w + 15) // 16, (h + 15) // 16)
+    lv = F.fdct_quantize(blocks.contiguous(), encoder_qmat(2))
+    lv = lv[..., torch.as_tensor(ZIGZAG).long()].numpy().copy()
+    lv[..., 0] -= 128
+    prog = [PP.encode_progressive(f, (w, h)) for f in lv]
+    ll = [PL.encode_lossless([y[i], cb[i], cr[i]], predictor=1 + i % 7)
+          for i in range(n)]
+    rgb = [PL.encode_lossless([y[i], y[i][::-1], y[i][:, ::-1]],
+                              predictor=4, rgb=True, rct=i % 2 == 0)
+           for i in range(n)]
+    return y, cb, cr, prog, ll, rgb
+
+
+def test_progressive_lossless_cuda_match_cpu(dev, tmp_path):
+    """Progressive (SOF2) and lossless (SOF3) MJPEG input on the card:
+    decode_mjpeg_frames' and decode_lossless_frames' planes (I launched
+    for SOF2, none of I for SOF3) and the canonical `-f amv` conversion's
+    bytes equal the CPU route's, for each stream, an RGB-mode one
+    included."""
+    from amv_tpu_torch import cli
+    from amv_tpu_torch.codecs import mjpeg as M
+    from amv_tpu_torch.containers import avi
+    y, cb, cr, prog, ll, rgb = _sof2_sof3_frames(12, 240, 320, seed=18)
+    for frames, kernel_i in ((prog, True), (ll, False)):
+        i0 = I.LAUNCHES
+        got = M.decode_mjpeg_frames(frames, device=dev, batch_frames=5)
+        assert (I.LAUNCHES > i0) == kernel_i
+        want = M.decode_mjpeg_frames(frames, device="cpu")
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    got = M.decode_lossless_frames(rgb, device=dev, batch_frames=5)
+    want = M.decode_lossless_frames(rgb, device="cpu")
+    assert got[0] == want[0] == "rgb"
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got[1], want[1]))
+    pcm = fixtures.audiogen(12 / 16, 44100, seed=18)
+    for name, frames in (("prog", prog), ("ll", ll), ("rgb", rgb)):
+        src = tmp_path / f"{name}.avi"
+        src.write_bytes(avi.mux(y, cb, cr, pcm, fps=16, sample_rate=44100,
+                                video_chunks=frames))
+        argv = ["-i", str(src), "-f", "amv", "-r", "16", "-s", "160x120",
+                "-ac", "1", "-ar", "22050"]
+        v0 = V.LAUNCHES
+        for d in ("cuda", "cpu"):
+            assert cli.main([*argv, str(tmp_path / f"{d}.amv"), "--device",
+                             d]) == 0
+        assert V.LAUNCHES > v0
+        assert (tmp_path / "cuda.amv").read_bytes() == \
+            (tmp_path / "cpu.amv").read_bytes(), name
+
+
+def test_idct_put_at_progressive_shape(dev):
+    """I's idct_put at the progressive path's shape (a batch of 1,024
+    320x240 4:2:0 frames: 1,843,200 blocks) against its plain version,
+    dequantized with the absolute DC, extreme coefficients included."""
+    from amv_tpu_torch.codecs import mjpeg as M
+    rng = np.random.default_rng(18)
+    lv = torch.from_numpy(rng.integers(-300, 301, (1024, 300, 6, 64))
+                          .astype(np.int16))
+    lv[0, 0, :, 0] = 32767
+    qm = np.tile(encoder_quant_matrix(2)[ZIGZAG], (6, 1))
+    coef = M.dequantize(lv.to(dev), qm, "420", dc_absolute=True)
+    assert torch.equal(coef.cpu(), M.dequantize(lv, qm, "420",
+                                                dc_absolute=True))
+    assert torch.equal(I.idct_put(coef).cpu(), I.idct_put(coef.cpu()))
 
 
 def test_ms_kernel_matches_plain_odd_rows(dev):

@@ -21,10 +21,13 @@ from amv_tpu.pipeline import encode as jax_encode  # noqa: E402
 from amv_tpu.pipeline import transcode as jax_transcode  # noqa: E402
 from amv_tpu.verify import fixtures, ref_adpcm  # noqa: E402
 from amv_tpu_torch import cli, native  # noqa: E402
+from amv_tpu_torch.bitstream import jpeg_lossless as PL  # noqa: E402
+from amv_tpu_torch.bitstream import jpeg_progressive as PP  # noqa: E402
 from amv_tpu_torch.codecs import g729a as G  # noqa: E402
 from amv_tpu_torch.codecs import mjpeg as MJ  # noqa: E402
 from amv_tpu_torch.containers import avi, riff, wav  # noqa: E402
 from amv_tpu_torch.kernels import transcode as T  # noqa: E402
+from amv_tpu_torch.kernels.fdct import fdct_quantize  # noqa: E402
 from amv_tpu_torch.pipeline import batch as PB  # noqa: E402
 from amv_tpu_torch.pipeline import decode as PD  # noqa: E402
 from amv_tpu_torch.pipeline import encode as PE  # noqa: E402
@@ -162,6 +165,18 @@ def test_cli_q60_routes(clip, tmp_path):
                                                              quant="q60")
 
 
+def _progressive_frames(y, cb, cr):
+    """The clip as progressive (SOF2) frames of the port's encoder: the
+    coefficients of its baseline encode (qscale 2), DC made absolute."""
+    mb_w, mb_h = (W + 15) // 16, (H + 15) // 16
+    blocks = MJ.extract_blocks_topdown(
+        *(torch.from_numpy(p) for p in (y, cb, cr)), "420", mb_w, mb_h)
+    lv = fdct_quantize(blocks.contiguous(), MJ.T.encoder_qmat(2))
+    lv = lv[..., torch.as_tensor(MJ.T.ZIGZAG).long()].numpy().copy()
+    lv[..., 0] -= 128
+    return [PP.encode_progressive(f, (W, H)) for f in lv]
+
+
 @pytest.mark.parametrize("argv", [
     ["-i", "{amv}", "{tmp}/out.bmp"],
     ["-i", "{amv}", "-pix_fmt", "rgb565", "{tmp}/out.rgb"],
@@ -169,40 +184,33 @@ def test_cli_q60_routes(clip, tmp_path):
     ["-i", "{sof2}", "-f", "amv", "{tmp}/out.amv"],
     ["-i", "{sof2}", "-f", "amv", "-s", "48x32", "{tmp}/out.amv"],
     ["-i", "{sof3}", "-f", "amv", "{tmp}/out.amv"],
+    ["-i", "{sof3rgb}", "-f", "amv", "-s", "32x24", "{tmp}/out.amv"],
 ])
 def test_cli_unported_routes_exit_nonzero(clip, tmp_path, argv):
-    """Progressive (SOF2) and lossless (SOF3) MJPEG input exit non-zero,
-    naming the module they wait for, and write nothing; the .bmp and
-    -pix_fmt .rgb/.raw outputs, refused until kernel Y, write
-    `amv_tpu.cli`'s bytes."""
+    """The routes refused until their slice landed write `amv_tpu.cli`'s
+    bytes: progressive (SOF2) and lossless (SOF3, YUV and RGB mode) MJPEG
+    AVIs made by the port's encoders, through -f amv; the .bmp and
+    -pix_fmt .rgb/.raw outputs (kernel Y)."""
     y, cb, cr, pcm, data = clip
-    paths = {"amv": tmp_path / "in.amv", "yuv": tmp_path / "in.yuv",
-             "wav": tmp_path / "in.wav", "tmp": tmp_path,
-             "sof2": tmp_path / "sof2.avi", "sof3": tmp_path / "sof3.avi"}
+    paths = {"amv": tmp_path / "in.amv", "tmp": tmp_path}
     paths["amv"].write_bytes(data)
-    np.concatenate([p.reshape(N, -1) for p in (y, cb, cr)],
-                   axis=1).tofile(paths["yuv"])
-    wav.write_pcm(str(paths["wav"]), pcm, 22050)
-    # MJPG AVIs whose frames are progressive (SOF2) and lossless (SOF3):
-    # baseline frames with the SOF0 marker byte changed
-    base = MJ.encode_mjpeg_frames(y, cb, cr, device="cpu")
-    for key, sof in (("sof2", b"\xFF\xC2"), ("sof3", b"\xFF\xC3")):
+    frames = {
+        "sof2": _progressive_frames(y, cb, cr),
+        "sof3": [PL.encode_lossless([y[i], cb[i], cr[i]], predictor=1 + i)
+                 for i in range(N)],
+        "sof3rgb": [PL.encode_lossless([y[i], y[i][::-1], y[i][:, ::-1]],
+                                       predictor=4, rgb=True, rct=i % 2 == 0)
+                    for i in range(N)]}
+    for key, chunks in frames.items():
+        paths[key] = tmp_path / f"{key}.avi"
         paths[key].write_bytes(avi.mux(
-            y, cb, cr, pcm, fps=16, sample_rate=22050,
-            video_chunks=[c.replace(b"\xFF\xC0", sof, 1) for c in base]))
-    if argv[1] == "{amv}":
-        out = argv[-1].format(**paths)
-        assert _run(*(a.format(**paths) for a in argv)) == 0
-        want = str(tmp_path / "jax") + os.path.splitext(out)[1]
-        assert jcli.main([a.format(**paths) for a in argv[:-1]] + [want]) \
-            == 0
-        with open(out, "rb") as a, open(want, "rb") as b:
-            assert a.read() == b.read()
-        return
-    with pytest.raises(SystemExit) as e:
-        _run(*(a.format(**paths) for a in argv))
-    assert "not yet ported: it needs amv_tpu/" in str(e.value.code)
-    assert not [f for f in os.listdir(tmp_path) if f.startswith("out")]
+            y, cb, cr, pcm, fps=16, sample_rate=22050, video_chunks=chunks))
+    out = argv[-1].format(**paths)
+    assert _run(*(a.format(**paths) for a in argv)) == 0
+    want = str(tmp_path / "jax") + os.path.splitext(out)[1]
+    assert jcli.main([a.format(**paths) for a in argv[:-1]] + [want]) == 0
+    with open(out, "rb") as a, open(want, "rb") as b:
+        assert a.read() == b.read()
 
 
 def test_explicit_device_contract(clip, tmp_path):
