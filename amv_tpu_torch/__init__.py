@@ -12,7 +12,9 @@ and PCM (`pipeline.decode.decode_bytes`), the AMV encode from them
 baseline MJPEG AVI, `-s` rescaling, `-ar` resampling, every WAVE format)
 and the `-trellis` quantizer, the baseline MJPEG encode
 (`codecs.mjpeg`), G.729A decoding of ACT recordings (`codecs.g729a`,
-`containers.act`), and their CLI routes (`python -m amv_tpu_torch`).  The
+`containers.act`), their CLI routes (`python -m amv_tpu_torch`), and the
+sharding over a mesh of devices (`parallel.sharding`,
+`pipeline.serving.AsyncTranscoder(mesh=...)`).  The
 port keeps its own copies of the host layer it needs (containers, tables,
 the C byte passes and oracles) and imports nothing of `amv_tpu`.
 """

@@ -161,10 +161,10 @@ def _launch(levels_zz, width: int, height: int, mode: int):
         return outs if mode == _PLANES else outs[0]
     tables, geo = kernel_args(f, width, height)
     ptrs = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
-    with torch.cuda.device(dev):
-        rc = _build.library().amv_amvlib_idct(
+    with _build.on_device(levels_zz) as (lib, stream):
+        rc = lib.amv_amvlib_idct(
             levels.data_ptr(), tables.ctypes.data, geo, *ptrs, mode,
-            _build.stream())
+            stream)
     _build.check(rc, "amv_amvlib_idct")
     global LAUNCHES
     LAUNCHES += 1

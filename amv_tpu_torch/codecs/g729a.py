@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels._build import device_key
 from ..verify import ref_g729 as R
 from . import g729_tables as T
 
@@ -91,7 +92,7 @@ _TABLES = {}
 def _tab(name: str, dev) -> torch.Tensor:
     """A table of g729_tables (or of this module) as an int32 tensor on
     dev, made once per device."""
-    key = (name, str(dev))
+    key = (name, device_key(dev))
     if key not in _TABLES:
         src = getattr(T, name) if hasattr(T, name) else globals()[name]
         _TABLES[key] = torch.as_tensor(np.asarray(src, np.int32),

@@ -36,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels._build import device_key
 from ..verify import ref_g729 as R
 from . import g729_tables as T
 from . import g729a as G
@@ -118,7 +119,7 @@ _CONST = {}
 
 def _c(name: str, dev) -> torch.Tensor:
     """A module-level array as a tensor on dev, made once per device."""
-    key = (name, str(dev))
+    key = (name, device_key(dev))
     if key not in _CONST:
         _CONST[key] = torch.as_tensor(globals()[name], device=dev)
     return _CONST[key]

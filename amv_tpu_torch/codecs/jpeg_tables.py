@@ -36,6 +36,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels._build import device_key
+
 ZIGZAG = np.array([
     0,   1,  8, 16,  9,  2,  3, 10,
     17, 24, 32, 25, 18, 11,  4,  5,
@@ -340,8 +342,9 @@ _ON_DEVICE: dict = {}
 
 def device_table(name: str, device: torch.device) -> torch.Tensor:
     """The named module-level table as a tensor on `device`, copied there
-    once and reused by every later call."""
-    key = (name, str(device))
+    once and reused by every later call ("cuda" is the current card's
+    copy)."""
+    key = (name, device_key(device))
     if key not in _ON_DEVICE:
         _ON_DEVICE[key] = torch.from_numpy(
             np.ascontiguousarray(globals()[name])).to(device)

@@ -7,10 +7,18 @@ link.  Every pointer and the stream cross as c_void_p.  The
 library is rebuilt when a source is newer than it; a failed build raises.
 Each C entry returns the cudaGetLastError() of its launch, and `check`
 raises on anything but 0.
+
+Every wrapper reaches its C entries inside `on_device(*tensors)`, the one
+launch guard: it makes the tensors' card the current device and hands
+over that card's current stream, so a kernel runs where its tensors lie
+(and its entry sizes its grid for that card) whichever device the caller
+had current.  tests/test_torch_sharding.py walks the port's sources and
+fails on a C entry called outside it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import os
@@ -132,20 +140,48 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def stream() -> int:
-    """The current torch CUDA stream as a raw handle for a launch."""
-    return torch.cuda.current_stream().cuda_stream
-
-
 def check(rc: int, name: str) -> None:
     """Raise if a C entry reported a CUDA error for its launch."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
 
-def require_cuda(*tensors: torch.Tensor) -> None:
-    """A kernel runs on CUDA tensors only, all on one device."""
+def require_cuda(*tensors: torch.Tensor) -> torch.device:
+    """A kernel runs on CUDA tensors only, all on one device: that device
+    (with its index)."""
     devs = {t.device for t in tensors}
     if len(devs) != 1 or next(iter(devs)).type != "cuda":
         raise ValueError(f"kernel inputs must share one CUDA device, "
                          f"got {sorted(map(str, devs))}")
+    return next(iter(devs))
+
+
+@contextlib.contextmanager
+def on_device(*tensors: torch.Tensor):
+    """The launch guard: with the tensors' CUDA device current (they must
+    all lie on one), yield (the loaded library, that device's current
+    stream as a raw handle for the launch)."""
+    dev = require_cuda(*tensors)
+    lib = library()
+    with torch.cuda.device(dev):
+        yield lib, torch.cuda.current_stream(dev).cuda_stream
+
+
+def on_stream(dev: torch.device, stream) -> contextlib.ExitStack:
+    """dev as the current device (a card) and stream (one of dev's, or
+    None on the CPU) as its current stream: where a shard's work is
+    issued before its wrappers' launches go through `on_device`."""
+    ctx = contextlib.ExitStack()
+    if dev.type == "cuda":
+        ctx.enter_context(torch.cuda.device(dev))
+        ctx.enter_context(torch.cuda.stream(stream))
+    return ctx
+
+
+def device_key(device) -> torch.device:
+    """A device as a cache key: "cuda" names the current card, so it
+    becomes "cuda:<current index>"; every other device is itself."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev

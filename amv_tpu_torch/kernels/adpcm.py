@@ -83,10 +83,10 @@ def decode_chunks(payload: torch.Tensor, pred: torch.Tensor,
     payload, pred, sidx = (t.contiguous() for t in (payload, pred, sidx))
     out = torch.empty((c * repeat, 2 * nbytes), dtype=torch.int16,
                       device=payload.device)
-    with torch.cuda.device(payload.device):
-        rc = _build.library().amv_adpcm_decode(
+    with _build.on_device(payload, pred, sidx) as (lib, stream):
+        rc = lib.amv_adpcm_decode(
             payload.data_ptr(), nbytes, pred.data_ptr(), sidx.data_ptr(), c,
-            c * repeat, out.data_ptr(), _build.stream())
+            c * repeat, out.data_ptr(), stream)
     _build.check(rc, "amv_adpcm_decode")
     global DECODE_LAUNCHES
     DECODE_LAUNCHES += 1
@@ -177,15 +177,14 @@ def encode_streams(samples: torch.Tensor, reset: torch.Tensor,
     # 4-byte boundary is copied
     x, r = (t if t.data_ptr() % 4 == 0 else t.clone() for t in (x, r))
     sidx0 = sidx0.contiguous()
-    lib = _build.library()
-    scratch = torch.empty(lib.amv_adpcm_encode_scratch(b, n, repeat),
-                          dtype=torch.uint8, device=dev)
     out = torch.empty((2, b * repeat, n // 2), dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
+    with _build.on_device(x, r, sidx0) as (lib, stream):
+        scratch = torch.empty(lib.amv_adpcm_encode_scratch(b, n, repeat),
+                              dtype=torch.uint8, device=dev)
         rc = lib.amv_adpcm_encode(
             x.data_ptr(), r.data_ptr(), sidx0.data_ptr(), b, n, repeat,
             scratch.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-            _build.stream())
+            stream)
     _build.check(rc, "amv_adpcm_encode")
     global ENCODE_LAUNCHES
     ENCODE_LAUNCHES += 1
@@ -288,10 +287,10 @@ def decode_ms_nibbles(nibbles: torch.Tensor, coeff1: torch.Tensor,
     out = torch.empty((b, n), dtype=torch.int16, device=nib.device)
     if b == 0 or n == 0:
         return out
-    with torch.cuda.device(nib.device):
-        rc = _build.library().amv_ms_expand(
+    with _build.on_device(nib) as (lib, stream):
+        rc = lib.amv_ms_expand(
             nib.data_ptr(), b, n, *(t.data_ptr() for t in st),
-            out.data_ptr(), _build.stream())
+            out.data_ptr(), stream)
     _build.check(rc, "amv_ms_expand")
     global MS_LAUNCHES
     MS_LAUNCHES += 1

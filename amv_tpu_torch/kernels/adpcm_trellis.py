@@ -81,16 +81,16 @@ def trellis_chunks(x: torch.Tensor, starts: torch.Tensor,
     if len_max > MAX_LEN:
         raise ValueError(f"kernel L takes chunks of at most {MAX_LEN} "
                          f"samples, got {len_max}")
-    lib = _build.library()
-    back = torch.empty(lib.amv_trellis_scratch(a, len_max) // 4,
-                       dtype=torch.int32, device=x.device)
     x, starts, pairs, step0, pred0 = (t.contiguous() for t in (
         x, starts, pairs, step0, pred0))
-    with torch.cuda.device(x.device):
+    with _build.on_device(x, starts, pairs, step0, pred0, out) as (lib,
+                                                                   stream):
+        back = torch.empty(lib.amv_trellis_scratch(a, len_max) // 4,
+                           dtype=torch.int32, device=x.device)
         rc = lib.amv_trellis(
             x.data_ptr(), starts.data_ptr(), pairs.data_ptr(),
             step0.data_ptr(), pred0.data_ptr(), a, len_max, back.data_ptr(),
-            out.data_ptr(), final.data_ptr(), _build.stream())
+            out.data_ptr(), final.data_ptr(), stream)
     _build.check(rc, "amv_trellis")
     global LAUNCHES
     LAUNCHES += 1

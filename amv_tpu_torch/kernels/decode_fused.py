@@ -106,11 +106,11 @@ def _launch(levels, dc, mb_w, width, height, dst, mode):
         return y, cb, cr
     tables = np.concatenate([Q60_LUMA, Q60_CHROMA]).astype(np.int32)
     geo = struct.pack("<qqqii", n_mcu, mb_w, f, width, height)
-    with torch.cuda.device(dev):
-        rc = _build.library().amv_decode_fused(
+    with _build.on_device(levels, dc) as (lib, stream):
+        rc = lib.amv_decode_fused(
             levels.data_ptr(), dc.data_ptr(), tables.ctypes.data, geo,
             None if dst is None else dst.contiguous().data_ptr(), y.data_ptr(),
-            cb.data_ptr(), cr.data_ptr(), n, mode, _build.stream())
+            cb.data_ptr(), cr.data_ptr(), n, mode, stream)
     _build.check(rc, "amv_decode_fused")
     global LAUNCHES
     LAUNCHES += 1

@@ -102,11 +102,11 @@ def _launch(y, cb, cr, qmat, mb_w, display, quant):
     tables = np.concatenate([qmat, Q60_LUMA, Q60_CHROMA]).astype(np.int32)
     tables = np.concatenate([tables, q60_reciprocals().view(np.int32)])
     geo = struct.pack("<qqii", n_mcu, mb_w, w, h)
-    with torch.cuda.device(y.device):
-        rc = _build.library().amv_encode_fused(
+    with _build.on_device(y, cb, cr) as (lib, stream):
+        rc = lib.amv_encode_fused(
             y.data_ptr(), cb.data_ptr(), cr.data_ptr(), tables.ctypes.data,
             geo, out.data_ptr(), n, int(display), QUANTS.index(quant),
-            _build.stream())
+            stream)
     _build.check(rc, "amv_encode_fused")
     global LAUNCHES
     LAUNCHES += 1

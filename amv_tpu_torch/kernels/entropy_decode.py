@@ -74,11 +74,11 @@ def decode_scans(rows: torch.Tensor, lens: torch.Tensor, n_blocks: int, *,
     tables = device_table("DEC_FAST", rows.device)
     # the longest scans first: they take the most sync rounds
     order = torch.argsort(lens, descending=True, stable=True).to(torch.int32)
-    with torch.cuda.device(rows.device):
-        rc = _build.library().amv_decode_scans(
+    with _build.on_device(rows, lens, budget) as (lib, stream):
+        rc = lib.amv_decode_scans(
             rows.data_ptr(), stride, lens.data_ptr(), order.data_ptr(), f,
             n_blocks, tables.data_ptr(), budget.data_ptr(), levels.data_ptr(),
-            ok.data_ptr(), n_rounds.data_ptr(), _build.stream())
+            ok.data_ptr(), n_rounds.data_ptr(), stream)
     _build.check(rc, "amv_decode_scans")
     global LAUNCHES
     LAUNCHES += 1

@@ -58,11 +58,11 @@ def encode_levels(levels: torch.Tensor, w_out: int):
     bits = torch.empty(f, dtype=torch.int32, device=levels.device)
     ok = torch.empty(f, dtype=torch.uint8, device=levels.device)
     tables = device_table("ENC_TABLES", levels.device)
-    with torch.cuda.device(levels.device):
-        rc = _build.library().amv_encode_levels(
+    with _build.on_device(levels) as (lib, stream):
+        rc = lib.amv_encode_levels(
             levels.data_ptr(), f, nb, tables.data_ptr(), w_out,
             words.data_ptr(), bits.data_ptr(), ok.data_ptr(),
-            _build.stream())
+            stream)
     _build.check(rc, "amv_encode_levels")
     global LAUNCHES
     LAUNCHES += 1
@@ -80,10 +80,10 @@ def count_bits(levels: torch.Tensor) -> torch.Tensor:
     f, nb = levels.shape[:2]
     bits = torch.empty(f, dtype=torch.int32, device=levels.device)
     tables = device_table("ENC_TABLES", levels.device)
-    with torch.cuda.device(levels.device):
-        rc = _build.library().amv_count_bits(
+    with _build.on_device(levels) as (lib, stream):
+        rc = lib.amv_count_bits(
             levels.data_ptr(), f, nb, tables.data_ptr(), bits.data_ptr(),
-            _build.stream())
+            stream)
     _build.check(rc, "amv_count_bits")
     global LAUNCHES, COUNT_LAUNCHES
     LAUNCHES += 1

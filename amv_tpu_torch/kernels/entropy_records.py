@@ -106,11 +106,11 @@ def decode_records(rows: torch.Tensor, lens: torch.Tensor, n_blocks: int,
     tables = device_table("REC_FAST", rows.device)
     # the longest scans first: they take the most sync rounds
     order = torch.argsort(lens, descending=True, stable=True).to(torch.int32)
-    with torch.cuda.device(rows.device):
-        rc = _build.library().amv_decode_records(
+    with _build.on_device(rows, lens) as (lib, stream):
+        rc = lib.amv_decode_records(
             rows.data_ptr(), rows.shape[1], lens.data_ptr(), order.data_ptr(),
             f, n_blocks, tables.data_ptr(), t, recs.data_ptr(),
-            status.data_ptr(), n_rounds.data_ptr(), _build.stream())
+            status.data_ptr(), n_rounds.data_ptr(), stream)
     _build.check(rc, "amv_decode_records")
     global RECORD_LAUNCHES
     RECORD_LAUNCHES += 1
@@ -204,10 +204,10 @@ def expand_records(records: torch.Tensor, counts: torch.Tensor,
     records, counts = records.contiguous(), counts.contiguous()
     levels = torch.empty((f, n_blocks, 64), dtype=torch.int16,
                          device=records.device)
-    with torch.cuda.device(records.device):
-        rc = _build.library().amv_expand_records(
+    with _build.on_device(records, counts) as (lib, stream):
+        rc = lib.amv_expand_records(
             records.data_ptr(), t, counts.data_ptr(), f, n_blocks,
-            levels.data_ptr(), _build.stream())
+            levels.data_ptr(), stream)
     _build.check(rc, "amv_expand_records")
     global EXPAND_LAUNCHES
     EXPAND_LAUNCHES += 1

@@ -56,10 +56,10 @@ def _fdct(pix, qmat, zigzag):
         raise ValueError("pixels must be 8-byte aligned (a row a load)")
     n = pix.shape[0]
     out = torch.empty((n, 64), dtype=torch.int16, device=pix.device)
-    with torch.cuda.device(pix.device):
-        rc = _build.library().amv_fdct_quant(
+    with _build.on_device(pix) as (lib, stream):
+        rc = lib.amv_fdct_quant(
             pix.data_ptr(), qmat.ctypes.data, out.data_ptr(), n, int(zigzag),
-            _build.stream())
+            stream)
     _build.check(rc, "amv_fdct_quant")
     global LAUNCHES
     LAUNCHES += 1

@@ -138,18 +138,17 @@ def decode_frames(st: dict, parms: torch.Tensor):
             raise ValueError(f"state {k} must be {(b,) + shape}, got "
                              f"{tuple(st[k].shape)}")
     _build.require_cuda(parms, *st.values())
-    lib = _build.library()
-    if lib.amv_g729_state_words() != STATE_WORDS:
-        raise RuntimeError("csrc/g729_decode.cu's state layout differs from "
-                           "codecs/g729a.py:STATE_FIELDS")
     p = parms.to(torch.int32).contiguous()
     flat = flatten_state(st)
     pcm = torch.empty((t, b, 80), dtype=torch.int16, device=p.device)
     if t == 0 or b == 0:
         return unflatten_state(flat), pcm
-    with torch.cuda.device(p.device):
+    with _build.on_device(p, flat, pcm) as (lib, stream):
+        if lib.amv_g729_state_words() != STATE_WORDS:
+            raise RuntimeError("csrc/g729_decode.cu's state layout differs "
+                               "from codecs/g729a.py:STATE_FIELDS")
         rc = lib.amv_g729_decode(p.data_ptr(), t, b, flat.data_ptr(),
-                                 pcm.data_ptr(), _build.stream())
+                                 pcm.data_ptr(), stream)
     _build.check(rc, "amv_g729_decode")
     global LAUNCHES
     LAUNCHES += 1
@@ -173,20 +172,18 @@ def encode_frames(st: dict, hist: torch.Tensor, frames: torch.Tensor):
             raise ValueError(f"state {k} must be {(b,) + shape}, got "
                              f"{tuple(st[k].shape)}")
     _build.require_cuda(frames, hist, *st.values())
-    lib = _build.library()
-    if lib.amv_g729_state_words() != STATE_WORDS:
-        raise RuntimeError("csrc/g729_common.cuh's state layout differs from "
-                           "codecs/g729a.py:STATE_FIELDS")
     x = frames.to(torch.float32).contiguous()
     flat = flatten_state(st)
     h = hist.to(torch.float32).contiguous().clone()
     parms = torch.empty((t, b, 16), dtype=torch.int32, device=x.device)
     if t == 0 or b == 0:
         return unflatten_state(flat), h, parms
-    with torch.cuda.device(x.device):
+    with _build.on_device(x, flat, h, parms) as (lib, stream):
+        if lib.amv_g729_state_words() != STATE_WORDS:
+            raise RuntimeError("csrc/g729_common.cuh's state layout differs "
+                               "from codecs/g729a.py:STATE_FIELDS")
         rc = lib.amv_g729_encode(x.data_ptr(), t, b, flat.data_ptr(),
-                                 h.data_ptr(), parms.data_ptr(),
-                                 _build.stream())
+                                 h.data_ptr(), parms.data_ptr(), stream)
     _build.check(rc, "amv_g729_encode")
     global ENCODE_LAUNCHES
     ENCODE_LAUNCHES += 1

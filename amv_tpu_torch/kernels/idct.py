@@ -65,10 +65,10 @@ def _launch(levels, dc):
     n = levels.shape[0]
     pix = torch.empty((n, 64), dtype=torch.uint8, device=levels.device)
     tables = np.concatenate([Q60_LUMA, Q60_CHROMA]).astype(np.int32)
-    with torch.cuda.device(levels.device):
-        rc = _build.library().amv_idct_blocks(
+    with _build.on_device(levels) as (lib, stream):
+        rc = lib.amv_idct_blocks(
             levels.data_ptr(), dc.data_ptr() if dc is not None else None,
-            tables.ctypes.data, pix.data_ptr(), n, _build.stream())
+            tables.ctypes.data, pix.data_ptr(), n, stream)
     _build.check(rc, "amv_idct_blocks")
     global LAUNCHES
     LAUNCHES += 1

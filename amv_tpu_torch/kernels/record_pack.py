@@ -62,10 +62,10 @@ def pack_records(records: torch.Tensor, totals: torch.Tensor, w_out: int):
     n = records.shape[0]
     words = torch.empty((n, w_out), dtype=torch.int32, device=records.device)
     bits = torch.empty(n, dtype=torch.int32, device=records.device)
-    with torch.cuda.device(records.device):
-        rc = _build.library().amv_pack_records(
+    with _build.on_device(records, totals) as (lib, stream):
+        rc = lib.amv_pack_records(
             records.data_ptr(), records.shape[1], totals.data_ptr(), n, w_out,
-            words.data_ptr(), bits.data_ptr(), _build.stream())
+            words.data_ptr(), bits.data_ptr(), stream)
     _build.check(rc, "amv_pack_records")
     global LAUNCHES
     LAUNCHES += 1

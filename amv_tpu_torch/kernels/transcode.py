@@ -170,11 +170,12 @@ def _launch(levels, dc, qmat, geom, with_pix, mode, repeat=1):
     pix = (torch.empty((n, 64), dtype=torch.uint8, device=levels.device)
            if with_pix else None)
     tables, geo = kernel_args(qmat, geom, n, n_base)
-    with torch.cuda.device(levels.device):
-        rc = _build.library().amv_transcode_blocks(
+    with _build.on_device(levels, *([] if dc is None else [dc])) as (
+            lib, stream):
+        rc = lib.amv_transcode_blocks(
             levels.data_ptr(), dc.data_ptr() if dc is not None else None,
             tables.ctypes.data, geo, out.data_ptr(),
-            pix.data_ptr() if with_pix else None, n, mode, _build.stream())
+            pix.data_ptr() if with_pix else None, n, mode, stream)
     _build.check(rc, "amv_transcode_blocks")
     global LAUNCHES
     LAUNCHES += 1

@@ -116,16 +116,12 @@ def _div_round(dividend: int, divisor: int) -> int:
     return -((-dividend + (divisor >> 1)) // divisor)
 
 
-@lru_cache(maxsize=None)
-def _build_tables(fmt: str, full_range: bool,
-                  brightness: int = 0, contrast: int = 65536,
-                  saturation: int = 65536,
-                  inv_table: tuple = DEFAULT_INV_TABLE):
-    """yuv2rgb_c_init_tables (yuv2rgb.c:697-902) -> (arena int32 [L],
-    base offsets (r, g, b), offset tables off_r/off_gu/off_gv/off_b
-    int32 [256])."""
-    depth, is_rgb = _FORMATS[fmt]
-
+def _coefficients(full_range: bool, brightness: int, contrast: int,
+                  saturation: int, inv_table: tuple = DEFAULT_INV_TABLE):
+    """yuv2rgb_c_init_tables' coefficients (yuv2rgb.c:697-735) -> (cy, oy,
+    crv, cgu, cgv, cbu): the luma table is clamp((cy * (((i - 384) << 16)
+    - oy) + 2^31) >> 32, 0, 255), the offsets div_round(c * (i - 128),
+    76309)."""
     crv, cbu = int(inv_table[0]), int(inv_table[1])
     cgu, cgv = -int(inv_table[2]), -int(inv_table[3])
     cy, oy = 1 << 16, 0
@@ -143,6 +139,20 @@ def _build_tables(fmt: str, full_range: bool,
     cgu = (cgu * contrast * saturation) >> 32
     cgv = (cgv * contrast * saturation) >> 32
     oy -= 256 * brightness
+    return cy, oy, crv, cgu, cgv, cbu
+
+
+@lru_cache(maxsize=None)
+def _build_tables(fmt: str, full_range: bool,
+                  brightness: int = 0, contrast: int = 65536,
+                  saturation: int = 65536,
+                  inv_table: tuple = DEFAULT_INV_TABLE):
+    """yuv2rgb_c_init_tables (yuv2rgb.c:697-902) -> (arena int32 [L],
+    base offsets (r, g, b), offset tables off_r/off_gu/off_gv/off_b
+    int32 [256])."""
+    depth, is_rgb = _FORMATS[fmt]
+    cy, oy, crv, cgu, cgv, cbu = _coefficients(
+        full_range, brightness, contrast, saturation, inv_table)
 
     ty = np.empty(1024, np.int64)
     for i in range(1024):
@@ -329,16 +339,90 @@ def kernel_tables(fmt: str, full_range: bool, dither: bool, brightness: int,
                            arena]).astype(np.int32)
 
 
+# the computed path's channel shifts (rshift, lshift) of r, g, b by depth
+# and is_rgb: the arena's clip table (yuv2rgb.c:749-812) shifted and masked
+_SHIFTS = {
+    (32, True): ((0, 16), (0, 8), (0, 0)),
+    (32, False): ((0, 0), (0, 8), (0, 16)),
+    (24, True): ((0, 0), (0, 0), (0, 0)),
+    (24, False): ((0, 0), (0, 0), (0, 0)),
+    (16, True): ((3, 11), (2, 5), (3, 0)),
+    (16, False): ((3, 0), (2, 5), (3, 11)),
+    (15, True): ((3, 10), (3, 5), (3, 0)),
+    (15, False): ((3, 0), (3, 5), (3, 10)),
+}
+_I32 = 2 ** 31
+
+
+@lru_cache(maxsize=None)
+def register_map(fmt: str, full_range: bool, dither: bool, brightness: int,
+                 contrast: int, saturation: int):
+    """Kernel Y's computed path for this key, or None where it must read
+    the tables: (cy, bh, (crv, cgu, cgv, cbu), rshift, lshift, dith2), each
+    channel's value clamp((cy * j + bh) >> 16, 0, 255) >> rshift <<
+    lshift at j = Y + off + d.  Given only where it equals the arena
+    lookup arena[clamp(j + base, 0, L - 1)] at every j the key's offsets
+    and dither can reach, in int32 arithmetic, and the offsets' int32
+    div_round equals the tables."""
+    depth, is_rgb = _FORMATS[fmt]
+    if (depth, is_rgb) not in _SHIFTS:
+        return None
+    cy, oy, crv, cgu, cgv, cbu = _coefficients(full_range, brightness,
+                                               contrast, saturation)
+    coefs = (crv, cgu, cgv, cbu)
+    # csrc/yuv2rgb_packed.cu's div_round(c * (i - 128), 76309) in int32
+    if not all(abs(c) * 128 + 38154 < _I32 for c in coefs):
+        return None
+    arena, bases, off_r, off_gu, off_gv, off_b = _build_tables(
+        fmt, full_range, brightness, contrast, saturation)
+    i = np.arange(256, dtype=np.int64)
+    for c, tab in zip(coefs, (off_r, off_gu, off_gv, off_b)):
+        t = c * (i - 128)
+        mine = np.where(t > 0, (t + 38154) // 76309,
+                        -((38154 - t) // 76309))
+        if not np.array_equal(mine, tab):
+            return None
+    bh = (2 ** 31 - cy * oy) >> 16
+    shifts = _SHIFTS[(depth, is_rgb)]
+    mats = _dither_mats(depth, dither)
+    dith2 = tuple(tuple(tuple(int(v) for v in row) for row in
+                        _tile(mat, 2, 2)) for mat in mats)
+    offs = ((int(off_r.min()), int(off_r.max())),
+            (int(off_gu.min() + off_gv.min()),
+             int(off_gu.max() + off_gv.max())),
+            (int(off_b.min()), int(off_b.max())))
+    hi = len(arena) - 1
+    for (lo_o, hi_o), base, (rs, ls), d in zip(offs, bases, shifts, dith2):
+        d_lo, d_hi = min(map(min, d)), max(map(max, d))
+        j = np.arange(lo_o + d_lo, 255 + hi_o + d_hi + 1, dtype=np.int64)
+        if abs(cy) * max(abs(int(j[0])), abs(int(j[-1]))) + abs(bh) >= _I32:
+            return None
+        mine = (np.clip((cy * j + bh) >> 16, 0, 255) >> rs) << ls
+        if not np.array_equal(mine, arena[np.clip(j + base, 0, hi)]):
+            return None
+    return (cy, bh, coefs, tuple(s[0] for s in shifts),
+            tuple(s[1] for s in shifts), dith2)
+
+
 def kernel_geometry(key, frames: int, h: int, w: int) -> bytes:
     """csrc/yuv2rgb_packed.cu's struct Packing for `frames` frames of h x w
     in the format of key = (fmt, full_range, dither, brightness, contrast,
-    saturation), kernel_tables' arguments."""
+    saturation), kernel_tables' arguments: the computed path's parameters
+    where `register_map` gives them, else the tables path."""
     fmt, full_range, _, brightness, contrast, saturation = key
     arena, bases = _build_tables(fmt, full_range, brightness, contrast,
                                  saturation)[:2]
     kind = _out_shape(fmt, (), h, w)[2]
-    return struct.pack("<qiiiiiiii", frames, h, w, kind,
-                       int(_FORMATS[fmt][1]), len(arena), *bases)
+    reg = register_map(*key)
+    if reg is None:
+        computed = (0,) * 25
+    else:
+        cy, bh, coefs, rshift, lshift, dith2 = reg
+        computed = (1, cy, bh, *coefs, *rshift, *lshift,
+                    *(cy * v for ch in dith2 for row in ch for v in row))
+    return struct.pack("<q8i25ii", frames, h, w, kind,
+                       int(_FORMATS[fmt][1]), len(arena), *bases,
+                       *computed, 0)
 
 
 _DEVICE_TABLES: dict = {}
@@ -346,6 +430,7 @@ _DEVICE_TABLES: dict = {}
 
 def _device_tables(key, dev: torch.device) -> torch.Tensor:
     """kernel_tables(*key) on dev, copied there once."""
+    dev = _build.device_key(dev)
     t = _DEVICE_TABLES.get((key, dev))
     if t is None:
         t = torch.from_numpy(kernel_tables(*key)).to(dev)
@@ -368,10 +453,10 @@ def _launch(y, cb, cr, fmt, full_range, dither, brightness, contrast,
     key = (fmt, full_range, dither, brightness, contrast, saturation)
     tab = _device_tables(key, y.device)
     geo = kernel_geometry(key, frames, h, w)
-    with torch.cuda.device(y.device):
-        rc = _build.library().amv_yuv2rgb_packed(
+    with _build.on_device(y, cb, cr) as (lib, stream):
+        rc = lib.amv_yuv2rgb_packed(
             y.data_ptr(), cb.data_ptr(), cr.data_ptr(), tab.data_ptr(), geo,
-            out.data_ptr(), _build.stream())
+            out.data_ptr(), stream)
     _build.check(rc, "amv_yuv2rgb_packed")
     global LAUNCHES
     LAUNCHES += 1

@@ -28,8 +28,17 @@ Left out of the JAX class: its TPU parameters (`sb`, `interpret`,
 the last batch (nothing compiles per shape here), the within-batch length
 sort (kernel D takes its frames longest first itself) and the host
 fallback (kernel E never overflows here; a frame D rejects raises, as
-the JAX fallback's host decoder raises on it).  `mesh` waits for serving
-across several GPUs.
+the JAX fallback's host decoder raises on it).
+
+`mesh=` (`parallel.sharding.make_mesh`; the JAX class's `mesh`,
+`amv_tpu/pipeline/serving.py:71`) serves each batch across the mesh: its
+frames split into mesh.size contiguous shards, dp-major, each position
+with its own ring of `depth` slots (stream and pinned buffers) on its
+device.  `issue` unescapes each shard into its slot and launches its
+chain on its device; `pack` packs each shard at its own exact budget;
+`drain` escapes the shards in order into one buffer.  Frames are
+independent bitstreams, so no collective.  `batch_frames` must divide by
+mesh.size (a shorter last batch splits as evenly as it can).
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ from .. import native
 from ..codecs.amv_video import QUANTS, used_words
 from ..codecs.jpeg_tables import device_table
 from ..kernels.entropy_encode import count_bits, encode_levels
+from ..kernels._build import on_stream
 from . import resolve_device
 from .transcode import transcode_scans
 
@@ -78,11 +88,11 @@ class _Slot:
         return ev
 
 
-class _Batch:
-    """A batch between its stages: its slot, its first frame's index in
-    the stream, the re-quantized levels on the device until the pack, the
-    pinned bits and ok flags, the pinned words once packed, and the
-    events of those copies."""
+class _Shard:
+    """A batch's frames on one device between the stages: its slot, its
+    first frame's index in the stream, the re-quantized levels on the
+    device until the pack, the pinned bits and ok flags, the pinned words
+    once packed, and the events of those copies."""
 
     def __init__(self, slot, base, lv2, bits, ok, counted):
         self.slot, self.base, self.lv2 = slot, base, lv2
@@ -108,12 +118,16 @@ class AsyncTranscoder:
         pictures that are not whole MCUs and the two-stage route need;
         None = whole MCUs (the JAX class's assumption).
     quant : "ffmpeg" (the reference encoder's quantizer) or "q60".
-    device : a torch device; "cuda" unless the caller asks for the CPU.
+    device : a torch device; "cuda" unless the caller asks for the CPU or
+        gives a mesh.
+    mesh : a `parallel.sharding.Mesh`: each batch's frames over its
+        positions (not with `device`); batch_frames must divide by
+        mesh.size.
     """
 
     def __init__(self, n_mcu: int, qscale=2, batch_frames: int = 4096,
                  depth: int = 4, w_bytes: int | None = None, *, size=None,
-                 quant: str = "ffmpeg", device="cuda"):
+                 quant: str = "ffmpeg", device=None, mesh=None):
         if quant not in QUANTS:
             raise ValueError(f"quant must be one of {QUANTS}, got {quant!r}")
         if batch_frames < 1:
@@ -125,29 +139,64 @@ class AsyncTranscoder:
                 (size[1] + 15) // 16):
             raise ValueError(f"{n_mcu} MCUs do not make a {size[0]}x"
                              f"{size[1]} picture")
+        if device is not None and mesh is not None:
+            raise ValueError("device and mesh are exclusive: a mesh names "
+                             "its own devices")
+        if mesh is not None and batch_frames % mesh.size:
+            raise ValueError(f"batch_frames={batch_frames} must divide by "
+                             f"mesh.size={mesh.size}")
         self.n_mcu, self.qscale = n_mcu, qscale
         self.batch_frames, self.depth = batch_frames, max(1, depth)
         self.w_bytes, self.size, self.quant = w_bytes, size, quant
-        self.device = resolve_device(device)
-        self._slots = [_Slot(self.device) for _ in range(self.depth)]
+        self.mesh = mesh
+        # the mesh positions' devices (one without a mesh), and a ring of
+        # `depth` slots on each
+        self.devices = (list(mesh.flat) if mesh is not None else
+                        [resolve_device("cuda" if device is None
+                                        else device)])
+        self.device = self.devices[0]
+        self._rings = [[_Slot(d) for _ in range(self.depth)]
+                       for d in self.devices]
         self._next = 0           # the slot of the next batch
         self._base = 0           # the stream index of its first frame
-        if self.device.type == "cuda":
-            # the kernels' tables, uploaded once on the default stream
-            # before any batch's stream reads them
-            for name in ("DEC_FAST", "ENC_TABLES"):
-                device_table(name, self.device)
-            torch.cuda.synchronize(self.device)
+        for dev in dict.fromkeys(self.devices):
+            if dev.type == "cuda":
+                # the kernels' tables, uploaded once on the default stream
+                # before any batch's stream reads them
+                for name in ("DEC_FAST", "ENC_TABLES"):
+                    device_table(name, dev)
+                torch.cuda.synchronize(dev)
 
     # ------------------------------------------------------------------
-    def issue(self, payloads) -> _Batch:
+    def issue(self, payloads) -> list[_Shard]:
         """Stage 1: unescape into pinned memory, upload and enqueue the
-        device chain up to kernel E's count on the batch's own stream.
-        Raises ValueError when the batch's rows are wider than w_bytes."""
-        slot = self._slots[self._next]
-        if slot.busy:
+        device chain up to kernel E's count on the batch's own stream (on
+        a mesh, each shard on its position's) -> the batch: its shards, one
+        a mesh position (one on a single device).  Raises ValueError when
+        the batch's rows are wider than w_bytes."""
+        slots = [ring[self._next] for ring in self._rings]
+        if any(slot.busy for slot in slots):
             raise RuntimeError(f"more than depth={self.depth} batches in "
                                "flight: drain one first")
+        n, parts = len(payloads), len(self.devices)
+        cuts = [n * i // parts for i in range(parts + 1)]
+        # every shard unescaped and its width checked before any launch
+        staged = [(slot, dev, self._unescape(slot, payloads[a:b]),
+                   self._base + a)
+                  for slot, dev, a, b in zip(slots, self.devices, cuts,
+                                             cuts[1:]) if b > a]
+        shards = [self._launch(slot, dev, rows, lens, base)
+                  for slot, dev, (rows, lens), base in staged]
+        for slot in slots:
+            slot.busy = True
+        self._next = (self._next + 1) % self.depth
+        self._base += n
+        return shards
+
+    def _unescape(self, slot: _Slot, payloads):
+        """A shard's scans unescaped into its slot's pinned rows -> (rows
+        uint8 [n, stride], lens int64 [n]), both pinned; ValueError when
+        they are wider than w_bytes."""
         n, stride = len(payloads), native.row_stride(payloads)
         rows = slot.host("rows", n * stride, torch.uint8)
         lens = slot.host("lens", n, torch.int64)
@@ -161,55 +210,69 @@ class AsyncTranscoder:
                 f"batch scan width {width} exceeds the row width "
                 f"{self.w_bytes}; construct AsyncTranscoder with a w_bytes "
                 "bound for this stream")
-        with torch.cuda.stream(slot.stream):
-            scans = rows.view(n, stride).to(self.device, non_blocking=True)
+        return rows.view(n, stride), lens
+
+    def _launch(self, slot: _Slot, dev, rows, lens, base) -> _Shard:
+        """A shard's upload, device chain up to E's count and the copies
+        of its bits and ok flags, on its slot's stream."""
+        with on_stream(dev, slot.stream):
+            scans = rows.to(dev, non_blocking=True)
             lv2, ok = transcode_scans(
-                scans, lens.to(self.device, non_blocking=True), self.n_mcu,
+                scans, lens.to(dev, non_blocking=True), self.n_mcu,
                 self.qscale, self.size, self.quant)
+            n = len(lens)
             bits = slot.host("bits", n, torch.int32)
             bits.copy_(count_bits(lv2), non_blocking=True)
             ok_h = slot.host("ok", n, torch.uint8)
             ok_h.copy_(ok, non_blocking=True)
-            batch = _Batch(slot, self._base, lv2, bits, ok_h, slot.event())
-        slot.busy = True
-        self._next = (self._next + 1) % self.depth
-        self._base += n
-        return batch
+            return _Shard(slot, base, lv2, bits, ok_h, slot.event())
 
-    def pack(self, batch: _Batch) -> None:
+    def pack(self, batch: list[_Shard]) -> None:
         """Stage 2: read the batch's bits and ok flags, raise ValueError
         naming (by stream index) the frames kernel D rejected, and enqueue
-        kernel E's pack at the exact budget and the words' copy to pinned
-        memory.  Does nothing for a batch already packed."""
-        if batch.words is not None:
-            return
-        if batch.counted is not None:
-            batch.counted.synchronize()
-        ok = batch.ok.numpy()
-        if not ok.all():
-            batch.slot.busy = False
-            bad = (np.flatnonzero(ok == 0) + batch.base).tolist()
+        kernel E's pack at each shard's exact budget and the words' copy
+        to pinned memory.  Does nothing for a batch already packed."""
+        for shard in batch:
+            if shard.counted is not None:
+                shard.counted.synchronize()
+        bad = [i + shard.base for shard in batch
+               for i in np.flatnonzero(shard.ok.numpy() == 0).tolist()]
+        if bad:
+            for shard in batch:
+                shard.slot.busy = False
             raise ValueError(f"malformed scan in frame(s) {bad} of the "
                              "stream: the Huffman decoder rejected them")
-        n, w_used = len(ok), used_words(batch.bits.numpy())
-        with torch.cuda.stream(batch.slot.stream):
-            words, _, _ = encode_levels(batch.lv2, w_used)
-            batch.lv2 = None
-            batch.words = batch.slot.host("words", n * w_used,
-                                          torch.int32).view(n, w_used)
-            batch.words.copy_(words, non_blocking=True)
-            batch.packed = batch.slot.event()
+        for shard in batch:
+            if shard.words is not None:
+                continue
+            n, w_used = len(shard.ok), used_words(shard.bits.numpy())
+            with on_stream(shard.lv2.device, shard.slot.stream):
+                words, _, _ = encode_levels(shard.lv2, w_used)
+                shard.lv2 = None
+                shard.words = shard.slot.host("words", n * w_used,
+                                              torch.int32).view(n, w_used)
+                shard.words.copy_(words, non_blocking=True)
+                shard.packed = shard.slot.event()
 
-    def drain(self, batch: _Batch):
+    def drain(self, batch: list[_Shard]):
         """Stage 3: wait for the batch's words and escape them -> (buf
         uint8, offsets int64 [n], lens int64 [n]) as `native.escape_packed`
-        gives them; the batch's slot is free again."""
+        gives them (a mesh's shards in order, in one buffer); the batch's
+        slots are free again."""
         self.pack(batch)
-        if batch.packed is not None:
-            batch.packed.synchronize()
-        out = native.escape_packed(batch.words.numpy(), batch.bits.numpy())
-        batch.slot.busy = False
-        return out
+        outs = []
+        for shard in batch:
+            if shard.packed is not None:
+                shard.packed.synchronize()
+            outs.append(native.escape_packed(shard.words.numpy(),
+                                             shard.bits.numpy()))
+            shard.slot.busy = False
+        if len(outs) == 1:
+            return outs[0]
+        starts = np.cumsum([0] + [len(o[0]) for o in outs[:-1]])
+        return (np.concatenate([o[0] for o in outs]),
+                np.concatenate([o[1] + k for o, k in zip(outs, starts)]),
+                np.concatenate([o[2] for o in outs]))
 
     # ------------------------------------------------------------------
     def batches(self, payload_iter):
@@ -250,7 +313,7 @@ class AsyncTranscoder:
                 for fut in drains:
                     fut.cancel()
                 wait(drains)
-                for slot in self._slots:
+                for slot in (s for ring in self._rings for s in ring):
                     if slot.busy and slot.stream is not None:
                         slot.stream.synchronize()
                     slot.busy = False

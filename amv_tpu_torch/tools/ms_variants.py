@@ -144,9 +144,10 @@ def main(argv=None) -> dict:
                      "lanes_32_cycles_a_sample": [], "sm_clock": []}
 
     def launch(lib, rows, out):
-        rc = lib.amv_ms_expand(nib.data_ptr(), rows, n,
-                               *(t.data_ptr() for t in st), out.data_ptr(),
-                               torch.cuda.current_stream().cuda_stream)
+        with _build.on_device(nib, out) as (_, stream):
+            rc = lib.amv_ms_expand(nib.data_ptr(), rows, n,
+                                   *(t.data_ptr() for t in st),
+                                   out.data_ptr(), stream)
         assert rc == 0
 
     for name in [*libs, *reversed(libs)]:

@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from amv_tpu_torch.tools import time_trellis as tt
+from amv_tpu_torch.utils.roofline import bound_ms
 
 BYTES_A_FRAME = 10 + 160
 
@@ -349,9 +350,10 @@ def encode_with(lib, st, hist, frames):
     flat = K.flatten_state(st)
     h = hist.to(torch.float32).contiguous().clone()
     parms = torch.empty((t, b, 16), dtype=torch.int32, device=x.device)
-    _build.check(lib.amv_g729_encode(x.data_ptr(), t, b, flat.data_ptr(),
-                                     h.data_ptr(), parms.data_ptr(),
-                                     _build.stream()), "amv_g729_encode")
+    with _build.on_device(x, flat, h, parms) as (_, stream):
+        rc = lib.amv_g729_encode(x.data_ptr(), t, b, flat.data_ptr(),
+                                 h.data_ptr(), parms.data_ptr(), stream)
+    _build.check(rc, "amv_g729_encode")
     return K.unflatten_state(flat), h, parms
 
 
@@ -467,7 +469,7 @@ def g_readings(G, fixtures, dev, args):
              "launches_a_call": launches if dev.type == "cuda" else 0,
              "frames_s": n / ms * 1e3,
              "real_time_factor": n * 10.0 / ms,
-             "bytes_bound_ms": 1e3 * n * BYTES_A_FRAME / 3.35e12}
+             "bytes_bound_ms": bound_ms(n * BYTES_A_FRAME)[0]}
         k = min(args.check_frames, t)
         sp, want = G.init_state(b, device=dev), []
         for i in range(k):

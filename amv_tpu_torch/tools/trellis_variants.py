@@ -148,23 +148,24 @@ def main() -> dict:
     res = {}
     for name, proc in procs.items():
         lib, regs = load(_build, name, proc, out_dir)
-        launch, scratch = lib.amv_trellis, lib.amv_trellis_scratch
         row = {"registers": regs}
         for label, n in (("all_ms", len(ns)), ("734_ms", 734),
                          ("one_ms", 1)):
-            back = torch.empty(scratch(n, len_max), dtype=torch.uint8,
-                               device=dev)
+            with _build.on_device(x) as (_, stream):
+                back = torch.empty(lib.amv_trellis_scratch(n, len_max),
+                                   dtype=torch.uint8, device=dev)
             buf = torch.zeros_like(ref)
             fin = torch.empty(n, dtype=torch.int32, device=dev)
             args = [t.data_ptr() for t in (x, st, pairs, step, pred0)] + [
                 n, len_max, back.data_ptr(), buf.data_ptr(), fin.data_ptr(),
-                torch.cuda.current_stream().cuda_stream]
+                stream]
             times = []
             for _ in range(8):
                 a = torch.cuda.Event(enable_timing=True)
                 b = torch.cuda.Event(enable_timing=True)
                 a.record()
-                assert launch(*args) == 0, name
+                with _build.on_device(x, buf, fin):
+                    assert lib.amv_trellis(*args) == 0, name
                 b.record()
                 torch.cuda.synchronize()
                 times.append(a.elapsed_time(b))

@@ -8,8 +8,9 @@ rescaling, -ar resampling, every WAVE format), the trellis quantizer
 (-trellis, kernel L), baseline MJPEG in and out, progressive (SOF2) and
 lossless (SOF3) MJPEG input, G.729A decoding (kernel G) with the ACT
 routes, G.729A encoding (kernel K, and the host encoder behind `-f act`),
-and the pixel outputs (kernel Y, `.bmp`) and amvlib's decoder and API
-(kernel W).
+the pixel outputs (kernel Y, `.bmp`) and amvlib's decoder and API
+(kernel W), and the sharding over a mesh of devices (parallel/sharding.py,
+AsyncTranscoder(mesh=)).
 
     python3 chip_smoke.py
 
@@ -179,7 +180,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 17. (run after phase 4, on the corpus of phase 3: 4,800 frames) pixel
     outputs and amvlib:
     kernel Y against its plain version, bit for bit, in all 15 formats
-    (and the 16-bit ones undithered, rgb24 in limited range), YUYV/UYVY on
+    (and the 16-bit ones undithered, rgb24 in limited range, rgb24, rgb32
+    and rgb565 at a key of brightness, contrast and saturation that sends
+    the last two to the tables path), YUYV/UYVY on
     the card against the CPU, each format's first 4 frames against the
     scalar oracle (verify/ref_yuv2rgb.py, in 4 worker processes); kernel
     W's planes and RGB entries against their plain versions on every
@@ -210,7 +213,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     check frames at 96x64, card = CPU (predictors 1-7 and point transform
     2, restart interval 1, RGB plain, RCT and Pegasus, progressive Al 0
     and 2, per-scan Huffman table redefinition); I against its plain
-    version at a 1,024-frame 4:2:0 320x240 batch.
+    version at a 1,024-frame 4:2:0 320x240 batch;
+19. (run after phase 11) multi-GPU sharding: every sharded_* function of
+    parallel/sharding.py on a virtual mesh of 4 positions of the card (dp 2
+    x sp 2, a stream each) against the single-device function, bit for
+    bit, at small shapes (the corpus's first 64 frames: the decode step
+    with frames on dp and MCUs on sp, so the DC carry crosses the sp
+    shards; random ADPCM chunks and streams; 8 G.729A streams of 16
+    frames), the kernels they launch counted; AsyncTranscoder(mesh= 2
+    positions of the card) over the corpus twice (9,600 frames), bytes
+    equal to phase 11's, frames/s (x3) as a one-card virtual mesh's; with
+    two or more cards, the same on a mesh of every card, else a line that
+    no second card was present.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -240,11 +254,7 @@ ODD_W, ODD_H = 175, 97
 N_CPU = 256                     # q60 frames also run on the port's CPU route
 WRAP = 64                       # kernel A's wrap entry: the chunks 64 times
 
-# Peaks of one H100 SXM at 700 W, from its datasheet: device memory, and
-# float32 outside the tensor cores, the rate for the scalar units, against
-# which the bounds count each integer operation.
-PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
+# The card's peaks are amv_tpu_torch/utils/roofline.py's (`bound` below).
 # Integer operations per unit of work, counted from the CUDA sources
 # (multiplies, adds, shifts, compares, selects; loads and stores not):
 OPS_DEQUANT = 190    # dct.cuh callers: Q60 dequant and the DC slot
@@ -320,12 +330,6 @@ OPS_G729_ENCODE = K_ANALYSIS + 2 * K_SUBFRAME + K_CANDIDATES * K_CANDIDATE
 LDS_G729_ENCODE = (K_CANDIDATES * 80 + 2 * 40 * 64
                    + 2 * (8192 + 2048 + 4416) + 2 * 8640 + 2 * 4 * 1640
                    + 5280 + 6144 + 7680)
-# the FP32 lanes' rate: the datasheet's 67 TFLOP/s counts a fused
-# multiply-add as 2; K, built with -fmad=false, issues each multiply and
-# each add as its own instruction
-PEAK_FP32_INSN_S = PEAK_OPS_S / 2
-# one warp-wide 32-bit shared load a clock an SM (132 SMs at 1,980 MHz)
-PEAK_LDS_S = 132 * 32 * 1.98e9
 
 # phase 17, pixel outputs and amvlib, on the corpus of phase 3
 OPS_PIXEL = 30       # a packed pixel (yuv2rgb_packed.cu: 3 table indices,
@@ -387,12 +391,14 @@ def import_port() -> SimpleNamespace:
     from amv_tpu_torch.kernels import record_pack as RP
     from amv_tpu_torch.kernels import transcode as T
     from amv_tpu_torch.kernels import yuv2rgb_dither as Y
+    from amv_tpu_torch.parallel import sharding
     from amv_tpu_torch.pipeline import decode, encode
     from amv_tpu_torch.pipeline import serving as S
     from amv_tpu_torch.pipeline import transcode as P
     from amv_tpu_torch.tools import time_g729 as tools_g
     from amv_tpu_torch.tools import time_serving as tools_s
     from amv_tpu_torch.tools import time_transcode_kernel as tools_t
+    from amv_tpu_torch.utils import roofline
     from amv_tpu_torch.verify import fixtures, ref_adpcm, ref_g729
     from amv_tpu_torch.verify import ref_jpeg, ref_trellis
     from amv_tpu_torch.verify import ref_wav_audio, ref_yuv2rgb
@@ -501,13 +507,12 @@ def max_abs_err(pairs) -> int:
     return err
 
 
-def bound(nbytes: float, ops: float, ops_s: float = PEAK_OPS_S):
+def bound(nbytes: float, ops: float, fp32: bool = False):
     """(bound in ms, what bounds it) for a function that moves nbytes and
-    does ops operations at ops_s a second (integer operations over the
-    peak rate unless given)."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / ops_s
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    does ops integer operations, or ops unfused FP32 instructions where
+    fp32 (`roofline.bound_ms`)."""
+    from amv_tpu_torch.utils.roofline import bound_ms
+    return bound_ms(nbytes, 0 if fp32 else ops, ops if fp32 else 0)
 
 
 def staged(split, name, fn):
@@ -1983,9 +1988,8 @@ def g729_encode_phase(m, dev, paths, card, kern, extra, tmp, k_libs,
     k_ms, (st_k, h_k, parms_k) = cuda_ms(
         lambda: m.g729_enc.encode_frames_scan(st0, h0, fr), 3)
     assert torch.equal(m.g729_enc.pack_frames(parms_k), packed)
-    bms, by = bound(n_all * (320 + 64), n_all * OPS_G729_ENCODE,
-                    PEAK_FP32_INSN_S)
-    lds_ms = 1e3 * n_all * LDS_G729_ENCODE / PEAK_LDS_S
+    bms, by = bound(n_all * (320 + 64), n_all * OPS_G729_ENCODE, fp32=True)
+    lds_ms = 1e3 * n_all * LDS_G729_ENCODE / m.roofline.LDS_S
     batch = {"streams": n_streams, "frames": n_frames, "ms": k_ms,
              "bound_ms": bms, "bound_by": by, "lds_ms": lds_ms,
              "frames_s": n_all / k_ms * 1e3,
@@ -1996,8 +2000,8 @@ def g729_encode_phase(m, dev, paths, card, kern, extra, tmp, k_libs,
         f"clock, first call); {n_all / k_ms * 1e3:.0f} frames/s, real-time "
         f"factor {n_all * 10.0 / k_ms:.0f}; bound {bms:.3f} ms by {by} "
         f"({OPS_G729_ENCODE} float operations a frame over the FP32 lanes' "
-        f"{PEAK_FP32_INSN_S / 1e12:.1f} T/s); shared loads "
-        f"{LDS_G729_ENCODE} a frame over {PEAK_LDS_S / 1e12:.2f} T/s: "
+        f"{m.roofline.FP32_INSN_S / 1e12:.1f} T/s); shared loads "
+        f"{LDS_G729_ENCODE} a frame over {m.roofline.LDS_S / 1e12:.2f} T/s: "
         f"{lds_ms:.3f} ms")
     if k_libs is not None:
         libs = k_libs.result()
@@ -2067,7 +2071,7 @@ def g729_encode_phase(m, dev, paths, card, kern, extra, tmp, k_libs,
         st0, h0, fr[:n_check]), 3)[0]
     n_win = n_streams * n_check
     bms_c, by_c = bound(n_win * (320 + 64), n_win * OPS_G729_ENCODE,
-                        PEAK_FP32_INSN_S)
+                        fp32=True)
     # the frames through G: its state is K's shadow state
     st_g, pcm_g = m.g729a.decode_frames_scan(
         m.g729a.init_state(n_streams, device=dev),
@@ -2122,6 +2126,162 @@ def g729_encode_phase(m, dev, paths, card, kern, extra, tmp, k_libs,
         f"decoded by G: corr {c:.4f}, segSNR {snr:.2f} dB against the "
         f"resampled mono input; launches {paths['g729 cli encode']}")
     log(f"phase 16 took {time.perf_counter() - t16:.1f} s")
+
+
+def _same(name, got, want) -> None:
+    """got and want (tensors, or tuples or dicts of them) equal, bit for
+    bit."""
+    import torch
+    if isinstance(want, dict):
+        for k in want:
+            _same(f"{name}[{k}]", got[k], want[k])
+    elif isinstance(want, (tuple, list)):
+        assert len(got) == len(want), name
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same(f"{name}[{i}]", g, w)
+    elif not (got.dtype == want.dtype and torch.equal(got, want.to(
+            got.device))):
+        raise AssertionError(f"{name}: the sharded result differs from the "
+                             "single-device function's")
+
+
+def mesh_checks(m, mesh, pays, rng, n_small=64) -> list:
+    """Every sharded_* of parallel/sharding.py on `mesh` against the port's
+    single-device function on the first device, at small shapes: the
+    corpus's first n_small frames (decode step with frames on dp and MCUs
+    on sp, encode step, entropy decode, decode chain, encode chain, fused
+    transcode step, complete transcode and its ok per shard), 64 random
+    ADPCM chunks and 16 streams, 8 G.729A streams of 16 frames and their
+    encode.  Returns the names checked."""
+    import torch
+    S, dev = m.sharding, mesh.flat[0]
+    n_mcu, mb_w, mb_h = ((W + 15) // 16) * ((H + 15) // 16), W // 16, \
+        (H + 15) // 16
+    rows, lens = m.native.unescape_frames(pays[:n_small])
+    rows, lens = torch.from_numpy(rows).to(dev), torch.from_numpy(lens).to(dev)
+    done = []
+
+    def same(name, got, want):
+        _same(name, got, want)
+        done.append(name)
+
+    lv, ok = m.D.decode_scans(rows, lens, 6 * n_mcu)
+    lv4 = lv.view(-1, n_mcu, 6, 64)
+    same("sharded_entropy_decode",
+         S.sharded_entropy_decode(mesh, n_mcu)(rows, lens), (lv4, ok))
+    planes = m.amv_video.decode_transform(lv4, mb_w, mb_h, W, H)
+    same("sharded_decode_step",
+         S.sharded_decode_step(mesh, mb_w, mb_h, W, H)(lv4), planes)
+    same("sharded_encode_step", S.sharded_encode_step(mesh, mb_w, mb_h)(
+        *planes), m.amv_video.encode_transform(*planes, mb_w, mb_h))
+    dc = m.amv_video.resolve_dc(lv4).view(-1)
+    same("sharded_decode_scans", S.sharded_decode_scans(mesh, W, H)(
+        rows, lens), (*m.amv_video.decode_planes(lv.view(-1, 64), dc, W, H),
+                      ok))
+    same("sharded_encode_planes", S.sharded_encode_planes(
+        mesh, mb_w, mb_h, QSCALE)(*planes), m.amv_video.pack_levels(
+            m.amv_video.encode_planes(*planes, QSCALE, "ffmpeg")))
+    same("sharded_transcode_step", S.sharded_transcode_step(
+        mesh, QSCALE, (W, H))(lv4), m.P.transcode_levels_fused(
+            lv4, QSCALE, (W, H)))
+    one = m.P.transcode_complete(rows, lens, n_mcu, QSCALE, (W, H))
+    same("sharded_complete_transcode", S.sharded_complete_transcode(
+        mesh, n_mcu, QSCALE, (W, H))(rows, lens), one)
+    words, bits, ok_s = S.sharded_complete_transcode_async(
+        mesh, n_mcu, QSCALE, (W, H))(rows, lens)
+    same("sharded_complete_transcode_async", (words, bits), one[:2])
+    assert ok_s.tolist() == [1] * mesh.size, ok_s
+
+    pay = torch.from_numpy(rng.integers(0, 256, (64, 512), np.uint8))
+    pred = torch.from_numpy(rng.integers(-30000, 30000, 64, np.int32))
+    sidx = torch.from_numpy(rng.integers(0, 89, 64, np.int32))
+    same("sharded_adpcm_decode", S.sharded_adpcm_decode(mesh)(
+        pay, pred, sidx), m.adpcm.decode_chunks(
+            *(t.to(dev) for t in (pay, pred, sidx))))
+    x = torch.from_numpy(rng.integers(-32768, 32768, (16, 4096), np.int16))
+    reset = torch.zeros(x.shape, dtype=torch.bool)
+    reset[:, 0] = reset[5, 2048] = True
+    s0 = torch.from_numpy(rng.integers(0, 89, 16, np.int32))
+    same("sharded_adpcm_encode", S.sharded_adpcm_encode(mesh)(x, reset, s0),
+         m.adpcm.encode_streams(*(t.to(dev) for t in (x, reset, s0))))
+
+    parms = m.g729a.unpack_frames(torch.from_numpy(
+        m.fixtures.g729_frames(rng, 16, 8, erasure=0.05)).to(dev))
+    want = m.g729a.decode_frames_scan(m.g729a.init_state(8, device=dev),
+                                      parms)
+    for name in ("sharded_g729_decode_scan", "sharded_g729_decode_chain"):
+        same(name, getattr(S, name)(mesh)(m.g729a.init_state(8, device=dev),
+                                          parms), want)
+    fr = torch.from_numpy(m.fixtures.speech_streams(8, 16 * 80, 5)).to(
+        dev).float().view(8, 16, 80).permute(1, 0, 2).contiguous()
+    st0 = m.g729a.init_state(8, device=dev)
+    h0 = torch.zeros((8, 160), device=dev)
+    same("sharded_g729_encode_scan", S.sharded_g729_encode_scan(mesh)(
+        st0, h0, fr), m.g729_enc.encode_frames_scan(st0, h0, fr))
+    st1, h1, p1 = m.g729_enc.encode_frames_scan(st0, h0, fr[:1])
+    same("sharded_g729_encode_step", S.sharded_g729_encode_step(mesh)(
+        st0, h0, fr[0]), (st1, h1, p1[0]))
+    return done
+
+
+def sharding_phase(m, dev, paths, card, pays, want) -> None:
+    """Phase 19: multi-GPU sharding on the card.  Every sharded_* on a
+    virtual mesh of 4 positions of the one card (dp 2 x sp 2, each its own
+    stream) against the single-device function, bit for bit
+    (`mesh_checks`), the kernels launched counted; AsyncTranscoder(mesh=
+    2 positions of the card) over phase 11's 9,600 frames (the corpus
+    twice), bytes equal to phase 11's, frames/s as a one-card virtual
+    mesh's; where the machine has two or more cards, the same on a mesh
+    of every card."""
+    import torch
+    t19 = time.perf_counter()
+    rng = np.random.default_rng(19)
+    one = f"{dev.type}:0" if dev.type == "cuda" else "cpu"
+    n_mcu = ((W + 15) // 16) * ((H + 15) // 16)
+    meshes = [("virtual", [one] * 4, [one] * 2)]
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if n_cards >= 2:
+        meshes.append(("cards", [f"cuda:{i}" for i in range(n_cards)],
+                       [f"cuda:{i}" for i in range(n_cards)]))
+    else:
+        log(f"phase 19: {n_cards} card(s) on this machine, no second card: "
+            "the mesh across cards is not run, multi-card scaling not "
+            "measured")
+    for label, devs4, devs2 in meshes:
+        mesh = m.sharding.make_mesh(devs4)
+        reset_launches(m)
+        done = mesh_checks(m, mesh, pays, rng)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        paths[f"sharding {label}"] = got = launches(m)
+        assert all(got[k] > 0 for k in "DTEIUVAQGK"), got
+        log(f"phase 19 ({label} mesh {mesh.shape} on "
+            f"{[str(d) for d in mesh.flat]}): {len(done)} sharded functions "
+            f"bit for bit against the single-device ones: {', '.join(done)}"
+            f"; launches {got}")
+        server_mesh = m.sharding.make_mesh(devs2)
+
+        def server():
+            return m.S.AsyncTranscoder(n_mcu, QSCALE, batch_frames=1024,
+                                       depth=4, size=(W, H),
+                                       mesh=server_mesh)
+
+        reset_launches(m)
+        assert server().transcode(pays + pays) == want + want, label
+        paths[f"serving mesh {label}"] = got = launches(m)
+        assert all(got[k] > 0 for k in "DTE"), got
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            assert server().transcode(pays + pays) == want + want
+            walls.append(time.perf_counter() - t0)
+        wall = statistics.median(walls)
+        log(f"{card}: AsyncTranscoder(batch_frames=1024, depth=4, mesh="
+            f"{[str(d) for d in server_mesh.flat]}) ({label}) over "
+            f"{2 * len(pays)} frames: bytes equal to phase 11's; "
+            f"{', '.join(f'{t:.3f}' for t in walls)} s, median {wall:.3f} s "
+            f"= {2 * len(pays) / wall:.1f} frames/s; launches {got}")
+    log(f"phase 19 took {time.perf_counter() - t19:.1f} s")
 
 
 def device_ms(fn, names, reps=5, tries=3):
@@ -2227,8 +2387,19 @@ def pixel_phase(m, dev, paths, card, check, extra, kern, data, pays, tmp,
                                                      dither=False)))
         pairs.append((m.Y.yuv420_to_packed(y, cb, cr, "rgb24", False),
                       m.Y.yuv420_to_packed_plain(y, cb, cr, "rgb24", False)))
+        # a key of brightness, contrast and saturation: rgb24 keeps the
+        # computed path, rgb32 and rgb565 take the tables
+        keyed = (64, 80000, 90000)
+        for fmt in ("rgb24", "rgb32", "rgb565"):
+            assert (m.Y.register_map(fmt, True, True, *keyed) is None) == \
+                (fmt != "rgb24")
+            pairs.append((m.Y.yuv420_to_packed(y, cb, cr, fmt, True, True,
+                                               *keyed),
+                          m.Y.yuv420_to_packed_plain(y, cb, cr, fmt, True,
+                                                     True, *keyed)))
         extra("Y undithered", pairs, f"{n} frames, the 16-bit formats "
-              "undithered and rgb24 in limited range")
+              "undithered, rgb24 in limited range, and rgb24, rgb32 and "
+              f"rgb565 at brightness, contrast, saturation {keyed}")
         cpu = [p.cpu() for p in (y, cb, cr)]
         pk = [(m.Y.yuv420_to_yuyv422(y, cb, cr).cpu(),
                m.Y.yuv420_to_yuyv422(*cpu)),
@@ -3364,6 +3535,9 @@ def main() -> int:
     t11 = time.perf_counter()
     serving_phase(m, dev, pays, want_c, audio, data, paths)
     log(f"phase 11 took {time.perf_counter() - t11:.1f} s")
+
+    # ---- 19. multi-GPU sharding ---------------------------------------
+    sharding_phase(m, dev, paths, smi, pays, want_c)
 
     # ---- 12. ingest -------------------------------------------------
     ingest_phase(m, dev, paths, smi, check)

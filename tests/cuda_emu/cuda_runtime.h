@@ -233,6 +233,9 @@ inline int __viaddmax_s32(int a, int b, int c) {
 inline int __vimin3_s32(int a, int b, int c) {
     return std::min(std::min(a, b), c);
 }
+inline int __vimin_s32_relu(int a, int b) {
+    return std::max(std::min(a, b), 0);
+}
 inline int __vibmin_s32(int a, int b, bool *pred) {
     *pred = a <= b;
     return std::min(a, b);

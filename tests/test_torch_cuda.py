@@ -1546,11 +1546,14 @@ def test_g729_encode_kernel_builds_match_plain(dev, streams):
         assert torch.equal(sb[k], st[k]), k
 
 
-@pytest.mark.parametrize("h,w", [(120, 160), (98, 174), (32, 40)])
+@pytest.mark.parametrize("h,w", [(120, 160), (98, 174), (32, 40),
+                                 (240, 320)])
 def test_yuv2rgb_kernel_matches_plain(dev, h, w):
     """Kernel Y in every format (and the 16-bit formats undithered, the
-    limited range) against its plain version; 174 wide leaves a short last
-    group of 8 pixels and odd row strides."""
+    limited range, keys of brightness, contrast and saturation that its
+    computed path takes for some formats and that leave it for others)
+    against its plain version; 174 wide leaves a short last group of 8
+    pixels and odd row strides."""
     from amv_tpu_torch.kernels import yuv2rgb_dither as Y
     rng = np.random.default_rng(h + w)
     planes = [torch.from_numpy(rng.integers(0, 256, (5, hh, ww), np.uint8))
@@ -1563,7 +1566,11 @@ def test_yuv2rgb_kernel_matches_plain(dev, h, w):
     for fmt in Y._FORMATS:
         if fmt == "monoblack" and w % 8:
             continue
-        for kw in ({}, {"dither": False}, {"full_range": False}):
+        for kw in ({}, {"dither": False}, {"full_range": False},
+                   {"brightness": 64, "contrast": 80000, "saturation": 90000},
+                   {"full_range": False, "brightness": -50,
+                    "contrast": 40000, "saturation": 30000},
+                   {"contrast": 2 ** 20, "saturation": 2 ** 20}):
             got = Y.yuv420_to_packed(*on, fmt=fmt, **kw)
             want = Y.yuv420_to_packed_plain(*planes, fmt=fmt, **kw)
             torch.cuda.synchronize()
@@ -1571,6 +1578,45 @@ def test_yuv2rgb_kernel_matches_plain(dev, h, w):
             assert torch.equal(got.cpu(), want), (fmt, kw)
             n += 1
     assert Y.LAUNCHES - l0 == n
+
+
+def test_sharded_functions_match_single_device_on_a_virtual_mesh(dev):
+    """Every sharded_* of parallel/sharding.py on 4 positions of the card
+    (dp 2 x sp 2, a stream each) against the single-device function, bit
+    for bit (chip_smoke.py's phase 19 checks, at 64 frames of 160x120)."""
+    import chip_smoke
+    from amv_tpu_torch.parallel import sharding
+    m = chip_smoke.import_port()
+    mesh = sharding.make_mesh(["cuda:0"] * 4)
+    done = chip_smoke.mesh_checks(m, mesh, _payloads(64, 120, 160),
+                                  np.random.default_rng(0))
+    assert len(done) == 14
+
+
+def test_serving_mesh_matches_single_device(dev):
+    """AsyncTranscoder over a mesh of 2 positions of the card: the single
+    device's bytes and C's, over batches with a short last one."""
+    from amv_tpu_torch.parallel import sharding
+    pays = _payloads(100, 120, 160, seed=3)
+    kw = dict(batch_frames=32, depth=2, size=(160, 120))
+    one = S.AsyncTranscoder(80, 2, device="cuda", **kw).transcode(pays)
+    got = S.AsyncTranscoder(80, 2, mesh=sharding.make_mesh(["cuda:0"] * 2),
+                            **kw).transcode(pays)
+    assert got == one == [native.ref_encode_frame(
+        *native.ref_decode_frame(p, 160, 120), 2) for p in pays]
+
+
+def test_launch_guard_follows_the_tensors(dev):
+    """With card 0 current, a kernel given tensors of card 1 runs there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    lv = torch.from_numpy(_random_levels(np.random.default_rng(0), 600))
+    dc = torch.zeros(600, dtype=torch.int32)
+    want = I.idct_blocks_plain(lv, dc)
+    with torch.cuda.device(0):
+        got = I.idct_blocks(lv.to("cuda:1"), dc.to("cuda:1"))
+    assert got.device == torch.device("cuda", 1)
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("w,h,f", [(160, 120, 40), (25, 33, 7),

@@ -870,25 +870,46 @@ def yuv2rgb_lib(tmp_path_factory):
     return _lib("yuv2rgb_packed.cu", tmp_path_factory)
 
 
-@pytest.mark.parametrize("fmt", sorted(Y._FORMATS) + ["rgb565 undithered",
-                                                      "bgr24 limited"])
+# table keys beyond the default: (brightness, contrast, saturation) that
+# kernel Y's computed path takes for some formats and not for others
+# (rgb32's and rgb565's indices then reach another channel's table), and
+# one no format's computed path takes (its products leave int32)
+_Y_KEYS = {"keyed": (64, 80000, 90000), "dim": (-50, 40000, 30000),
+           "huge": (0, 2 ** 20, 2 ** 20)}
+
+
+@pytest.mark.parametrize("fmt", sorted(Y._FORMATS) + [
+    "rgb565 undithered", "bgr24 limited"] + [
+    f"{f} {k}" for f in sorted(Y._FORMATS) for k in ("keyed",)] + [
+    "rgb24 huge", "rgb565 huge", "rgb32 dim", "bgr555 limited-keyed",
+    "rgb24 limited-dim", "rgb8 limited-keyed"])
 def test_yuv2rgb_source_matches_plain(yuv2rgb_lib, fmt):
     """Kernel Y in every format: widths whose last group of 8 pixels is
-    short (22, 10) or whole (16, 40), planes that start off a vector
-    boundary, and saturated pixels that reach the arena clamp."""
+    short (22, 10) or whole (16, 40), 160x120, rows of more than 256 groups
+    (2,058 and 2,064 wide: a chroma row in two tiles), planes that start
+    off a vector boundary (the general path) or on one (the whole-group
+    path), saturated pixels that reach the arena clamp (a whole frame,
+    every dither row, at the multi-frame shapes); limited range, no dither, and keys of brightness,
+    contrast and saturation through both of its paths (`register_map`)."""
     fmt, _, mode = fmt.partition(" ")
-    dither, full_range = mode != "undithered", mode != "limited"
-    key = (fmt, full_range, dither, 0, 65536, 65536)
-    rng = np.random.default_rng(sorted(Y._FORMATS).index(fmt))
-    for h, w, skip in ((6, 22, 1), (4, 10, 0), (8, 16, 3), (2, 40, 0)):
+    dither = mode != "undithered"
+    full_range = "limited" not in mode
+    bcs = _Y_KEYS.get(mode.rpartition("-")[2], (0, 65536, 65536))
+    key = (fmt, full_range, dither, *bcs)
+    rng = np.random.default_rng(sorted(Y._FORMATS).index(fmt) + len(mode))
+    for h, w, skip, f in ((6, 22, 1, 3), (4, 10, 0, 3), (8, 16, 3, 3),
+                          (2, 40, 0, 3), (120, 160, 0, 2),
+                          (2, 2058, 1, 1), (2, 2064, 0, 1)):
         if fmt == "monoblack" and w % 8:
             continue
-        f = 3
         y = rng.integers(0, 256, (f, h, w), np.uint8)
         c = [rng.integers(0, 256, (f, h // 2, w // 2), np.uint8)
              for _ in range(2)]
-        y[0] = rng.choice([0, 255], (h, w))
-        c[0][0] = rng.choice([0, 255], (h // 2, w // 2))
+        # frame 0 saturated, whole (every dither row) where other frames
+        # follow, else its first luma row pair
+        sat = h if f > 1 else 2
+        y[0, :sat] = rng.choice([0, 255], (sat, w))
+        c[0][0, :sat // 2] = rng.choice([0, 255], (sat // 2, w // 2))
         bufs = []
         for a in (y, *c):
             buf = np.zeros(a.size + skip + 16, np.uint8)
@@ -903,9 +924,24 @@ def test_yuv2rgb_source_matches_plain(yuv2rgb_lib, fmt):
             Y.kernel_geometry(key, f, h, w), out.data_ptr(), None)
         assert rc == 0
         want = Y.yuv420_to_packed_plain(
-            *(torch.from_numpy(a) for a in (y, *c)), fmt, full_range, dither)
+            *(torch.from_numpy(a) for a in (y, *c)), *key[:3], *bcs)
         np.testing.assert_array_equal(out.numpy(), want.numpy(),
-                                      err_msg=f"{fmt} {h}x{w}")
+                                      err_msg=f"{fmt} {mode} {h}x{w}")
+
+
+def test_yuv2rgb_register_map_takes_the_usual_keys():
+    """The computed path covers the 32-, 24- and 16/15-bit formats at the
+    default keys in both ranges, dithered or not, and no 8-, 4- or 1-bit
+    format; a key whose lookups cross into another channel's table, or
+    whose products leave int32, falls back to the tables."""
+    for fmt, (depth, _) in Y._FORMATS.items():
+        for full_range in (True, False):
+            for dither in (True, False):
+                reg = Y.register_map(fmt, full_range, dither, 0, 65536, 65536)
+                assert (reg is not None) == (depth >= 15), fmt
+    assert Y.register_map("rgb24", True, True, *_Y_KEYS["keyed"])
+    assert Y.register_map("rgb32", True, True, *_Y_KEYS["keyed"]) is None
+    assert Y.register_map("rgb24", True, True, *_Y_KEYS["huge"]) is None
 
 
 @pytest.fixture(scope="module")

@@ -112,6 +112,43 @@ def test_serving_rejects_bad_arguments():
         serving.AsyncTranscoder(M, batch_frames=0, device="cpu")
 
 
+def test_serving_mesh_matches_host_reencode():
+    """Each batch's frames over a 2-position CPU mesh (tests/test_serving.py
+    `test_serving_sharded_mesh_matches_host`), across batches with a short
+    last one (20 frames at batch_frames=8: shards of 4, 4, 4, 4, 2, 2)."""
+    from amv_tpu_torch.parallel.sharding import make_mesh
+    pays = _payloads(20, seed=9)
+    tr = serving.AsyncTranscoder(M, batch_frames=8, depth=2,
+                                 mesh=make_mesh(["cpu"] * 2))
+    assert tr.devices == [torch.device("cpu")] * 2
+    assert tr.transcode(pays) == _want(pays)
+
+
+def test_serving_mesh_arguments():
+    from amv_tpu_torch.parallel.sharding import make_mesh
+    mesh = make_mesh(["cpu"] * 2)
+    with pytest.raises(ValueError, match=r"mesh\.size"):
+        serving.AsyncTranscoder(M, batch_frames=7, mesh=mesh)
+    with pytest.raises(ValueError, match="exclusive"):
+        serving.AsyncTranscoder(M, batch_frames=8, device="cpu", mesh=mesh)
+
+
+def test_serving_mesh_malformed_frame_names_its_stream_index():
+    """A frame kernel D rejects in the second shard of the third batch
+    raises naming its index in the stream; the slots of every position are
+    free again afterwards."""
+    from amv_tpu_torch.parallel.sharding import make_mesh
+    pays = _payloads(12, seed=5)
+    pays[11] = b"\xff\xd8" + b"\xff\x00" * 40 + b"\xff\xd9"
+    tr = serving.AsyncTranscoder(M, batch_frames=4, depth=2,
+                                 mesh=make_mesh(["cpu"] * 2))
+    with pytest.raises(ValueError, match=r"frame\(s\) \[11\] of the stream"):
+        tr.transcode(pays)
+    good = _payloads(12, seed=6)
+    tr.w_bytes = None
+    assert tr.transcode(good) == _want(good)
+
+
 def _clip(n, h, w, seed):
     """(payloads, .amv bytes): C-encoded videogen frames with noise."""
     rng = np.random.default_rng(seed)
