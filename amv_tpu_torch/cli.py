@@ -31,8 +31,8 @@ caller asks for the CPU; `-f act` runs the host encoder
 (`codecs/g729a_encoder.py`, as the JAX package does) after the resampling
 on the device.  The flags are `amv_tpu.cli`'s.  Every route runs under
 `utils.profiling.trace("cli")` (a torch.profiler trace when AMV_TRACE_DIR
-is set).  MJPG AVI input may be baseline, progressive (SOF2) or lossless
-(SOF3, YUV, gray or RGB) frames.
+is set, which holds the port's `amv.*` spans).  MJPG AVI input may be
+baseline, progressive (SOF2) or lossless (SOF3, YUV, gray or RGB) frames.
 """
 
 from __future__ import annotations
@@ -54,6 +54,14 @@ _PIX_FMTS = ["rgb32", "bgr32", "rgb24", "bgr24", "rgb565", "bgr565",
 
 
 def main(argv=None) -> int:
+    """Run one command line (argv, else sys.argv[1:]) -> its exit code,
+    all of it (the argument parsing too) under the span "cli.main"."""
+    from .utils.profiling import span
+    with span("cli.main"):
+        return _main(argv)
+
+
+def _main(argv) -> int:
     p = argparse.ArgumentParser(prog="amv_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("-i", dest="inputs", action="append", default=[],
@@ -202,9 +210,11 @@ def _decode_act(args, ext: str) -> int:
     by kernel G into a PCM WAV (any other extension, as in the JAX
     package): one stream, all its frames in one launch."""
     from .containers import act, wav
+    from .utils.profiling import span
     src, out = args.inputs[0], args.output
-    with open(src, "rb") as f:
-        frames, rate, _ = act.demux(f.read())
+    with span("cli.read"), open(src, "rb") as f:
+        data = f.read()
+    frames, rate, _ = act.demux(data)
     if args.max_frames:
         frames = frames[:args.max_frames]
     if ext == ".bit":
@@ -215,8 +225,11 @@ def _decode_act(args, ext: str) -> int:
     from .codecs import g729a
     from .pipeline import resolve_device, upload
     dev = resolve_device(args.device)
-    pcm = g729a.decode_streams(upload(frames[:, None], dev))[0]
-    wav.write_pcm(out, pcm.cpu().numpy(), rate, 1)
+    with span("g729.decode"):
+        pcm = g729a.decode_streams(upload(frames[:, None], dev))[0]
+    with span("cli.copy_back"):         # waits for kernel G
+        pcm = pcm.cpu().numpy()
+    wav.write_pcm(out, pcm, rate, 1)
     print(f"wrote {out}: {len(pcm)} samples @ {rate} Hz (G.729A, device "
           f"{args.device})")
     return 0

@@ -18,6 +18,8 @@ import struct
 
 import numpy as np
 
+from ..utils.profiling import span
+
 # packet[i] = frame_byte[PERM_READ[i]] (act_read_packet)
 PERM_READ = [5, 0, 6, 1, 7, 2, 8, 3, 9, 4]
 # file_byte[i] = packet[PERM_WRITE[i]] (act_write_packet)
@@ -41,50 +43,52 @@ def probe(data: bytes) -> bool:
 def demux(data: bytes):
     """-> (frames uint8 [N, 10], sample_rate, duration_csec); every whole
     chunk's 51 frames, a partial last chunk dropped (act.c)."""
-    if not probe(data):
-        raise ValueError("not an ACT file")
-    sample_rate = struct.unpack_from("<I", data, 24)[0]
-    msec = struct.unpack_from("<H", data, 257)[0]
-    sec = data[259]
-    minutes = struct.unpack_from("<I", data, 260)[0]
-    duration_csec = (minutes * 60 + sec) * 100 + msec // 10
-    n_chunks = (len(data) - 512) // CHUNK_SIZE
-    chunks = np.frombuffer(data, np.uint8, n_chunks * CHUNK_SIZE,
-                           512).reshape(n_chunks, CHUNK_SIZE)
-    frames = chunks[:, :FRAMES_A_CHUNK * FRAME_BYTES].reshape(
-        -1, FRAME_BYTES)[:, PERM_READ]
-    return frames, sample_rate, duration_csec
+    with span("act.demux"):
+        if not probe(data):
+            raise ValueError("not an ACT file")
+        sample_rate = struct.unpack_from("<I", data, 24)[0]
+        msec = struct.unpack_from("<H", data, 257)[0]
+        sec = data[259]
+        minutes = struct.unpack_from("<I", data, 260)[0]
+        duration_csec = (minutes * 60 + sec) * 100 + msec // 10
+        n_chunks = (len(data) - 512) // CHUNK_SIZE
+        chunks = np.frombuffer(data, np.uint8, n_chunks * CHUNK_SIZE,
+                               512).reshape(n_chunks, CHUNK_SIZE)
+        frames = chunks[:, :FRAMES_A_CHUNK * FRAME_BYTES].reshape(
+            -1, FRAME_BYTES)[:, PERM_READ]
+        return frames, sample_rate, duration_csec
 
 
 def mux(frames: np.ndarray, sample_rate: int = 8000) -> bytes:
     """An ACT file of packed G.729 frames uint8 [N, 10] (act_write_*)."""
-    f = np.asarray(frames, np.uint8).reshape(-1, FRAME_BYTES)
-    n = len(f)
-    # the frames fill chunks of 51; the trailer pads the last chunk out, or
-    # adds a whole zero chunk when the frames end on a chunk's end
-    n_chunks = n // FRAMES_A_CHUNK + 1
-    slots = np.zeros((n_chunks * FRAMES_A_CHUNK, FRAME_BYTES), np.uint8)
-    slots[:n] = f[:, PERM_WRITE]
-    body = np.zeros((n_chunks, CHUNK_SIZE), np.uint8)
-    body[:, :FRAMES_A_CHUNK * FRAME_BYTES] = slots.reshape(n_chunks, -1)
-    hdr = bytearray(512)
-    size = 512 + body.size
-    hdr[0:4] = b"RIFF"
-    struct.pack_into("<I", hdr, 4, size - 8)
-    hdr[8:12] = b"WAVE"
-    hdr[12:16] = b"fmt "
-    struct.pack_into("<IHHIIHH", hdr, 16, 16, 1, 1, sample_rate,
-                     sample_rate * 2, 2, 16)
-    hdr[36:40] = b"data"
-    struct.pack_into("<I", hdr, 40, size - 44)
-    # duration record: frames * 80 samples at sample_rate
-    duration_ms = (n * 80 * 1000) // sample_rate
-    hdr[256] = 0x84
-    struct.pack_into("<H", hdr, 257, duration_ms % 1000)
-    duration_s = duration_ms // 1000
-    hdr[259] = duration_s % 60
-    struct.pack_into("<I", hdr, 260, duration_s // 60)
-    return bytes(hdr) + body.tobytes()
+    with span("act.mux"):
+        f = np.asarray(frames, np.uint8).reshape(-1, FRAME_BYTES)
+        n = len(f)
+        # the frames fill chunks of 51; the trailer pads the last chunk out, or
+        # adds a whole zero chunk when the frames end on a chunk's end
+        n_chunks = n // FRAMES_A_CHUNK + 1
+        slots = np.zeros((n_chunks * FRAMES_A_CHUNK, FRAME_BYTES), np.uint8)
+        slots[:n] = f[:, PERM_WRITE]
+        body = np.zeros((n_chunks, CHUNK_SIZE), np.uint8)
+        body[:, :FRAMES_A_CHUNK * FRAME_BYTES] = slots.reshape(n_chunks, -1)
+        hdr = bytearray(512)
+        size = 512 + body.size
+        hdr[0:4] = b"RIFF"
+        struct.pack_into("<I", hdr, 4, size - 8)
+        hdr[8:12] = b"WAVE"
+        hdr[12:16] = b"fmt "
+        struct.pack_into("<IHHIIHH", hdr, 16, 16, 1, 1, sample_rate,
+                         sample_rate * 2, 2, 16)
+        hdr[36:40] = b"data"
+        struct.pack_into("<I", hdr, 40, size - 44)
+        # duration record: frames * 80 samples at sample_rate
+        duration_ms = (n * 80 * 1000) // sample_rate
+        hdr[256] = 0x84
+        struct.pack_into("<H", hdr, 257, duration_ms % 1000)
+        duration_s = duration_ms // 1000
+        hdr[259] = duration_s % 60
+        struct.pack_into("<I", hdr, 260, duration_s // 60)
+        return bytes(hdr) + body.tobytes()
 
 
 def to_itu_bitstream(frames: np.ndarray) -> bytes:

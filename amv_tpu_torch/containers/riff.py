@@ -21,6 +21,8 @@ import io
 import struct
 from dataclasses import dataclass, field
 
+from ..utils.profiling import span
+
 
 MOVI_OFFSET = 0x138  # "movi" tag position (compare_amv.c:30-41)
 
@@ -102,26 +104,27 @@ def demux(data: bytes) -> AmvStreams:
     AmvReadNextFrame (AMVDec.c:150-238): '00dc' -> video, '01wb' -> audio,
     stop at "AMV_" or EOF.
     """
-    info = parse_header(data)
-    s = AmvStreams(info=info)
-    pos = MOVI_OFFSET + 4
-    n = len(data)
-    while pos + 8 <= n:
-        tag = data[pos:pos + 4]
-        if tag[:4] == b"AMV_":
-            break
-        size = _u32(data, pos + 4)
-        payload = data[pos + 8:pos + 8 + size]
-        if tag == b"00dc":
-            s.order.append((0, len(s.video_chunks)))
-            s.video_chunks.append(payload)
-        elif tag == b"01wb":
-            s.order.append((1, len(s.audio_chunks)))
-            s.audio_chunks.append(payload)
-        else:
-            raise ValueError(f"unexpected chunk tag {tag!r} at 0x{pos:x}")
-        pos += 8 + size
-    return s
+    with span("riff.demux"):
+        info = parse_header(data)
+        s = AmvStreams(info=info)
+        pos = MOVI_OFFSET + 4
+        n = len(data)
+        while pos + 8 <= n:
+            tag = data[pos:pos + 4]
+            if tag[:4] == b"AMV_":
+                break
+            size = _u32(data, pos + 4)
+            payload = data[pos + 8:pos + 8 + size]
+            if tag == b"00dc":
+                s.order.append((0, len(s.video_chunks)))
+                s.video_chunks.append(payload)
+            elif tag == b"01wb":
+                s.order.append((1, len(s.audio_chunks)))
+                s.audio_chunks.append(payload)
+            else:
+                raise ValueError(f"unexpected chunk tag {tag!r} at 0x{pos:x}")
+            pos += 8 + size
+        return s
 
 
 def read(path: str) -> AmvStreams:
@@ -147,167 +150,172 @@ def mux(video_chunks, audio_chunks, *, width, height, fps, sample_rate=22050,
     amvenc.c:124).  Back-patching of sizes, frame counts and duration follows
     avi_write_counters / avi_write_trailer (amvenc.c:72-110, 327-344).
     """
-    # AMV flags: TRUSTCKTYPE|HASINDEX|ISINTERLEAVED (amvenc.c:153-155,
-    # values from libavformat/amv.h:26-37: HASINDEX=0x10, ISINTERLEAVED=0x100,
-    # TRUSTCKTYPE=0x800).
-    flags = 0x800 | 0x100 | (0 if streamed else 0x10)
-    if audio_bit_rate is None:
-        # ffmpeg CLI default audio bit rate is 64k (ffmpeg.c audio_bit_rate);
-        # amvh stores (video+audio bitrate)/8 (amvenc.c:150).
-        audio_bit_rate = 64000
-    bitrate = video_bit_rate + audio_bit_rate
+    with span("riff.mux"):
+        # AMV flags: TRUSTCKTYPE|HASINDEX|ISINTERLEAVED (amvenc.c:153-155,
+        # values from libavformat/amv.h:26-37: HASINDEX=0x10,
+        # ISINTERLEAVED=0x100, TRUSTCKTYPE=0x800).
+        flags = 0x800 | 0x100 | (0 if streamed else 0x10)
+        if audio_bit_rate is None:
+            # ffmpeg CLI default audio bit rate is 64k (ffmpeg.c
+            # audio_bit_rate); amvh stores (video+audio bitrate)/8
+            # (amvenc.c:150).
+            audio_bit_rate = 64000
+        bitrate = video_bit_rate + audio_bit_rate
 
-    pb = io.BytesIO()
-    w32 = lambda v: pb.write(struct.pack("<I", v & 0xFFFFFFFF))
-    w16 = lambda v: pb.write(struct.pack("<H", v & 0xFFFF))
-    w8 = lambda v: pb.write(struct.pack("<B", v & 0xFF))
+        pb = io.BytesIO()
+        w32 = lambda v: pb.write(struct.pack("<I", v & 0xFFFFFFFF))
+        w16 = lambda v: pb.write(struct.pack("<H", v & 0xFFFF))
+        w8 = lambda v: pb.write(struct.pack("<B", v & 0xFF))
 
-    patch_sites = {}
+        patch_sites = {}
 
-    def start_tag(name):
-        pb.write(name)
-        patch = pb.tell()
+        def start_tag(name):
+            pb.write(name)
+            patch = pb.tell()
+            w32(0)
+            return patch
+
+        def end_tag(patch):
+            cur = pb.tell()
+            pb.seek(patch)
+            w32(cur - patch - 4)
+            pb.seek(cur)
+
+        # --- RIFF / hdrl -----------------------------------------------------
+        riff_patch = start_tag(b"RIFF")
+        pb.write(b"AMV ")
+        hdrl_patch = start_tag(b"LIST")
+        pb.write(b"hdrl")
+
+        pb.write(b"amvh")
+        w32(14 * 4)
+        w32(1_000_000 * 1 // fps)          # dwMicroSecPerFrame
+        w32(bitrate // 8)
         w32(0)
-        return patch
-
-    def end_tag(patch):
-        cur = pb.tell()
-        pb.seek(patch)
-        w32(cur - patch - 4)
-        pb.seek(cur)
-
-    # --- RIFF / hdrl --------------------------------------------------------
-    riff_patch = start_tag(b"RIFF")
-    pb.write(b"AMV ")
-    hdrl_patch = start_tag(b"LIST")
-    pb.write(b"hdrl")
-
-    pb.write(b"amvh")
-    w32(14 * 4)
-    w32(1_000_000 * 1 // fps)          # dwMicroSecPerFrame
-    w32(bitrate // 8)
-    w32(0)
-    w32(flags)
-    patch_sites["nb_frames"] = pb.tell()
-    w32(0)                             # total frames (patched later)
-    w32(0)                             # initial frame
-    w32(2)                             # nb streams
-    w32(1024 * 1024)                   # suggested buffer size
-    w32(width)
-    w32(height)
-    w32(fps)                           # dwSpeed
-    w32(1)
-    w32(0)
-    patch_sites["seconds"] = pb.tell()
-    w8(0)
-    patch_sites["minutes"] = pb.tell()
-    w8(0)
-    patch_sites["hours"] = pb.tell()
-    w16(0)
-
-    # --- video strl ---------------------------------------------------------
-    strl_patch = start_tag(b"LIST")
-    pb.write(b"strl")
-    strh_patch = start_tag(b"strh")
-    pb.write(b"vids")
-    w32(0)      # codec_tag (AMV has no bmp tag -> 0)
-    w32(0)      # flags
-    w16(0)      # priority
-    w16(0)      # language
-    w32(0)      # initial frame
-    w32(1)      # scale (time_base.num)
-    w32(fps)    # rate
-    w32(0)      # start
-    patch_sites["video_len"] = pb.tell()
-    w32(0)      # length (patched: packet count)
-    w32(1024 * 1024)  # suggested buffer size
-    w32(0xFFFFFFFF)   # quality = -1
-    w32(0)      # sample size
-    w32(0)
-    w16(width)
-    w16(height)
-    end_tag(strh_patch)
-    strf_patch = start_tag(b"strf")
-    for _ in range(9):
+        w32(flags)
+        patch_sites["nb_frames"] = pb.tell()
+        w32(0)                             # total frames (patched later)
+        w32(0)                             # initial frame
+        w32(2)                             # nb streams
+        w32(1024 * 1024)                   # suggested buffer size
+        w32(width)
+        w32(height)
+        w32(fps)                           # dwSpeed
+        w32(1)
         w32(0)
-    end_tag(strf_patch)
-    end_tag(strl_patch)
+        patch_sites["seconds"] = pb.tell()
+        w8(0)
+        patch_sites["minutes"] = pb.tell()
+        w8(0)
+        patch_sites["hours"] = pb.tell()
+        w16(0)
 
-    # --- audio strl ---------------------------------------------------------
-    strl_patch = start_tag(b"LIST")
-    pb.write(b"strl")
-    strh_patch = start_tag(b"strh")
-    pb.write(b"auds")
-    w32(1)
-    w32(0)
-    w16(0)
-    w16(0)
-    w32(0)
-    w32(1)      # au_scale = video time_base.num (amvenc.c:202-207)
-    w32(fps)    # au_byterate = video fps
-    w32(0)      # start
-    patch_sites["audio_len"] = pb.tell()
-    w32(0)      # length (patched: audio bytes / au_ssize(=2))
-    w32(2)      # sample size (au_ssize=2, amvenc.c:204)
-    w32(0)
-    w16(0)
-    w16(0)
-    end_tag(strh_patch)
-    strf_patch = start_tag(b"strf")
-    # put_wav_header (riff.c): tag 0x1, mono, rate, byterate, blockalign, bps
-    w16(1)
-    w16(1)
-    w32(sample_rate)
-    w32(audio_bit_rate // 8)
-    w16(2)      # block align = channels*16 >> 3
-    w16(16)     # bits per sample
-    w32(0)      # trailing le32 0 (amvenc.c:254)
-    end_tag(strf_patch)
-    end_tag(strl_patch)
+        # --- video strl ------------------------------------------------------
+        strl_patch = start_tag(b"LIST")
+        pb.write(b"strl")
+        strh_patch = start_tag(b"strh")
+        pb.write(b"vids")
+        w32(0)      # codec_tag (AMV has no bmp tag -> 0)
+        w32(0)      # flags
+        w16(0)      # priority
+        w16(0)      # language
+        w32(0)      # initial frame
+        w32(1)      # scale (time_base.num)
+        w32(fps)    # rate
+        w32(0)      # start
+        patch_sites["video_len"] = pb.tell()
+        w32(0)      # length (patched: packet count)
+        w32(1024 * 1024)  # suggested buffer size
+        w32(0xFFFFFFFF)   # quality = -1
+        w32(0)      # sample size
+        w32(0)
+        w16(width)
+        w16(height)
+        end_tag(strh_patch)
+        strf_patch = start_tag(b"strf")
+        for _ in range(9):
+            w32(0)
+        end_tag(strf_patch)
+        end_tag(strl_patch)
 
-    end_tag(hdrl_patch)
+        # --- audio strl ------------------------------------------------------
+        strl_patch = start_tag(b"LIST")
+        pb.write(b"strl")
+        strh_patch = start_tag(b"strh")
+        pb.write(b"auds")
+        w32(1)
+        w32(0)
+        w16(0)
+        w16(0)
+        w32(0)
+        w32(1)      # au_scale = video time_base.num (amvenc.c:202-207)
+        w32(fps)    # au_byterate = video fps
+        w32(0)      # start
+        patch_sites["audio_len"] = pb.tell()
+        w32(0)      # length (patched: audio bytes / au_ssize(=2))
+        w32(2)      # sample size (au_ssize=2, amvenc.c:204)
+        w32(0)
+        w16(0)
+        w16(0)
+        end_tag(strh_patch)
+        strf_patch = start_tag(b"strf")
+        # put_wav_header (riff.c): tag 0x1, mono, rate, byterate,
+        # blockalign, bps
+        w16(1)
+        w16(1)
+        w32(sample_rate)
+        w32(audio_bit_rate // 8)
+        w16(2)      # block align = channels*16 >> 3
+        w16(16)     # bits per sample
+        w32(0)      # trailing le32 0 (amvenc.c:254)
+        end_tag(strf_patch)
+        end_tag(strl_patch)
 
-    # --- movi ----------------------------------------------------------------
-    movi_patch = start_tag(b"LIST")
-    pb.write(b"movi")
-    assert pb.tell() == MOVI_OFFSET + 4, f"movi misplaced: 0x{pb.tell()-4:x}"
+        end_tag(hdrl_patch)
 
-    # Strict V/A alternation starting with video; once one stream runs dry
-    # the other is drained in order (amv_interleave_packet behavior on flush).
-    nv, na = len(video_chunks), len(audio_chunks)
-    audio_bytes = 0
-    vi = ai = 0
-    last = 1  # so the first packet out is video
-    while vi < nv or ai < na:
-        take_video = (last == 1 and vi < nv) or ai >= na
-        if take_video:
-            pb.write(b"00dc")
-            w32(len(video_chunks[vi]))
-            pb.write(video_chunks[vi])
-            vi += 1
-            last = 0
-        else:
-            pb.write(b"01wb")
-            w32(len(audio_chunks[ai]))
-            pb.write(audio_chunks[ai])
-            audio_bytes += len(audio_chunks[ai])
-            ai += 1
-            last = 1
+        # --- movi ------------------------------------------------------------
+        movi_patch = start_tag(b"LIST")
+        pb.write(b"movi")
+        assert pb.tell() == MOVI_OFFSET + 4, \
+            f"movi misplaced: 0x{pb.tell()-4:x}"
 
-    end_tag(movi_patch)
-    pb.write(b"AMV_END_")
-    end_tag(riff_patch)
+        # Strict V/A alternation starting with video; once one stream runs dry
+        # the other is drained in order (amv_interleave_packet behavior on
+        # flush).
+        nv, na = len(video_chunks), len(audio_chunks)
+        audio_bytes = 0
+        vi = ai = 0
+        last = 1  # so the first packet out is video
+        while vi < nv or ai < na:
+            take_video = (last == 1 and vi < nv) or ai >= na
+            if take_video:
+                pb.write(b"00dc")
+                w32(len(video_chunks[vi]))
+                pb.write(video_chunks[vi])
+                vi += 1
+                last = 0
+            else:
+                pb.write(b"01wb")
+                w32(len(audio_chunks[ai]))
+                pb.write(audio_chunks[ai])
+                audio_bytes += len(audio_chunks[ai])
+                ai += 1
+                last = 1
 
-    # --- back-patch counters (avi_write_counters, amvenc.c:72-110) -----------
-    end = pb.tell()
-    pb.seek(patch_sites["video_len"]); w32(nv)
-    pb.seek(patch_sites["audio_len"]); w32(audio_bytes // 2)
-    pb.seek(patch_sites["nb_frames"]); w32(nv)
-    dur = nv // fps
-    pb.seek(patch_sites["seconds"]); w8(dur % 60)
-    # NOTE: reference writes total/60 for minutes and total/3600 for hours
-    # (amvenc.c:100-109) -- minutes is NOT %60.  Reproduced faithfully.
-    pb.seek(patch_sites["minutes"]); w8(dur // 60)
-    pb.seek(patch_sites["hours"]); w16(dur // 3600)
-    pb.seek(end)
-    return pb.getvalue()
+        end_tag(movi_patch)
+        pb.write(b"AMV_END_")
+        end_tag(riff_patch)
+
+        # --- back-patch counters (avi_write_counters, amvenc.c:72-110) -------
+        end = pb.tell()
+        pb.seek(patch_sites["video_len"]); w32(nv)
+        pb.seek(patch_sites["audio_len"]); w32(audio_bytes // 2)
+        pb.seek(patch_sites["nb_frames"]); w32(nv)
+        dur = nv // fps
+        pb.seek(patch_sites["seconds"]); w8(dur % 60)
+        # NOTE: reference writes total/60 for minutes and total/3600 for hours
+        # (amvenc.c:100-109) -- minutes is NOT %60.  Reproduced faithfully.
+        pb.seek(patch_sites["minutes"]); w8(dur // 60)
+        pb.seek(patch_sites["hours"]); w16(dur // 3600)
+        pb.seek(end)
+        return pb.getvalue()

@@ -10,19 +10,22 @@ import struct
 import numpy as np
 
 from ..codecs.wav_audio import decode_pcm_bytes
+from ..utils.profiling import span
 
 
 def write_pcm(path: str, pcm: np.ndarray, sample_rate: int,
               channels: int = 1):
     """Write int16 samples as a canonical 44-byte-header PCM WAV."""
-    data = np.asarray(pcm, dtype="<i2").tobytes()
-    block_align = 2 * channels
-    hdr = b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVE"
-    hdr += b"fmt " + struct.pack("<IHHIIHH", 16, 1, channels, sample_rate,
-                                 sample_rate * block_align, block_align, 16)
-    hdr += b"data" + struct.pack("<I", len(data))
-    with open(path, "wb") as f:
-        f.write(hdr + data)
+    with span("wav.write"):
+        data = np.asarray(pcm, dtype="<i2").tobytes()
+        block_align = 2 * channels
+        hdr = b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVE"
+        hdr += b"fmt " + struct.pack("<IHHIIHH", 16, 1, channels,
+                                     sample_rate, sample_rate * block_align,
+                                     block_align, 16)
+        hdr += b"data" + struct.pack("<I", len(data))
+        with open(path, "wb") as f:
+            f.write(hdr + data)
 
 
 def write_adpcm_raw(path: str, chunks: list[bytes], sample_rate: int,

@@ -24,8 +24,11 @@ import glob
 import os
 import shutil
 import subprocess
+import threading
 
 import torch
+
+from ..utils.profiling import span
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc")
@@ -73,6 +76,7 @@ _RESTYPES = {"amv_adpcm_encode_scratch": _I64, "amv_trellis_scratch": _I64,
              "amv_g729_state_words": _I64}
 
 _lib = None
+_lib_lock = threading.Lock()    # one thread builds and loads the library
 
 
 def _nvcc() -> str:
@@ -110,7 +114,7 @@ def build() -> str:
             os.path.getmtime(s) <= os.path.getmtime(_SO) for s in deps):
         return _SO
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    nvcc, tag = _nvcc(), f"{os.getpid()}.{threading.get_ident()}.tmp"
     objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
             for s in srcs]
     try:
@@ -128,15 +132,17 @@ def build() -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use, by one thread)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = _RESTYPES.get(name, ctypes.c_int)
-        _lib = lib
+        with _lib_lock, span("kernels.build"):
+            if _lib is None:
+                lib = ctypes.CDLL(build())
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = _RESTYPES.get(name, ctypes.c_int)
+                _lib = lib
     return _lib
 
 

@@ -20,8 +20,12 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import threading
 
 import numpy as np
+
+# absolute: tools/time_serving.py loads this file alone, from another tree
+from amv_tpu_torch.utils.profiling import span
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "entropy.c")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -61,6 +65,7 @@ _SIGNATURES = {   # name -> (restype, argtypes)
 }
 
 _lib = None
+_lib_lock = threading.Lock()    # one thread builds and loads the library
 
 
 def build() -> str:
@@ -69,7 +74,7 @@ def build() -> str:
     if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
         return _SO
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
+    tmp = f"{_SO}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = ["gcc", *CFLAGS, "-o", tmp, _SRC]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
@@ -80,14 +85,16 @@ def build() -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded host library (built on first use)."""
+    """The loaded host library (built on first use, by one thread)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        for name, (restype, argtypes) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.restype, fn.argtypes = restype, argtypes
-        _lib = lib
+        with _lib_lock, span("native.build"):
+            if _lib is None:
+                lib = ctypes.CDLL(build())
+                for name, (restype, argtypes) in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.restype, fn.argtypes = restype, argtypes
+                _lib = lib
     return _lib
 
 

@@ -55,6 +55,7 @@ from ..codecs.amv_video import QUANTS, used_words
 from ..codecs.jpeg_tables import device_table
 from ..kernels.entropy_encode import count_bits, encode_levels
 from ..kernels._build import on_stream
+from ..utils.profiling import count, span
 from . import resolve_device
 from .transcode import transcode_scans
 
@@ -92,12 +93,13 @@ class _Shard:
     """A batch's frames on one device between the stages: its slot, its
     first frame's index in the stream, the re-quantized levels on the
     device until the pack, the pinned bits and ok flags, the pinned words
-    once packed, and the events of those copies."""
+    once packed, the events of those copies, and the span that issued it
+    (the parent of its drain's)."""
 
     def __init__(self, slot, base, lv2, bits, ok, counted):
         self.slot, self.base, self.lv2 = slot, base, lv2
         self.bits, self.ok, self.counted = bits, ok, counted
-        self.words = self.packed = None
+        self.words = self.packed = self.issued = None
 
 
 class AsyncTranscoder:
@@ -180,17 +182,21 @@ class AsyncTranscoder:
                                "flight: drain one first")
         n, parts = len(payloads), len(self.devices)
         cuts = [n * i // parts for i in range(parts + 1)]
-        # every shard unescaped and its width checked before any launch
-        staged = [(slot, dev, self._unescape(slot, payloads[a:b]),
-                   self._base + a)
-                  for slot, dev, a, b in zip(slots, self.devices, cuts,
-                                             cuts[1:]) if b > a]
-        shards = [self._launch(slot, dev, rows, lens, base)
-                  for slot, dev, (rows, lens), base in staged]
+        with span("serve.issue") as issued:
+            # every shard unescaped and its width checked before any launch
+            staged = [(slot, dev, self._unescape(slot, payloads[a:b]),
+                       self._base + a)
+                      for slot, dev, a, b in zip(slots, self.devices, cuts,
+                                                 cuts[1:]) if b > a]
+            shards = [self._launch(slot, dev, rows, lens, base)
+                      for slot, dev, (rows, lens), base in staged]
+        for shard in shards:
+            shard.issued = issued
         for slot in slots:
             slot.busy = True
         self._next = (self._next + 1) % self.depth
         self._base += n
+        count("serve.frames", n)
         return shards
 
     def _unescape(self, slot: _Slot, payloads):
@@ -200,8 +206,9 @@ class AsyncTranscoder:
         n, stride = len(payloads), native.row_stride(payloads)
         rows = slot.host("rows", n * stride, torch.uint8)
         lens = slot.host("lens", n, torch.int64)
-        _, lens_np = native.unescape_into(payloads, rows.numpy(),
-                                          lens.numpy())
+        with span("native.unescape"):
+            _, lens_np = native.unescape_into(payloads, rows.numpy(),
+                                              lens.numpy())
         width = (int(lens_np.max()) + 3) & ~3
         if self.w_bytes is None:
             self.w_bytes = width
@@ -232,27 +239,32 @@ class AsyncTranscoder:
         naming (by stream index) the frames kernel D rejected, and enqueue
         kernel E's pack at each shard's exact budget and the words' copy
         to pinned memory.  Does nothing for a batch already packed."""
-        for shard in batch:
-            if shard.counted is not None:
-                shard.counted.synchronize()
-        bad = [i + shard.base for shard in batch
-               for i in np.flatnonzero(shard.ok.numpy() == 0).tolist()]
-        if bad:
+        if all(shard.words is not None for shard in batch):
+            return
+        with span("serve.pack"):
+            counted = [s.counted for s in batch if s.counted is not None]
+            if counted:
+                with span("serve.wait_count"):
+                    for event in counted:
+                        event.synchronize()
+            bad = [i + shard.base for shard in batch
+                   for i in np.flatnonzero(shard.ok.numpy() == 0).tolist()]
+            if bad:
+                for shard in batch:
+                    shard.slot.busy = False
+                raise ValueError(f"malformed scan in frame(s) {bad} of the "
+                                 "stream: the Huffman decoder rejected them")
             for shard in batch:
-                shard.slot.busy = False
-            raise ValueError(f"malformed scan in frame(s) {bad} of the "
-                             "stream: the Huffman decoder rejected them")
-        for shard in batch:
-            if shard.words is not None:
-                continue
-            n, w_used = len(shard.ok), used_words(shard.bits.numpy())
-            with on_stream(shard.lv2.device, shard.slot.stream):
-                words, _, _ = encode_levels(shard.lv2, w_used)
-                shard.lv2 = None
-                shard.words = shard.slot.host("words", n * w_used,
-                                              torch.int32).view(n, w_used)
-                shard.words.copy_(words, non_blocking=True)
-                shard.packed = shard.slot.event()
+                if shard.words is not None:
+                    continue
+                n, w_used = len(shard.ok), used_words(shard.bits.numpy())
+                with on_stream(shard.lv2.device, shard.slot.stream):
+                    words, _, _ = encode_levels(shard.lv2, w_used)
+                    shard.lv2 = None
+                    shard.words = shard.slot.host(
+                        "words", n * w_used, torch.int32).view(n, w_used)
+                    shard.words.copy_(words, non_blocking=True)
+                    shard.packed = shard.slot.event()
 
     def drain(self, batch: list[_Shard]):
         """Stage 3: wait for the batch's words and escape them -> (buf
@@ -261,12 +273,15 @@ class AsyncTranscoder:
         slots are free again."""
         self.pack(batch)
         outs = []
-        for shard in batch:
-            if shard.packed is not None:
-                shard.packed.synchronize()
-            outs.append(native.escape_packed(shard.words.numpy(),
-                                             shard.bits.numpy()))
-            shard.slot.busy = False
+        with span("serve.drain", parent=batch[0].issued):
+            for shard in batch:
+                if shard.packed is not None:
+                    with span("serve.wait_packed"):
+                        shard.packed.synchronize()
+                with span("native.escape"):
+                    outs.append(native.escape_packed(shard.words.numpy(),
+                                                     shard.bits.numpy()))
+                shard.slot.busy = False
         if len(outs) == 1:
             return outs[0]
         starts = np.cumsum([0] + [len(o[0]) for o in outs[:-1]])
@@ -294,7 +309,9 @@ class AsyncTranscoder:
                             drains.append(worker.submit(self.drain, pending))
                             pending = None
                         else:
-                            yield drains.popleft().result()
+                            with span("serve.wait_slot"):
+                                out = drains.popleft().result()
+                            yield out
                     batch = self.issue(chunk)
                     if pending is not None:
                         self.pack(pending)
@@ -305,7 +322,9 @@ class AsyncTranscoder:
                     drains.append(worker.submit(self.drain, pending))
                     pending = None
                 while drains:
-                    yield drains.popleft().result()
+                    with span("serve.wait_slot"):
+                        out = drains.popleft().result()
+                    yield out
             finally:
                 # after an error or an early close: the batches left in
                 # flight still copy into their slots' buffers, so wait for

@@ -47,6 +47,7 @@ from ..kernels.entropy_parallel import (FITTING_WINDOWS,
 from ..kernels.entropy_records import encode_layout_async
 from ..kernels.transcode import (takes_size, transcode_blocks,
                                  transcode_blocks_pix)
+from ..utils.profiling import span
 from . import resolve_device
 
 
@@ -183,20 +184,21 @@ def transcode_bytes(data: bytes, *, qscale: int = 2, quant: str = "ffmpeg",
     with 4 in flight, as the JAX package routes it.  Both routes give the
     same bytes."""
     from .serving import AsyncTranscoder
-    dev = resolve_device(device)
-    s = riff.demux(data)
-    w, h = s.info.width, s.info.height
-    n = len(s.video_chunks)
-    serve = n > int(os.environ.get("AMV_SERVE_THRESHOLD", "8192"))
-    tr = AsyncTranscoder(((w + 15) // 16) * ((h + 15) // 16), qscale,
-                         batch_frames=SERVE_BATCH_FRAMES if serve else
-                         max(1, n), depth=4 if serve else 1,
-                         w_bytes=native.row_stride(s.video_chunks),
-                         size=(w, h), quant=quant, device=dev)
-    video = []
-    for buf, offsets, lens in tr.batches(s.video_chunks):
-        mv = memoryview(buf)
-        video += [mv[o:o + k] for o, k in zip(offsets.tolist(),
-                                              lens.tolist())]
-    return riff.mux(video, s.audio_chunks, width=w, height=h,
-                    fps=s.info.fps_num, sample_rate=s.info.sample_rate)
+    with span("transcode_bytes"):
+        dev = resolve_device(device)
+        s = riff.demux(data)
+        w, h = s.info.width, s.info.height
+        n = len(s.video_chunks)
+        serve = n > int(os.environ.get("AMV_SERVE_THRESHOLD", "8192"))
+        tr = AsyncTranscoder(((w + 15) // 16) * ((h + 15) // 16), qscale,
+                             batch_frames=SERVE_BATCH_FRAMES if serve else
+                             max(1, n), depth=4 if serve else 1,
+                             w_bytes=native.row_stride(s.video_chunks),
+                             size=(w, h), quant=quant, device=dev)
+        video = []
+        for buf, offsets, lens in tr.batches(s.video_chunks):
+            mv = memoryview(buf)
+            video += [mv[o:o + k] for o, k in zip(offsets.tolist(),
+                                                  lens.tolist())]
+        return riff.mux(video, s.audio_chunks, width=w, height=h,
+                        fps=s.info.fps_num, sample_rate=s.info.sample_rate)
