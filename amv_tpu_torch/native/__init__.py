@@ -7,8 +7,11 @@ port uses: the host byte passes of the video paths (`unescape_frames`,
 progressive frame decode (`ProgressivePlan`, `progressive_frame`), and
 the single-core C reference oracles (`ref_decode_frame`,
 `ref_encode_frame`, `ref_adpcm_decode`).  `lossless_frame` is the port's
-own: the lossless (SOF3) walk the JAX package runs in Python.  Each call
-drops the GIL (a plain ctypes call), so frames decode on several threads.
+own: the lossless (SOF3) walk the JAX package runs in Python; so are
+`riff_walk` and `riff_file`, the AMV container's movi walked and written
+through offset and size tables, and `unescape_into`'s table form, which
+reads the payloads in place in the file's bytes.  Each call drops the
+GIL (a plain ctypes call), so frames decode on several threads.
 
 At first use gcc compiles entropy.c into build/amv_tpu_torch/ at the
 repository root (beside the CUDA library); the library is rebuilt when
@@ -39,7 +42,7 @@ _P32 = ctypes.POINTER(ctypes.c_int32)
 _P64 = ctypes.POINTER(ctypes.c_int64)
 _SIGNATURES = {   # name -> (restype, argtypes)
     "amv_unescape_frames": (ctypes.c_int64, [
-        ctypes.c_char_p, _P64, _P64, ctypes.c_int, _P8, ctypes.c_int64,
+        ctypes.c_void_p, _P64, _P64, ctypes.c_int, _P8, ctypes.c_int64,
         _P64]),
     "amv_escape_packed": (ctypes.c_int64, [
         _P32, ctypes.c_int64, _P32, ctypes.c_int, _P8, _P64, _P64]),
@@ -62,7 +65,23 @@ _SIGNATURES = {   # name -> (restype, argtypes)
         _P8, _P8, _P32]),
     "amv_lossless_frame": (ctypes.c_int, [
         ctypes.c_char_p, ctypes.c_int64, _P32, _P32, _P64, _P8, _P8, _P64]),
+    "amv_riff_walk": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, _P64, _P64, _P64,
+        _P64, _P64]),
+    "amv_riff_write": (ctypes.c_int64, [
+        ctypes.c_void_p, ctypes.c_int64, _P64, ctypes.c_void_p, _P64, _P64,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, _P64, _P64,
+        ctypes.c_int64]),
 }
+
+# a new bytes object of n bytes that C fills before any Python code sees
+# it, and the address of its bytes (CPython's own calls, as a C
+# extension makes a bytes result)
+_new_bytes = ctypes.PYFUNCTYPE(ctypes.py_object, ctypes.c_void_p,
+                               ctypes.c_ssize_t)(
+    ("PyBytes_FromStringAndSize", ctypes.pythonapi))
+_bytes_addr = ctypes.PYFUNCTYPE(ctypes.c_void_p, ctypes.py_object)(
+    ("PyBytes_AsString", ctypes.pythonapi))
 
 _lib = None
 _lib_lock = threading.Lock()    # one thread builds and loads the library
@@ -98,12 +117,32 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def _blob(payloads):
+def tables(payloads):
+    """A list of bytes-like payloads -> the table form: (blob bytes,
+    offsets int64 [n], sizes int64 [n]), payload i being
+    blob[offsets[i]:offsets[i] + sizes[i]].  Copies every payload once."""
     blob = b"".join(payloads)
     offsets = np.zeros(len(payloads), dtype=np.int64)
     sizes = np.array([len(p) for p in payloads], dtype=np.int64)
     np.cumsum(sizes[:-1], out=offsets[1:])
     return blob, offsets, sizes
+
+
+def _table(src, offsets, sizes):
+    """(src as uint8 [n] over its own memory, offsets, sizes as
+    C-contiguous int64 [k]) after checking that every entry lies inside
+    src; src is any contiguous bytes-like buffer."""
+    buf = np.frombuffer(src, np.uint8)
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    sizes = np.ascontiguousarray(sizes, np.int64)
+    if offsets.shape != sizes.shape or offsets.ndim != 1:
+        raise ValueError(f"offsets {offsets.shape} and sizes {sizes.shape} "
+                         "must be one table")
+    if len(offsets) and (offsets.min() < 0 or sizes.min() < 0 or
+                         int((offsets + sizes).max()) > buf.size):
+        raise ValueError(f"a table entry lies outside its {buf.size}-byte "
+                         "buffer")
+    return buf, offsets, sizes
 
 
 def unescape_frames(payloads: list[bytes]):
@@ -115,41 +154,101 @@ def unescape_frames(payloads: list[bytes]):
     payloads)."""
     if not payloads:
         return np.zeros((0, 0), np.uint8), np.zeros(0, np.int64)
-    rows = np.zeros(len(payloads) * row_stride(payloads), np.uint8)
-    rows, lens = unescape_into(payloads, rows, np.zeros(len(payloads),
-                                                        np.int64))
+    blob, offsets, sizes = tables(payloads)
+    rows = np.zeros(len(payloads) * row_stride(sizes), np.uint8)
+    rows, lens = unescape_into(blob, offsets, sizes, rows,
+                               np.zeros(len(payloads), np.int64))
     return rows[:, :(int(lens.max()) + 3) & ~3], lens
 
 
-def row_stride(payloads: list[bytes]) -> int:
-    """The row stride `unescape_into` lays the payloads' scans out with:
-    the longest payload rounded up to a multiple of 4 bytes."""
-    return (max(map(len, payloads), default=0) + 3) & ~3
+def row_stride(sizes) -> int:
+    """The row stride `unescape_into` lays payloads of these sizes out
+    with: the longest rounded up to a multiple of 4 bytes."""
+    return (int(np.max(sizes, initial=0)) + 3) & ~3
 
 
-def unescape_into(payloads: list[bytes], rows: np.ndarray,
-                  lens: np.ndarray):
-    """`unescape_frames` into the caller's buffers (pinned host memory,
-    say): rows uint8 with room for F x row_stride(payloads) bytes, lens
-    int64 with room for F.  Returns (rows as a C-contiguous view [F,
+def unescape_into(src, offsets, sizes, rows: np.ndarray, lens: np.ndarray):
+    """`unescape_frames` of the payloads src[offsets[i]:offsets[i] +
+    sizes[i]] (src any contiguous bytes-like buffer, such as a whole .amv
+    file read in place) into the caller's buffers (pinned host memory,
+    say): rows uint8 with room for F x row_stride(sizes) bytes, lens int64
+    with room for F.  Returns (rows as a C-contiguous view [F,
     row_stride], lens [F]).  Bytes of a row past its scan keep what the
     buffer held (kernel D reads nothing past lens)."""
-    f, stride = len(payloads), row_stride(payloads)
+    buf, offsets, sizes = _table(src, offsets, sizes)
+    f, stride = len(sizes), row_stride(sizes)
     if rows.dtype != np.uint8 or not rows.flags.c_contiguous or \
             rows.size < f * stride or lens.dtype != np.int64 or \
             not lens.flags.c_contiguous or lens.size < f:
         raise ValueError(f"unescape_into needs C-contiguous uint8 rows of "
                          f">= {f * stride} bytes and int64 lens of >= {f}")
     rows, lens = rows.reshape(-1)[:f * stride].reshape(f, stride), lens[:f]
-    if not payloads:
+    if not f:
         return rows, lens
-    blob, offsets, sizes = _blob(payloads)
     rc = library().amv_unescape_frames(
-        blob, offsets.ctypes.data_as(_P64), sizes.ctypes.data_as(_P64), f,
-        rows.ctypes.data_as(_P8), stride, lens.ctypes.data_as(_P64))
+        buf.ctypes.data, offsets.ctypes.data_as(_P64),
+        sizes.ctypes.data_as(_P64), f, rows.ctypes.data_as(_P8), stride,
+        lens.ctypes.data_as(_P64))
     if rc < 0:
         raise ValueError(f"native unescape failed (rc={rc})")
     return rows, lens
+
+
+def riff_walk(data, pos: int):
+    """The movi chunk walk of an AMV file's bytes `data` from offset pos
+    (amv_riff_walk) -> (video offsets, video sizes, audio offsets, audio
+    sizes), int64 tables into data: each '00dc' and '01wb' chunk's
+    payload, a size cut at the end of data, up to "AMV_" or fewer than 8
+    bytes left.  Another tag raises ValueError naming it and its
+    position."""
+    buf = np.frombuffer(data, np.uint8)
+    st = np.zeros(3, np.int64)     # end position, video count, audio count
+    lib = library()
+
+    def walk(*tabs):
+        return lib.amv_riff_walk(buf.ctypes.data, buf.size, pos, *tabs,
+                                 st.ctypes.data_as(_P64))
+
+    if walk(None, None, None, None) < 0:   # a first pass counts the chunks
+        at = int(st[0])
+        raise ValueError(f"unexpected chunk tag {bytes(buf[at:at + 4])!r} "
+                         f"at 0x{at:x}")
+    v_off, v_size = np.empty((2, int(st[1])), np.int64)
+    a_off, a_size = np.empty((2, int(st[2])), np.int64)
+    walk(*(t.ctypes.data_as(_P64) for t in (v_off, v_size, a_off, a_size)))
+    return v_off, v_size, a_off, a_size
+
+
+def riff_file(head: bytes, video, audio, tail: bytes) -> bytes:
+    """A new bytes object: head, the movi chunks, then tail, each byte
+    written once (amv_riff_write).  video is a list of (buf, offsets,
+    sizes) tables, one a served batch in stream order, such as
+    `escape_packed` returns; audio one table over the whole stream.  The
+    chunks interleave as amv_interleave_packet orders them."""
+    audio = _table(*audio)
+    video = [_table(*t) for t in video] or [_table(b"", [], [])]
+    total = len(head) + len(tail) + sum(
+        8 * len(s) + int(s.sum()) for _, _, s in video + [audio])
+    out = _new_bytes(None, total)
+    addr = _bytes_addr(out)
+    lib = library()
+    ctypes.memmove(addr, head, len(head))
+    st = np.array([len(head), 0, 1], np.int64)
+    a_buf, a_off, a_size = audio
+    for k, (v_buf, v_off, v_size) in enumerate(video):
+        rc = lib.amv_riff_write(
+            addr, total - len(tail), st.ctypes.data_as(_P64),
+            v_buf.ctypes.data, v_off.ctypes.data_as(_P64),
+            v_size.ctypes.data_as(_P64), len(v_off), k + 1 < len(video),
+            a_buf.ctypes.data, a_off.ctypes.data_as(_P64),
+            a_size.ctypes.data_as(_P64), len(a_off))
+        if rc < 0:
+            raise ValueError(f"native movi write overflowed (rc={rc})")
+    if st[0] != total - len(tail) or st[1] != len(a_off):
+        raise RuntimeError(f"movi written to {int(st[0])} of "
+                           f"{total - len(tail)} bytes")
+    ctypes.memmove(addr + total - len(tail), tail, len(tail))
+    return out
 
 
 def escape_packed(words: np.ndarray, bits: np.ndarray):
@@ -224,7 +323,7 @@ def decode_scans_custom(scans: list[bytes], n_mcu: int, huff: dict,
         if not (0 <= dc_id <= 3 and 0 <= ac_id <= 3):
             raise ValueError(f"bad scan table selector ({dc_id},{ac_id})")
         tab_ids[b] = (dc_id, 4 + ac_id)
-    blob, offsets, sizes = _blob(scans)
+    blob, offsets, sizes = tables(scans)
     shape = (len(scans), n_mcu, n_blk, 64)
     if out is None:
         out = np.empty(shape, dtype=np.int16)
@@ -310,7 +409,7 @@ def progressive_frame(scans: list, coef: np.ndarray,
     # every block index of the plan must land inside coef
     if plan.blk_all.size and int(plan.blk_all.max()) >= coef.shape[0]:
         raise ValueError("progressive plan indexes past the coefficients")
-    blob, off, lens = _blob(scans)
+    blob, off, lens = tables(scans)
     rc = library().amv_progressive_frame(
         blob, off.ctypes.data_as(_P64), lens.ctypes.data_as(_P64), plan.n,
         plan.meta.ctypes.data_as(_P32), plan.blk_all.ctypes.data_as(_P64),

@@ -5,6 +5,9 @@
  *
  *  - amv_unescape_frames / amv_escape_packed: SOI/EOI framing and 0xFF00
  *    stuffing, the host stages of every video path;
+ *  - amv_riff_walk / amv_riff_write: the AMV container's movi as offset
+ *    and size tables, walked and written in one pass each (the port's
+ *    own: the JAX package walks and writes chunks in Python);
  *  - amv_ref_decode_frame / amv_ref_encode_frame / adpcm_ref_decode: the
  *    full scalar decode and encode (entropy + integer DCT + assembly),
  *    the ground truth the port's outputs are held against;
@@ -520,6 +523,87 @@ API int64_t amv_escape_packed(const int32_t *words, int64_t w_out,
         out_lens[f] = j - out_offsets[f];
     }
     return j;
+}
+
+/* ------------------------------------------------------------------ */
+/* RIFF movi: the AMV container's chunk walk and chunk writer           */
+/* ------------------------------------------------------------------ */
+
+/* The movi walk (containers/riff.py:walk, the loop of avidec.c:600-700
+ * and AMVDec.c:150-238): from data[pos], each '00dc' chunk's payload
+ * offset and size into the video tables and each '01wb' chunk's into the
+ * audio tables, a size cut at the end of the data, until "AMV_" or fewer
+ * than 8 bytes remain.  With null tables the walk only counts, so a first
+ * call sizes the tables a second one fills.  st receives {end position,
+ * video count, audio count}.  Returns 0 at the stream's end, -1 on
+ * another tag (at st[0]). */
+API int amv_riff_walk(const uint8_t *data, int64_t n, int64_t pos,
+                      int64_t *v_off, int64_t *v_size, int64_t *a_off,
+                      int64_t *a_size, int64_t *st) {
+    int64_t nv = 0, na = 0;
+    int rc = 0;
+    while (pos + 8 <= n) {
+        const uint8_t *p = data + pos;
+        if (!memcmp(p, "AMV_", 4)) break;
+        int64_t size = (int64_t)((uint32_t)p[4] | (uint32_t)p[5] << 8 |
+                                 (uint32_t)p[6] << 16 | (uint32_t)p[7] << 24);
+        int64_t cut = size < n - pos - 8 ? size : n - pos - 8;
+        if (!memcmp(p, "00dc", 4)) {
+            if (v_off) { v_off[nv] = pos + 8; v_size[nv] = cut; }
+            nv++;
+        } else if (!memcmp(p, "01wb", 4)) {
+            if (a_off) { a_off[na] = pos + 8; a_size[na] = cut; }
+            na++;
+        } else {
+            rc = -1;
+            break;
+        }
+        pos += 8 + size;
+    }
+    st[0] = pos; st[1] = nv; st[2] = na;
+    return rc;
+}
+
+/* The movi writer (containers/riff.py:write): chunks into out from
+ * out[st[0]] in amv_interleave_packet's order (amvenc.c:378-406), strict
+ * alternation from video, then the longer stream drains.  This call's
+ * video chunks are v_buf's by v_off / v_size (one served batch); with
+ * more_video a later call brings the next ones, so the call stops where
+ * a video chunk is due and this batch has none left.  The audio chunks
+ * are a_buf's by the whole stream's tables.  st = {out position, next
+ * audio chunk, 1 while video is due} is carried from call to call.  A
+ * chunk is its tag, its size (le32) and its payload, with no padding
+ * (amvenc.c:320-321).  Returns the chunks written, or -1 when a chunk
+ * would pass out[cap]. */
+API int64_t amv_riff_write(uint8_t *out, int64_t cap, int64_t *st,
+                           const uint8_t *v_buf, const int64_t *v_off,
+                           const int64_t *v_size, int64_t nv,
+                           int more_video, const uint8_t *a_buf,
+                           const int64_t *a_off, const int64_t *a_size,
+                           int64_t na) {
+    int64_t pos = st[0], ai = st[1], vi = 0, written = 0;
+    int video_due = (int)st[2];
+    for (;;) {
+        int video;
+        if (video_due && vi < nv) video = 1;
+        else if (video_due && more_video) break;
+        else if (ai < na) video = 0;
+        else if (vi < nv) video = 1;
+        else break;
+        const uint8_t *src = video ? v_buf + v_off[vi] : a_buf + a_off[ai];
+        int64_t size = video ? v_size[vi++] : a_size[ai++];
+        if (size > cap - pos - 8) return -1;
+        uint8_t *p = out + pos;
+        memcpy(p, video ? "00dc" : "01wb", 4);
+        p[4] = (uint8_t)size; p[5] = (uint8_t)(size >> 8);
+        p[6] = (uint8_t)(size >> 16); p[7] = (uint8_t)(size >> 24);
+        memcpy(p + 8, src, (size_t)size);
+        pos += 8 + size;
+        written++;
+        video_due = !video;
+    }
+    st[0] = pos; st[1] = ai; st[2] = video_due;
+    return written;
 }
 
 /* ------------------------------------------------------------------ */

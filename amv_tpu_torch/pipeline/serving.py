@@ -4,7 +4,11 @@
 A stream of '00dc' payloads goes to the card in batches of `batch_frames`
 frames with up to `depth` batches in flight, each on a CUDA stream and
 pinned host buffers of its own (a ring of `depth` slots), in three
-stages:
+stages.  A batch is a table, (src, offsets, sizes): payload i is
+src[offsets[i]:offsets[i] + sizes[i]], src being any bytes-like buffer,
+such as the whole .amv file `riff.walk` tabled (`batches`).  A list of
+payloads is joined into that form once, at its entry (`stream`,
+`transcode`).
 
 * `issue`: the C unescape writes the batch's scans into the slot's pinned
   buffer, a non-blocking upload, the device chain up to kernel E's bit
@@ -170,21 +174,23 @@ class AsyncTranscoder:
                 torch.cuda.synchronize(dev)
 
     # ------------------------------------------------------------------
-    def issue(self, payloads) -> list[_Shard]:
-        """Stage 1: unescape into pinned memory, upload and enqueue the
-        device chain up to kernel E's count on the batch's own stream (on
-        a mesh, each shard on its position's) -> the batch: its shards, one
-        a mesh position (one on a single device).  Raises ValueError when
-        the batch's rows are wider than w_bytes."""
+    def issue(self, src, offsets, sizes) -> list[_Shard]:
+        """Stage 1: unescape the table's payloads into pinned memory,
+        upload and enqueue the device chain up to kernel E's count on the
+        batch's own stream (on a mesh, each shard on its position's) ->
+        the batch: its shards, one a mesh position (one on a single
+        device).  Raises ValueError when the batch's rows are wider than
+        w_bytes."""
         slots = [ring[self._next] for ring in self._rings]
         if any(slot.busy for slot in slots):
             raise RuntimeError(f"more than depth={self.depth} batches in "
                                "flight: drain one first")
-        n, parts = len(payloads), len(self.devices)
+        n, parts = len(offsets), len(self.devices)
         cuts = [n * i // parts for i in range(parts + 1)]
         with span("serve.issue") as issued:
             # every shard unescaped and its width checked before any launch
-            staged = [(slot, dev, self._unescape(slot, payloads[a:b]),
+            staged = [(slot, dev, self._unescape(slot, src, offsets[a:b],
+                                                 sizes[a:b]),
                        self._base + a)
                       for slot, dev, a, b in zip(slots, self.devices, cuts,
                                                  cuts[1:]) if b > a]
@@ -199,16 +205,16 @@ class AsyncTranscoder:
         count("serve.frames", n)
         return shards
 
-    def _unescape(self, slot: _Slot, payloads):
-        """A shard's scans unescaped into its slot's pinned rows -> (rows
-        uint8 [n, stride], lens int64 [n]), both pinned; ValueError when
-        they are wider than w_bytes."""
-        n, stride = len(payloads), native.row_stride(payloads)
+    def _unescape(self, slot: _Slot, src, offsets, sizes):
+        """A shard's scans unescaped from src into its slot's pinned rows
+        -> (rows uint8 [n, stride], lens int64 [n]), both pinned;
+        ValueError when they are wider than w_bytes."""
+        n, stride = len(sizes), native.row_stride(sizes)
         rows = slot.host("rows", n * stride, torch.uint8)
         lens = slot.host("lens", n, torch.int64)
         with span("native.unescape"):
-            _, lens_np = native.unescape_into(payloads, rows.numpy(),
-                                              lens.numpy())
+            _, lens_np = native.unescape_into(src, offsets, sizes,
+                                              rows.numpy(), lens.numpy())
         width = (int(lens_np.max()) + 3) & ~3
         if self.w_bytes is None:
             self.w_bytes = width
@@ -290,18 +296,26 @@ class AsyncTranscoder:
                 np.concatenate([o[2] for o in outs]))
 
     # ------------------------------------------------------------------
-    def batches(self, payload_iter):
+    def batches(self, src, offsets, sizes):
         """Yield each batch's re-encoded payloads, packed as `drain`
-        returns them, in input order; `depth` batches stay in flight.
-        One worker thread drains (the C escape releases the interpreter
-        lock) while this one unescapes and issues the next batch."""
-        it = iter(payload_iter)
+        returns them, in input order, for the stream of payloads
+        src[offsets[i]:offsets[i] + sizes[i]] (the tables cut into
+        batch_frames frames a batch, without copying); `depth` batches
+        stay in flight."""
+        bf = self.batch_frames
+        return self._serve((src, offsets[a:a + bf], sizes[a:a + bf])
+                           for a in range(0, len(offsets), bf))
+
+    def _serve(self, tables):
+        """`batches` over an iterator of table batches: one worker thread
+        drains (the C escape releases the interpreter lock) while this one
+        unescapes and issues the next batch."""
         self._base = 0
         pending = None                  # issued, not yet packed
         drains = collections.deque()    # packed, being drained in order
         with ThreadPoolExecutor(1) as worker:
             try:
-                while chunk := list(itertools.islice(it, self.batch_frames)):
+                for table in tables:
                     # the next slot is free once depth - 1 batches remain
                     while len(drains) + (pending is not None) >= self.depth:
                         if not drains:
@@ -312,7 +326,7 @@ class AsyncTranscoder:
                             with span("serve.wait_slot"):
                                 out = drains.popleft().result()
                             yield out
-                    batch = self.issue(chunk)
+                    batch = self.issue(*table)
                     if pending is not None:
                         self.pack(pending)
                         drains.append(worker.submit(self.drain, pending))
@@ -340,8 +354,12 @@ class AsyncTranscoder:
     def stream(self, payload_iter):
         """Yield re-encoded payloads (bytes) in input order; `depth`
         batches of `batch_frames` frames stay in flight ahead of the
-        oldest one being collected."""
-        for buf, offsets, lens in self.batches(payload_iter):
+        oldest one being collected.  Each batch's payloads are joined into
+        a table (`native.tables`) as the iterator gives them."""
+        it = iter(payload_iter)
+        chunks = iter(lambda: list(itertools.islice(it, self.batch_frames)),
+                      [])
+        for buf, offsets, lens in self._serve(map(native.tables, chunks)):
             for o, n in zip(offsets.tolist(), lens.tolist()):
                 yield buf[o:o + n].tobytes()
 
@@ -353,5 +371,5 @@ class AsyncTranscoder:
             return []
         if self.w_bytes is None:
             # escaped length bounds unescaped length (native stride rule)
-            self.w_bytes = native.row_stride(payloads)
+            self.w_bytes = native.row_stride([len(p) for p in payloads])
         return list(self.stream(payloads))

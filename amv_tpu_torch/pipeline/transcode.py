@@ -1,11 +1,13 @@
 """The complete AMV->AMV transcode (the port's main path).
 
 `transcode_bytes` is the counterpart of `amv_tpu/pipeline/transcode.py:
-transcode_bytes`: the RIFF demux, the video through
-`serving.AsyncTranscoder` (host C unescape into pinned memory, the device
-chain on CUDA streams: Huffman decode, DC prediction, block transcode,
-Huffman encode; host C escape/framing into one buffer) and the RIFF mux.
-Audio chunks pass through untouched.  `transcode_scans` is the chain up
+transcode_bytes`: the RIFF walk (the movi as offset and size tables into
+the file's bytes), the video through `serving.AsyncTranscoder` (host C
+unescape from the file's bytes into pinned memory, the device chain on
+CUDA streams: Huffman decode, DC prediction, block transcode, Huffman
+encode; host C escape/framing into one buffer a batch) and the RIFF
+write from those buffers and the input's audio tables.  Audio chunks
+pass through untouched.  `transcode_scans` is the chain up
 to the entropy encoder, which runs with no host sync.
 
 `transcode_complete(enc=...)` picks the entropy encoder, as
@@ -186,19 +188,15 @@ def transcode_bytes(data: bytes, *, qscale: int = 2, quant: str = "ffmpeg",
     from .serving import AsyncTranscoder
     with span("transcode_bytes"):
         dev = resolve_device(device)
-        s = riff.demux(data)
-        w, h = s.info.width, s.info.height
-        n = len(s.video_chunks)
+        info, v_off, v_size, a_off, a_size = riff.walk(data)
+        w, h = info.width, info.height
+        n = len(v_off)
         serve = n > int(os.environ.get("AMV_SERVE_THRESHOLD", "8192"))
         tr = AsyncTranscoder(((w + 15) // 16) * ((h + 15) // 16), qscale,
                              batch_frames=SERVE_BATCH_FRAMES if serve else
                              max(1, n), depth=4 if serve else 1,
-                             w_bytes=native.row_stride(s.video_chunks),
+                             w_bytes=native.row_stride(v_size),
                              size=(w, h), quant=quant, device=dev)
-        video = []
-        for buf, offsets, lens in tr.batches(s.video_chunks):
-            mv = memoryview(buf)
-            video += [mv[o:o + k] for o, k in zip(offsets.tolist(),
-                                                  lens.tolist())]
-        return riff.mux(video, s.audio_chunks, width=w, height=h,
-                        fps=s.info.fps_num, sample_rate=s.info.sample_rate)
+        video = list(tr.batches(data, v_off, v_size))
+        return riff.write(video, (data, a_off, a_size), width=w, height=h,
+                          fps=info.fps_num, sample_rate=info.sample_rate)

@@ -703,11 +703,11 @@ def serving_phase(m, dev, pays, want, audio, data, paths) -> None:
     tr = server()
     issue = tr.issue
 
-    def strict_issue(chunk):
+    def strict_issue(*table):
         """issue with any host sync an error"""
         torch.cuda.set_sync_debug_mode("error")
         try:
-            return issue(chunk)
+            return issue(*table)
         finally:
             torch.cuda.set_sync_debug_mode(0)
 
@@ -775,12 +775,13 @@ def serving_phase(m, dev, pays, want, audio, data, paths) -> None:
     # per-frame escape)
     split = {}
     s = staged(split, "demux", lambda: m.riff.demux(data))
-    n_v, stride = len(s.video_chunks), m.native.row_stride(s.video_chunks)
+    n_v = len(s.video_chunks)
+    stride = m.native.row_stride([len(p) for p in s.video_chunks])
     rows_h, lens_h = staged(split, "pinned_alloc", lambda: (
         torch.empty(n_v * stride, dtype=torch.uint8, pin_memory=cuda),
         torch.empty(n_v, dtype=torch.int64, pin_memory=cuda)))
     staged(split, "unescape", lambda: m.native.unescape_into(
-        s.video_chunks, rows_h.numpy(), lens_h.numpy()))
+        *m.native.tables(s.video_chunks), rows_h.numpy(), lens_h.numpy()))
     r_t, l_t = staged(split, "to_device", lambda: (
         rows_h.view(n_v, stride).to(dev, non_blocking=True),
         lens_h.to(dev, non_blocking=True)))

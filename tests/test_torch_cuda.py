@@ -892,11 +892,14 @@ def test_serving_issue_never_syncs(dev, served_clip):
     packed and drained outside it."""
     pays, want = served_clip
     tr = S.AsyncTranscoder(80, batch_frames=16, depth=3, size=(160, 120),
-                           w_bytes=native.row_stride(pays), device=dev)
+                           w_bytes=native.row_stride([len(p) for p in pays]),
+                           device=dev)
     tr.transcode(pays)                   # warm: library, buffers, tables
+    blob, offsets, sizes = native.tables(pays)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        batches = [tr.issue(pays[16 * k:16 * (k + 1)]) for k in range(3)]
+        batches = [tr.issue(blob, offsets[16 * k:16 * (k + 1)],
+                            sizes[16 * k:16 * (k + 1)]) for k in range(3)]
     finally:
         torch.cuda.set_sync_debug_mode(0)
     got = []

@@ -195,8 +195,9 @@ def _clip(n, h=32, w=48, seed=3):
 def test_served_transcode_records_its_stages(monkeypatch):
     """Past AMV_SERVE_THRESHOLD on the CPU route (batches of 2, 4 in
     flight): every stage's span under the one request, the drains on the
-    worker under their batches' issue, and the frames counted.  The CPU
-    route has no CUDA events, so no serve.wait_count or wait_packed."""
+    worker under their batches' issue, the frames and the chunks written
+    counted.  The CPU route has no CUDA events, so no serve.wait_count or
+    wait_packed."""
     n = 9
     data = _clip(n)
     monkeypatch.setattr(P, "SERVE_BATCH_FRAMES", 2)
@@ -207,7 +208,7 @@ def test_served_transcode_records_its_stages(monkeypatch):
         got = P.transcode_bytes(data, device="cpu")
     assert got == want
     spans, counters = prof.recorded()
-    assert counters == {"serve.frames": n}
+    assert counters == {"serve.frames": n, "riff.chunks": 2 * n}
     names = {s.name for s in spans}
     assert {"transcode_bytes", "riff.demux", "riff.mux", "serve.issue",
             "native.unescape", "serve.pack", "serve.drain", "native.escape",

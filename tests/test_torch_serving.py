@@ -7,9 +7,11 @@ any payload stream the served output equals the host re-encode
 (`huffman_decode_frames` -> `transcode_levels_fused` ->
 `huffman_encode_frame`) payload for payload, in input order, across
 batch boundaries, a partial last batch and batches narrower than the row
-width.  `transcode_bytes` over AMV_SERVE_THRESHOLD frames takes the
-served route and gives the whole-file route's bytes and the JAX
-package's.  Tolerance: byte equality.
+width, whether the payloads come as a list (`transcode`) or as tables
+into a file's bytes (`batches`).  `transcode_bytes` over
+AMV_SERVE_THRESHOLD frames takes the served route and gives the
+whole-file route's bytes and the JAX package's, with audio chunks or
+without.  Tolerance: byte equality.
 """
 
 import numpy as np
@@ -46,6 +48,10 @@ def _payloads(F, seed=7, spread=True):
     return [huffman_encode_frame(lv[f]) for f in range(F)]
 
 
+def _stride(payloads):
+    return native.row_stride([len(p) for p in payloads])
+
+
 def _want(payloads, qscale=2):
     """The JAX package's host re-encode."""
     import jax.numpy as jnp
@@ -55,15 +61,31 @@ def _want(payloads, qscale=2):
     return [huffman_encode_frame(lv2[f]) for f in range(len(payloads))]
 
 
-def test_serving_matches_host_reencode_across_batches():
+def _served(tr, pays, form):
+    """The served payloads of `pays`: a list through `transcode`, or
+    "tables" through `batches` over the tables `riff.walk` gives into a
+    file that interleaves them with audio chunks (the row width bounded
+    from the sizes, as `transcode_bytes` bounds it)."""
+    if form == "list":
+        return tr.transcode(pays)
+    data = riff.mux(pays, [bytes(range(5 + i)) for i in range(len(pays) // 2)],
+                    width=32, height=48, fps=16)
+    _, v_off, v_size, _, _ = riff.walk(data)
+    tr.w_bytes = native.row_stride(v_size)
+    return [buf[o:o + n].tobytes() for buf, offsets, lens in
+            tr.batches(data, v_off, v_size) for o, n in zip(offsets, lens)]
+
+
+@pytest.mark.parametrize("form", ["list", "tables"])
+def test_serving_matches_host_reencode_across_batches(form):
     # 20 frames shortest-first at batch_frames=8: two full batches and a
     # partial one; the first batch holds only short scans, so its rows are
     # narrower than the row width set from the whole input
     pays = sorted(_payloads(20), key=len)
     tr = serving.AsyncTranscoder(M, batch_frames=8, depth=2, device="cpu")
-    assert native.row_stride(pays[:8]) < native.row_stride(pays)
-    assert tr.transcode(pays) == _want(pays)
-    assert tr.w_bytes == native.row_stride(pays)
+    assert _stride(pays[:8]) < _stride(pays)
+    assert _served(tr, pays, form) == _want(pays)
+    assert tr.w_bytes == _stride(pays)
 
 
 def test_serving_lazy_width_guard():
@@ -73,7 +95,7 @@ def test_serving_lazy_width_guard():
     with pytest.raises(ValueError, match="row width"):
         list(tr.stream(pays))
     # the slots are free again after the error: a bounded stream runs
-    tr.w_bytes = native.row_stride(pays)
+    tr.w_bytes = _stride(pays)
     assert list(tr.stream(pays)) == _want(pays)
 
 
@@ -112,7 +134,8 @@ def test_serving_rejects_bad_arguments():
         serving.AsyncTranscoder(M, batch_frames=0, device="cpu")
 
 
-def test_serving_mesh_matches_host_reencode():
+@pytest.mark.parametrize("form", ["list", "tables"])
+def test_serving_mesh_matches_host_reencode(form):
     """Each batch's frames over a 2-position CPU mesh (tests/test_serving.py
     `test_serving_sharded_mesh_matches_host`), across batches with a short
     last one (20 frames at batch_frames=8: shards of 4, 4, 4, 4, 2, 2)."""
@@ -121,7 +144,7 @@ def test_serving_mesh_matches_host_reencode():
     tr = serving.AsyncTranscoder(M, batch_frames=8, depth=2,
                                  mesh=make_mesh(["cpu"] * 2))
     assert tr.devices == [torch.device("cpu")] * 2
-    assert tr.transcode(pays) == _want(pays)
+    assert _served(tr, pays, form) == _want(pays)
 
 
 def test_serving_mesh_arguments():
@@ -149,32 +172,40 @@ def test_serving_mesh_malformed_frame_names_its_stream_index():
     assert tr.transcode(good) == _want(good)
 
 
-def _clip(n, h, w, seed):
-    """(payloads, .amv bytes): C-encoded videogen frames with noise."""
+def _clip(n, h, w, seed, n_audio=0):
+    """(payloads, .amv bytes): C-encoded videogen frames with noise, and
+    n_audio audio chunks of distinct lengths."""
     rng = np.random.default_rng(seed)
     y, cb, cr = fixtures.videogen(n, h, w, seed=seed)
     cb, cr = cb[:, :h // 2, :w // 2], cr[:, :h // 2, :w // 2]
     y = np.clip(y.astype(np.int16) + rng.integers(-2, 3, y.shape), 0,
                 255).astype(np.uint8)
     pays = [native.ref_encode_frame(y[i], cb[i], cr[i], 2) for i in range(n)]
-    return pays, riff.mux(pays, [], width=w, height=h, fps=16)
+    audio = [rng.integers(0, 256, 30 + i, dtype=np.uint8).tobytes()
+             for i in range(n_audio)]
+    return pays, riff.mux(pays, audio, width=w, height=h, fps=16)
 
 
-@pytest.mark.parametrize("w,h,quant", [(48, 32, "ffmpeg"),
-                                       (168, 120, "ffmpeg"),
-                                       (25, 33, "ffmpeg"),
-                                       (48, 32, "q60")])
-def test_transcode_bytes_serves_long_files(monkeypatch, w, h, quant):
+@pytest.mark.parametrize("w,h,quant,n_audio", [(48, 32, "ffmpeg", 0),
+                                               (168, 120, "ffmpeg", 0),
+                                               (25, 33, "ffmpeg", 0),
+                                               (48, 32, "q60", 0),
+                                               (48, 32, "ffmpeg", 5),
+                                               (48, 32, "ffmpeg", 9)])
+def test_transcode_bytes_serves_long_files(monkeypatch, w, h, quant,
+                                           n_audio):
     """Over AMV_SERVE_THRESHOLD frames transcode_bytes takes the served
-    route (SERVE_BATCH_FRAMES a batch, 4 in flight); its bytes equal the
-    whole-file route's.  For quant "ffmpeg"
+    route (SERVE_BATCH_FRAMES a batch, here 3, 4 in flight); its bytes
+    equal the
+    whole-file route's, with fewer audio chunks than frames, more, or
+    none.  For quant "ffmpeg"
     they equal the C reference's and the JAX package's, except at
     168x120, where the JAX package's fused transform differs from C in
     the pad rows (ROADMAP queue 3); frames stay below the 4,096 bytes its
     CPU route truncates at.  q60 has no C oracle: the whole-file route is
     the reference.  AsyncTranscoder in batches of 3 gives the same
     payloads at every size and quantizer."""
-    pays, data = _clip(7, h, w, seed=w + h)
+    pays, data = _clip(7, h, w, seed=w + h, n_audio=n_audio)
     assert max(map(len, pays)) < 4096
     whole = P.transcode_bytes(data, quant=quant, device="cpu")
     made = []
@@ -185,6 +216,7 @@ def test_transcode_bytes_serves_long_files(monkeypatch, w, h, quant):
             made.append((self.batch_frames, self.depth))
 
     monkeypatch.setattr(serving, "AsyncTranscoder", Spy)
+    monkeypatch.setattr(P, "SERVE_BATCH_FRAMES", 3)    # batches 3, 3, 1
     monkeypatch.setenv("AMV_SERVE_THRESHOLD", "6")
     assert P.transcode_bytes(data, quant=quant, device="cpu") == whole
     monkeypatch.setenv("AMV_SERVE_THRESHOLD", "7")
@@ -251,10 +283,10 @@ def test_unescape_into_a_used_buffer():
     caller's buffers, whatever they held before."""
     pays = _payloads(9, seed=2) + [b"\xff\xd8\x12\xff\x00\x34\xff\xd9"]
     rows_w, lens_w = native.unescape_frames(pays)
-    stride = native.row_stride(pays)
+    stride = _stride(pays)
     buf = np.full(len(pays) * stride + 7, 0xAB, np.uint8)
     lens_buf = np.full(len(pays) + 1, -1, np.int64)
-    rows, lens = native.unescape_into(pays, buf, lens_buf)
+    rows, lens = native.unescape_into(*native.tables(pays), buf, lens_buf)
     assert rows.shape == (len(pays), stride) and rows.flags.c_contiguous
     assert np.shares_memory(rows, buf) and np.shares_memory(lens, lens_buf)
     assert lens.tolist() == lens_w.tolist()
@@ -262,4 +294,4 @@ def test_unescape_into_a_used_buffer():
         assert rows[i, :n].tobytes() == rows_w[i, :n].tobytes()
     assert lens[-1] == 3 and rows[-1, :3].tolist() == [0x12, 0xFF, 0x34]
     with pytest.raises(ValueError, match="unescape_into"):
-        native.unescape_into(pays, buf[:stride], lens_buf)
+        native.unescape_into(*native.tables(pays), buf[:stride], lens_buf)
